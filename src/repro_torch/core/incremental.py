@@ -1,0 +1,245 @@
+"""Incremental ψ-score serving runtime — backend-pluggable, delta-rebuilt.
+
+The Alg. 2 iteration is an affine contraction (ρ(A) < 1), so after a graph or
+activity update the fixed point moves continuously; restarting the power
+iteration from the previous s* instead of c needs only
+O(log(‖Δs*‖/ε) / log(1/ρ)) iterations — typically a handful for small updates.
+
+:class:`PsiService` is built on :class:`~repro_torch.core.engine.PsiEngine`:
+any registered backend serves queries, every backend warm-starts from the
+previous fixed point, and mutations go through the engines' O(Δ) delta hooks
+instead of a full operator rebuild. :class:`RankingCache` is the batched
+query layer: the descending order is computed once per fixed point and
+memoized until the next mutation.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..graphs.structure import Graph
+from .activity import Activity
+from .engine import PsiEngine, make_engine
+from .operators import _validate_rates
+from .power_psi import PsiResult
+
+__all__ = ["PsiService", "RankingCache", "RankedQueries"]
+
+
+class RankingCache:
+    """Batched query layer over one ψ fixed point.
+
+    Memoizes the descending sort (one ``argsort`` per fixed point, not per
+    query); ``top_k`` uses ``torch.topk`` on the device-resident ψ so a
+    small k never round-trips through a host sort.
+    """
+
+    def __init__(self, psi: torch.Tensor):
+        self._psi_dev = psi
+        self._psi = psi.detach().cpu().numpy()
+        self._order: np.ndarray | None = None
+        self._rank: np.ndarray | None = None
+
+    @property
+    def psi(self) -> np.ndarray:
+        return self._psi
+
+    def scores_batch(self, users: np.ndarray) -> np.ndarray:
+        return self._psi[np.asarray(users)]
+
+    def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        k = min(int(k), self._psi.size)           # clip like argsort[:k]
+        if self._order is not None:               # sort already paid for
+            idx = self._order[:k]
+            return idx, self._psi[idx]
+        vals, idx = torch.topk(self._psi_dev, k)
+        return idx.cpu().numpy(), vals.cpu().numpy()
+
+    def rank_of(self, users: np.ndarray) -> np.ndarray:
+        self._ensure_order()
+        return self._rank[np.asarray(users)]
+
+    def _ensure_order(self) -> None:
+        if self._order is None:
+            self._order = np.argsort(-self._psi, kind="stable")
+            rank = np.empty_like(self._order)
+            rank[self._order] = np.arange(self._order.size)
+            self._rank = rank
+
+
+class RankedQueries:
+    """Read-side ψ-query surface over an abstract ``_query()``.
+
+    Subclasses provide ``_query() -> RankingCache`` (fresh for the current
+    fixed point); the mixin supplies the canonical reads.
+    """
+
+    def _query(self) -> RankingCache:
+        raise NotImplementedError
+
+    def scores(self) -> np.ndarray:
+        return self._query().psi
+
+    def scores_batch(self, users: np.ndarray) -> np.ndarray:
+        """ψ for a batch of users (no ranking sort paid)."""
+        return self._query().scores_batch(users)
+
+    def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        return self._query().top_k(k)
+
+    def rank_of(self, users: np.ndarray) -> np.ndarray:
+        return self._query().rank_of(users)
+
+
+class PsiService(RankedQueries):
+    """Maintains ψ-scores for a mutable (graph, activity) pair.
+
+    Args:
+      graph, activity: the initial platform state.
+      tol / max_iter: shared convergence criterion for every (re)solve.
+      backend: engine name — ``reference`` (default) or ``cuda`` (alias
+        ``pallas``); see :func:`repro_torch.core.engine.make_engine`.
+      check_every: gap-evaluation cadence of the solver loop; 1 keeps the
+        per-iteration check.
+      dtype: working float type (float32 by default).
+      device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
+      engine_opts: extra backend kwargs (``regime=...``, ``tile=...``).
+    """
+
+    def __init__(self, graph: Graph, activity: Activity, *, tol: float = 1e-8,
+                 max_iter: int = 10_000, backend: str = "reference",
+                 check_every: int = 1, dtype: torch.dtype | None = None,
+                 device: str | torch.device = "cuda",
+                 engine_opts: dict | None = None):
+        self.tol = tol
+        self.max_iter = max_iter
+        opts = dict(engine_opts or {})
+        if check_every != 1:
+            opts.setdefault("check_every", check_every)
+        self._engine: PsiEngine = make_engine(
+            backend, graph=graph, activity=activity,
+            dtype=dtype or torch.float32, device=device, **opts)
+        self._last: PsiResult | None = None
+        self._cache: RankingCache | None = None
+        self._pending = False            # deferred patches awaiting resolve
+
+    # -- queries -------------------------------------------------------- #
+    @property
+    def backend(self) -> str:
+        return self._engine.name
+
+    @property
+    def engine(self) -> PsiEngine:
+        return self._engine
+
+    @property
+    def graph(self) -> Graph:
+        return self._engine.graph
+
+    def last_iterations(self) -> int:
+        self._query()
+        return int(self._last.iterations)
+
+    @property
+    def last_result(self) -> PsiResult | None:
+        """The most recent solve's :class:`PsiResult` (None before the
+        first solve); does not trigger a solve."""
+        return self._last
+
+    # -- mutations (each warm-starts from the previous s*) --------------- #
+    # ``resolve=False`` defers the warm re-solve: patches accumulate at the
+    # engine level and the *stale* RankingCache keeps serving until
+    # :meth:`resolve`. An empty delta is a true no-op.
+    def update_activity(self, users: np.ndarray, lam: np.ndarray | None = None,
+                        mu: np.ndarray | None = None, *,
+                        resolve: bool = True) -> None:
+        users = np.asarray(users).reshape(-1)
+        if users.size == 0:
+            return
+        # reject NaN/Inf/negative rates before any engine is touched, so a
+        # rejected patch leaves the service serving its current fixed point
+        _validate_rates(lam, mu)
+        if not self._engine.patch_activity(users, lam=lam, mu=mu):
+            self._full_rebuild(activity=self._patched_activity(users, lam, mu))
+        self._pending = True
+        if resolve:
+            self._resolve()
+
+    def add_edges(self, src: np.ndarray, dst: np.ndarray, *,
+                  resolve: bool = True) -> None:
+        src = np.asarray(src, np.int32).reshape(-1)
+        dst = np.asarray(dst, np.int32).reshape(-1)
+        if src.size == 0:
+            return
+        if not self._engine.patch_edges(src, dst):
+            g = self._engine.graph
+            merged = Graph(
+                g.n, np.concatenate([g.src, src]),
+                np.concatenate([g.dst, dst]),
+                name=g.name).dedup()
+            self._full_rebuild(graph=merged)
+        self._pending = True
+        if resolve:
+            self._resolve()
+
+    def remove_edges(self, src: np.ndarray, dst: np.ndarray, *,
+                     resolve: bool = True) -> None:
+        """Delete follow edges (unfollow tombstones); pairs not present are
+        ignored. Backends without an incremental shrink hook re-``prepare``
+        from the filtered graph (warm start still carries over)."""
+        src = np.asarray(src, np.int32).reshape(-1)
+        dst = np.asarray(dst, np.int32).reshape(-1)
+        if src.size == 0:
+            return
+        if not self._engine.unpatch_edges(src, dst):
+            g = self._engine.graph
+            keep = ~np.isin(g.src.astype(np.int64) * g.n + g.dst,
+                            src.astype(np.int64) * g.n + dst)
+            self._full_rebuild(graph=Graph(g.n, g.src[keep], g.dst[keep],
+                                           name=g.name))
+        self._pending = True
+        if resolve:
+            self._resolve()
+
+    @property
+    def stale(self) -> bool:
+        """True when deferred patches have not been re-solved yet (queries
+        then serve the previous fixed point's ranking)."""
+        return self._pending
+
+    def resolve(self) -> None:
+        """Warm re-solve if any deferred patch is pending or nothing was
+        solved yet."""
+        if self._pending or self._last is None:
+            self._resolve()
+
+    # -- internals ------------------------------------------------------ #
+    def _patched_activity(self, users, lam, mu) -> Activity:
+        act = self._engine.activity
+        new_lam, new_mu = act.lam.copy(), act.mu.copy()
+        if lam is not None:
+            new_lam[np.asarray(users)] = lam
+        if mu is not None:
+            new_mu[np.asarray(users)] = mu
+        return Activity(new_lam, new_mu)
+
+    def _full_rebuild(self, graph: Graph | None = None,
+                      activity: Activity | None = None) -> None:
+        self._engine.prepare(graph or self._engine.graph,
+                             activity or self._engine.activity)
+
+    def _resolve(self) -> None:
+        prev_s = None if self._last is None else self._last.s
+        self._last = self._engine.run(tol=self.tol, max_iter=self.max_iter,
+                                      s0=prev_s)
+        self._cache = None                        # ranking invalidated
+        self._pending = False
+
+    def _query(self) -> RankingCache:
+        if self._last is None:
+            self._last = self._engine.run(tol=self.tol,
+                                          max_iter=self.max_iter)
+            self._cache = None
+        if self._cache is None:
+            self._cache = RankingCache(self._last.psi)
+        return self._cache

@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: it never loads jax or the JAX package."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+SLICE_MODULES = [
+    "repro_torch", "repro_torch.device", "repro_torch.convert",
+    "repro_torch.graphs", "repro_torch.graphs.structure",
+    "repro_torch.graphs.generators", "repro_torch.graphs.datasets",
+    "repro_torch.core", "repro_torch.core.activity",
+    "repro_torch.core.operators", "repro_torch.core.power_psi",
+    "repro_torch.core.engine", "repro_torch.core.incremental",
+    "repro_torch.kernels", "repro_torch.kernels.formats",
+    "repro_torch.kernels.ref", "repro_torch.kernels._build",
+    "repro_torch.kernels.power_step", "repro_torch.kernels.bsr_spmv",
+    "repro_torch.kernels.ops", "repro_torch.launch",
+    "repro_torch.launch.serve",
+]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_slice_module_list_covers_the_package():
+    found = set()
+    for path in PORT.rglob("*.py"):
+        parts = path.relative_to(PORT.parent).with_suffix("").parts
+        found.add(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    assert found == set(SLICE_MODULES)
+
+
+def test_no_file_names_jax_or_repro_in_an_import():
+    """AST scan, so lazy imports inside functions are caught too. The
+    card-only tests are scanned as well: the card's machine has no jax."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "test_torch_cuda.py"]
+    offenders = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.name}:{node.lineno} {n}" for n in names
+                          if _forbidden(n)]
+    assert not offenders, offenders
