@@ -5,15 +5,17 @@ Run from the repository root on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, into
-``build/``), then runs five phases and fails (exit 1) on the first check
-that does not hold:
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, all
+sources at once, into ``build/``), then runs these phases and fails (exit 1)
+on the first check that does not hold:
 
 1. device: CUDA present, the card's name and power limit, kernel build time;
 2. every kernel on the card against its plain PyTorch version on the same
-   inputs (``power_step``'s on CPU copies, which sum in the kernel's slot
-   order), at float32 and float64, at the main path's shapes and on ragged
-   cases, and twice on the same inputs (outputs must be bitwise equal);
+   inputs (``power_step``'s and ``edge_spmv``'s on CPU copies, which sum in
+   the kernel's slot order), at float32 and float64, at the main path's
+   shapes, at every shape the autotuner may pick or time (edge tiles 128,
+   256, 512; BSR ``td`` 128 and 256), on ragged and padded cases, and twice
+   on the same inputs (outputs must be bitwise equal);
 3. the serving path in the ``edge_tile`` regime: ``PsiService`` on the
    twitter stand-in with ``backend="cuda"`` through a cold solve, ranked
    requests, an activity update, an edge insert into free sentinel slots
@@ -21,12 +23,21 @@ that does not hold:
    backend at float64 on the card;
 4. the same in the ``bsr`` regime on a clustered graph, with an edge insert
    into an existing dense tile;
-5. times: CUDA events, warm, for each kernel, its plain version and one
+5. ``backend="auto"`` on both graphs: a cold solve and a warm activity
+   update, first with the cost model's plan (which must equal the plan
+   computed on the host), then with ``microbench=True`` (every candidate's
+   push kernel timed on the card; the candidate table is printed), each
+   fixed point at gap 0 and held against the float64 reference;
+6. ``accelerate=True`` on the ``cuda`` backend at float64 on the twitter
+   stand-in: the same ψ as the reference in fewer mat-vecs than the plain
+   loop;
+7. times: CUDA events, warm, for each kernel, its plain version and one
    PyTorch sparse call for the same push, beside the kernel's bound.
 
-Phases 3 and 4 are the main path: every launch counter is set to 0 just
-before them and read just after, and each kernel must have launched there.
-The last line of standard output is ``{"ok": true, "device": {...}}``.
+Phases 3 to 6 are the main paths (the auto phase is two: model-only and
+microbench): every launch counter is set to 0 just before each path and
+read just after, and each kernel of a path must have launched there. The
+last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -52,6 +63,9 @@ F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 POWER_TOL = {"float32": (1e-6, 1e-7), "float64": (1e-14, 1e-16)}
 GAP_RTOL = {"float32": 1e-4, "float64": 1e-10}
 BSR_TOL = {"float32": (2e-5, 2e-6), "float64": (1e-12, 1e-14)}
+# the model-only plan the cost model gives both graphs (computed on the
+# host in the run as well; the two must agree)
+AUTO_MODEL_LABEL = "edge_tile(tile=512,e1=8,e2=128)"
 
 
 class SmokeFailure(Exception):
@@ -118,12 +132,12 @@ def edge_tile_inputs(graph, dtype, *, tile=256, pad_blocks=0, seed=0):
     return fmt_h, fmt, args
 
 
-def bsr_inputs(graph, dtype, *, seed=0):
+def bsr_inputs(graph, dtype, *, td=128, seed=0):
     import torch
     from repro_torch.device import numpy_dtype
     from repro_torch.kernels.formats import build_bsr
     from repro_torch.kernels.ops import DeviceBsr
-    fmt_h = build_bsr(graph, dtype=numpy_dtype(dtype))
+    fmt_h = build_bsr(graph, td=td, dtype=numpy_dtype(dtype))
     fmt = DeviceBsr.from_format(fmt_h, "cuda")
     rng = np.random.default_rng(seed)
     s_pad = torch.zeros(1, fmt.n_src_pad, dtype=dtype, device="cuda")
@@ -138,7 +152,8 @@ def push_csr(graph, dtype):
     """Aᵀ of the bare push as a CUDA CSR tensor (rows = dst, cols = src):
     the yardstick library call ``torch.sparse.mm(csr, s_pre)``."""
     import torch
-    src, dst = graph.edges_by_dst
+    order = np.lexsort((graph.src, graph.dst))    # by dst, then src: CSR
+    src = graph.src[order]                        # wants sorted columns
     crow = np.concatenate([[0], np.cumsum(graph.in_degree)]).astype(np.int64)
     return torch.sparse_csr_tensor(
         torch.as_tensor(crow), torch.as_tensor(src.astype(np.int64)),
@@ -192,6 +207,10 @@ def phase_kernels(report: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False    # plain bmm in full f32
     twitter = load_dataset("twitter")
     cases = [("twitter", twitter, 256, 0), ("twitter+pad", twitter, 256, 7),
+             ("twitter t128", twitter, 128, 0),
+             ("twitter t128+pad", twitter, 128, 7),
+             ("twitter t512", twitter, 512, 0),
+             ("twitter t512+pad", twitter, 512, 7),
              ("ragged n=300", erdos_renyi(300, 1500, seed=21), 128, 0),
              ("n=n_pad=256", erdos_renyi(256, 2000, seed=22), 128, 0)]
     errs = report.setdefault("max_abs_err", {})
@@ -216,7 +235,7 @@ def phase_kernels(report: dict) -> None:
                                                           1e-30)
             check(gap_rel <= gtol, f"power_step {cname} {dname}: gap rel "
                   f"err {gap_rel:.3e} > {gtol}")
-            say(f"power_step {cname:13s} {dname}: {fmt_h.num_tiles} tiles, "
+            say(f"power_step {cname:16s} {dname}: {fmt_h.num_tiles} tiles, "
                 f"{fmt_h.num_blocks} blocks (max {fmt_h.tile_num_blocks.max()}"
                 f"/tile), max abs err {err:.3e} (rtol {rtol}, atol {atol}; "
                 f"worst element at {share:.3g} of its limit), gap rel err "
@@ -230,14 +249,15 @@ def phase_kernels(report: dict) -> None:
                                  seed=3)
     report["clustered"] = clustered
     report["twitter"] = twitter
-    bcases = [("clustered", clustered),
-              ("ragged n=1000", clustered_blocks(1000, 8000, block=128,
-                                                 p_in=0.9, seed=23))]
+    ragged = clustered_blocks(1000, 8000, block=128, p_in=0.9, seed=23)
+    bcases = [("clustered", clustered, 128),
+              ("clustered td256", clustered, 256),
+              ("ragged n=1000", ragged, 128), ("ragged td256", ragged, 256)]
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).removeprefix("torch.")
         rtol, atol = BSR_TOL[dname]
-        for cname, g in bcases:
-            fmt_h, fmt, args = bsr_inputs(g, dtype)
+        for cname, g, td in bcases:
+            fmt_h, fmt, args = bsr_inputs(g, dtype, td=td)
             kw = dict(num_dst_tiles=fmt.num_dst_tiles)
             o1 = bsr_spmv_call(*args, **kw)
             o2 = bsr_spmv_call(*args, **kw)
@@ -247,7 +267,7 @@ def phase_kernels(report: dict) -> None:
             op = bsr_spmv_plain(*args[:4], **kw)
             err, share = _compare(f"bsr_spmv {cname} {dname}", o1, op, rtol,
                                   atol)
-            say(f"bsr_spmv {cname:13s} {dname}: {fmt_h.num_blocks} tiles "
+            say(f"bsr_spmv {cname:15s} {dname}: {fmt_h.num_blocks} tiles "
                 f"({fmt_h.tiles.nbytes / 1e6:.1f} MB, occupancy "
                 f"{fmt_h.occupancy:.3f}), max abs err {err:.3e} "
                 f"(rtol {rtol}, atol {atol}; worst element at {share:.3g} of "
@@ -257,14 +277,84 @@ def phase_kernels(report: dict) -> None:
                 report["bsr_spmv_share"] = share
             del fmt, args, o1, o2, op
         torch.cuda.empty_cache()
+    edge_spmv_cases(report, twitter)
 
 
-def _check_fixed_point(tag, svc, ref, counter, before, report) -> None:
+def _slot_weights(fmt_h, dtype, seed):
+    """Random per-edge weights in the slot layout, 0 in sentinel slots."""
+    import torch
+    w = np.random.default_rng(seed).uniform(0.5, 2.0,
+                                            size=fmt_h.src_idx.shape)
+    w[fmt_h.src_idx == fmt_h.n] = 0.0
+    return torch.as_tensor(w, dtype=dtype, device="cuda")
+
+
+def edge_spmv_cases(report: dict, twitter) -> None:
+    """edge_spmv on the twitter stand-in's format at every edge-tile shape
+    the autotuner times, plain and with 7 pad blocks, weighted and not, at
+    f32 and f64, against its plain version on CPU copies of the inputs."""
+    import torch
+    from repro_torch.kernels.edge_spmv import edge_spmv_call, edge_spmv_plain
+    from repro_torch.kernels.formats import (build_edge_tiles,
+                                             pad_edge_tile_blocks)
+    from repro_torch.kernels.ops import DeviceEdgeTiles
+    worst = (0.0, 0.0)
+    for tile in (128, 256, 512):
+        base = build_edge_tiles(twitter, tile=tile)
+        for pad in (0, 7):
+            fmt_h = (pad_edge_tile_blocks(base, base.num_blocks + pad)
+                     if pad else base)
+            fmt = DeviceEdgeTiles.from_format(fmt_h, "cuda")
+            host_fmt = [t.cpu() for t in (fmt.src_idx, fmt.dst_local,
+                                          fmt.block_tile)]
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).removeprefix("torch.")
+                # both add in slot order and round the weight product
+                # before the sum: they should agree to the last bit; held
+                # at power_step's tolerances
+                rtol, atol = POWER_TOL[dname]
+                s = torch.as_tensor(
+                    np.random.default_rng(tile + pad).uniform(size=fmt.n),
+                    dtype=dtype, device="cuda")
+                s_pre = fmt.pad_gather_source(s)
+                for weighted in (False, True):
+                    w = (_slot_weights(fmt_h, dtype, tile + pad + 1)
+                         if weighted else None)
+                    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+                            fmt.tile_first_block, fmt.tile_num_blocks, w)
+                    kw = dict(n=fmt.n, tile=tile)
+                    o1 = edge_spmv_call(*args, **kw)
+                    o2 = edge_spmv_call(*args, **kw)
+                    torch.cuda.synchronize()
+                    name = (f"edge_spmv t{tile}{'+pad' if pad else ''} "
+                            f"{'weighted' if weighted else 'plain'} {dname}")
+                    check(torch.equal(o1, o2), f"{name}: two runs differ")
+                    op = edge_spmv_plain(s_pre.cpu(), *host_fmt,
+                                         None if w is None else w.cpu(),
+                                         tile=tile, num_tiles=fmt.num_tiles)
+                    err, share = _compare(name, o1.cpu(), op, rtol, atol)
+                    worst = max(worst, (share, err))
+                    say(f"{name:34s}: {fmt_h.num_blocks} blocks, max abs err "
+                        f"{err:.3e} (rtol {rtol}, atol {atol}; worst element "
+                        f"at {share:.3g} of its limit), bitwise repeatable")
+                    if tile == 512 and not pad and not weighted \
+                            and dname == "float32":
+                        report["max_abs_err"]["edge_spmv"] = err
+            del fmt, host_fmt
+    report["edge_spmv_share"] = worst[0]
+    say(f"edge_spmv: 24 cases, worst element at {worst[0]:.3g} of its limit "
+        f"(max abs err {worst[1]:.3e})")
+
+
+def _check_fixed_point(tag, svc, ref, counter, before, report,
+                       exact_gap=False) -> None:
     import torch
     res, ref_res = svc.last_result, ref.last_result
     check(res is not None and ref_res is not None, f"{tag}: no solve")
     check(res.converged, f"{tag}: not converged after {res.iterations} "
           f"iterations (gap {res.gap:.3e}, tol {svc.tol})")
+    check(not exact_gap or res.gap == 0.0,
+          f"{tag}: gap {res.gap:.3e}, not exactly 0")
     check(ref_res.converged, f"{tag}: f64 reference did not converge")
     psi = res.psi.double()
     rel = float((psi - ref_res.psi).abs().sum() / ref_res.psi.abs().sum())
@@ -364,6 +454,130 @@ def phase_bsr(report: dict) -> None:
                    report, {"regime": "bsr"}, (src, dst))
 
 
+def phase_auto(report: dict, microbench: bool) -> None:
+    """``PsiService(backend="auto")`` on both graphs: the plan, a cold
+    solve and a warm activity update, each fixed point at gap 0 and held
+    against the f64 reference. Model-only, the plan must be the one the
+    cost model gives on the host; with ``microbench`` the candidate table
+    (every candidate's push kernel timed on the card) is printed."""
+    import torch
+    from repro_torch.core import PsiService, heterogeneous
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.bsr_spmv import bsr_spmv_call
+    from repro_torch.kernels.power_step import power_step_call
+    from repro_torch.obs import explain
+    mode = "microbench" if microbench else "model"
+    for gname in ("twitter", "clustered"):
+        g = report[gname]
+        act = heterogeneous(g.n, seed=6)
+        tag = f"auto[{mode}] {gname}"
+        # the cost model's pick, on the host: no device, no calibration
+        host = autotune.plan_regime(g, cache=None, calibration=None)
+        t0 = time.perf_counter()
+        svc = PsiService(g, act, tol=1e-8, backend="auto", device="cuda",
+                         engine_opts={"microbench": microbench})
+        plan = svc.engine.plan
+        say(f"{tag}: plan {plan.label()} (source {plan.source}, est "
+            f"{plan.est_bytes / 1e6:.2f} MB a step) in "
+            f"{time.perf_counter() - t0:.2f} s; host model plan "
+            f"{host.label()}")
+        if microbench:
+            check(plan.source == "microbench",
+                  f"{tag}: plan source {plan.source}")
+            rec = explain.get_log().last(kind="regime_plan")
+            rows = [(c.name, c.est, c.measured_us, c.chosen)
+                    for c in rec.candidates]
+            check(all(us > 0 for _, _, us, _ in rows),
+                  f"{tag}: a candidate was not timed")
+            pruned = ", ".join(p.name for p in rec.pruned) or "none"
+            say(f"{tag}: candidate table (label, est_bytes, measured us, "
+                f"chosen); pruned: {pruned}")
+            for name, est, us, chosen in rows:
+                say(f"  candidate {gname:9s} {name:32s} {est:14.0f} "
+                    f"{us:10.2f}  {'chosen' if chosen else ''}")
+        else:
+            check(plan.source == "model" and plan.label() == host.label()
+                  == AUTO_MODEL_LABEL,
+                  f"{tag}: plan {plan.label()} ({plan.source}) != host "
+                  f"model plan {host.label()} / {AUTO_MODEL_LABEL}")
+        ref = PsiService(g, act, tol=1e-12, backend="reference",
+                         dtype=torch.float64, device="cuda")
+        counter = (power_step_call if svc.engine.regime == "edge_tile"
+                   else bsr_spmv_call)
+        before = counter.launches
+        svc.scores()
+        ref.scores()
+        _check_fixed_point(f"{tag} cold", svc, ref, counter, before, report,
+                           exact_gap=True)
+        u = int(np.random.default_rng(3).integers(0, g.n))
+        before = counter.launches
+        for x in (svc, ref):
+            x.update_activity(np.asarray([u]),
+                              lam=np.asarray([act.lam[u] * 20]))
+        _check_fixed_point(f"{tag} update_activity", svc, ref, counter,
+                           before, report, exact_gap=True)
+        report.setdefault("auto_plans", {})[f"{mode}/{gname}"] = plan.label()
+        del svc, ref
+        torch.cuda.empty_cache()
+
+
+def phase_accelerate(report: dict) -> None:
+    """``accelerate=True`` on the cuda backend at f64, tol 1e-9, against
+    the plain loop and the f64 reference on the card.
+
+    On the twitter stand-in (heterogeneous rates, seed 6) the plain loop
+    contracts fast (r ≈ 0.47 a step) and the JAX package's Aitken loop gains
+    nothing there: its second jump is reverted, which disables the rest, so
+    both packages take 45 mat-vecs, as the plain loop does. The check there
+    is the loop's own bound — a reverted jump wastes one mat-vec and the
+    body's two-step cadence at most one more. On the graph of the JAX
+    package's acceleration test (``powerlaw_configuration(3000, 20000,
+    seed=4)``, heterogeneous seed 5; 29 against 42 mat-vecs on the CPU) the
+    accelerated loop must take strictly fewer mat-vecs."""
+    import torch
+    from repro_torch.core import heterogeneous, make_engine
+    from repro_torch.graphs import powerlaw_configuration
+    from repro_torch.kernels.power_step import power_step_call
+    cases = [("twitter", report["twitter"], 6, False),
+             ("powerlaw3000", powerlaw_configuration(3000, 20000, seed=4), 5,
+              True)]
+    out = {}
+    for gname, g, seed, must_gain in cases:
+        kw = dict(graph=g, activity=heterogeneous(g.n, seed=seed),
+                  dtype=torch.float64, device="cuda")
+        ref = make_engine("reference", **kw).run(tol=1e-12)
+        runs = {}
+        for accelerate in (False, True):
+            eng = make_engine("cuda", accelerate=accelerate, **kw)
+            before = power_step_call.launches
+            res = eng.run(tol=1e-9)
+            launched = power_step_call.launches - before
+            tag = (f"cuda f64 {'accelerated' if accelerate else 'plain'} "
+                   f"{gname}")
+            check(res.converged, f"{tag}: not converged (gap {res.gap:.3e})")
+            check(launched == res.iterations,
+                  f"{tag}: {launched} launches for {res.iterations} mat-vecs")
+            err = float((res.psi - ref.psi).abs().max())
+            rel = float((res.psi - ref.psi).abs().sum()
+                        / ref.psi.abs().sum())
+            check(err <= 1e-9, f"{tag}: max |ψ−ψ_ref| = {err:.3e} > 1e-9")
+            say(f"{tag} (tol 1e-9): {res.iterations} iterations, "
+                f"{res.matvecs} mat-vecs, gap {res.gap:.3e}, max |ψ−ψ_ref| "
+                f"{err:.3e}, rel L1 {rel:.3e}")
+            runs[accelerate] = res.matvecs
+        plain, acc = runs[False], runs[True]
+        say(f"accelerate {gname}: {acc} mat-vecs accelerated against {plain} "
+            f"plain")
+        if must_gain:
+            check(acc < plain, f"{gname}: accelerated used {acc} mat-vecs, "
+                  f"plain {plain}: not fewer")
+        else:
+            check(acc <= plain + 2, f"{gname}: accelerated used {acc} "
+                  f"mat-vecs, plain {plain}: beyond the loop's bound")
+        out[gname] = (plain, acc)
+    report["accelerate_matvecs"] = out
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -400,7 +614,7 @@ def phase_times(report: dict) -> list[dict]:
         name="power_step", route="cuda",
         source="src/repro_torch/kernels/csrc/power_step.cu",
         replaces="src/repro/kernels/power_step.py:66",
-        launches=report["launches"]["power_step"],
+        launches=report["launches"]["edge_tile"]["power_step"],
         max_abs_err=report["max_abs_err"]["power_step"], ms=ms,
         plain_ms=plain_ms, bound_ms=bound,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
@@ -414,6 +628,17 @@ def phase_times(report: dict) -> list[dict]:
         f"and is timed warm), plain {plain_ms:.4f} ms, "
         f"torch.sparse.mm CSR push {lib_ms:.4f} ms")
     del csr, x
+    # power_step at the autotuner's other edge tiles, same graph and dtype
+    ms_by_tile = {256: ms}
+    for tile in (128, 512):
+        _, fmt_t, args_t = edge_tile_inputs(eng.graph, torch.float32,
+                                            tile=tile)
+        ms_by_tile[tile] = time_ms(
+            lambda: power_step_call(*args_t, n=fmt_t.n, tile=tile), 200)
+    report["power_step_ms_by_tile"] = ms_by_tile
+    say("power_step (twitter, f32) ms/launch by tile: "
+        + ", ".join(f"{t}: {v:.4f}" for t, v in sorted(ms_by_tile.items())))
+    del fmt_t, args_t
 
     # bsr_spmv at the bsr service's shapes: clustered graph, float32
     eng = report["bsr_service"].engine
@@ -446,7 +671,7 @@ def phase_times(report: dict) -> list[dict]:
         name="bsr_spmv", route="cuda",
         source="src/repro_torch/kernels/csrc/bsr_spmv.cu",
         replaces="src/repro/kernels/bsr_spmv.py:39",
-        launches=report["launches"]["bsr_spmv"],
+        launches=report["launches"]["bsr"]["bsr_spmv"],
         max_abs_err=report["max_abs_err"]["bsr_spmv"], ms=ms,
         plain_ms=plain_ms, bound_ms=bound,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
@@ -461,6 +686,52 @@ def phase_times(report: dict) -> list[dict]:
         f"s_pre, t), plain {plain_ms:.4f} ms, torch.sparse.mm CSR push "
         f"{lib_ms:.4f} ms")
     del csr, x
+
+    # edge_spmv at the tile the cost model picks for the twitter stand-in,
+    # unweighted, f32 — the shape the auto --microbench path times (it also
+    # launches tiles 128 and 256)
+    from repro_torch.kernels.edge_spmv import edge_spmv_call, edge_spmv_plain
+    from repro_torch.kernels.formats import build_edge_tiles
+    from repro_torch.kernels.ops import DeviceEdgeTiles
+    g = report["twitter"]
+    fmt = DeviceEdgeTiles.from_format(build_edge_tiles(g, tile=512), "cuda")
+    s = torch.as_tensor(np.random.default_rng(0).random(g.n),
+                        dtype=torch.float32, device="cuda")
+    s_pre = fmt.pad_gather_source(s)
+    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+            fmt.tile_first_block, fmt.tile_num_blocks)
+    kw = dict(n=fmt.n, tile=fmt.tile)
+    ms = time_ms(lambda: edge_spmv_call(*args, **kw), 200)
+    plain_ms = time_ms(lambda: edge_spmv_plain(
+        *args[:4], tile=fmt.tile, num_tiles=fmt.num_tiles), 200)
+    csr = push_csr(g, torch.float32)
+    x = s_pre[0, :fmt.n, None].contiguous()
+    lib_ms = time_ms(lambda: torch.sparse.mm(csr, x), 200)
+    elt = s.element_size()
+    # every slot's src_idx, dst_local of the real slots only (the kernel
+    # skips the sentinels'; no weights on this path), the block ranges,
+    # s_pre's n entries once and the padded output once
+    real = int((fmt.src_idx < fmt.n).sum())
+    nbytes = (fmt.src_idx.nbytes + 4 * real + fmt.tile_first_block.nbytes
+              + fmt.tile_num_blocks.nbytes + elt * (fmt.n + fmt.n_pad))
+    flops = real
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+    rows.append(dict(
+        name="edge_spmv", route="cuda",
+        source="src/repro_torch/kernels/csrc/edge_spmv.cu",
+        replaces="src/repro/kernels/edge_spmv.py:64",
+        launches=report["launches"]["auto_microbench"]["edge_spmv"],
+        max_abs_err=report["max_abs_err"]["edge_spmv"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= flops / F32_FLOP_PER_S else "operations"),
+        library_ms=lib_ms))
+    say(f"edge_spmv (twitter, tile 512, f32): {ms:.4f} ms/launch, "
+        f"{rows[-1]['launches']} launches on the auto --microbench path, "
+        f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {real} "
+        f"real slots of {fmt.src_idx.numel()}), plain {plain_ms:.4f} ms, "
+        f"torch.sparse.mm CSR push {lib_ms:.4f} ms")
+    del csr, x, fmt, s_pre, args
 
     # end-to-end cold resolve (host clock, synchronized), three repeats
     for tag in ("edge_tile", "bsr"):
@@ -510,9 +781,11 @@ def profile_resolve(tag, eng) -> float | None:
 
 def summary(report: dict) -> str:
     """The run's main facts on one line, for readers of the output's tail:
-    iterations and rel L1 error of each fixed point (edge_tile, then bsr),
-    the worst kernel element's share of its limit, min cold resolve ms and
-    the profiled busy share of each regime, bsr_spmv's nonzero floor."""
+    iterations and rel L1 error of each fixed point (edge_tile, bsr, then
+    the auto runs), the worst kernel element's share of its limit, min cold
+    resolve ms and the profiled busy share of each regime, bsr_spmv's
+    nonzero floor, the auto plans, the plain and accelerated f64 mat-vecs
+    and power_step's ms at each edge tile."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -523,7 +796,12 @@ def summary(report: dict) -> str:
         "resolve_ms": {k: g(report[f"{k}_resolve"][1])
                        for k in ("edge_tile", "bsr")},
         "busy": {k: g(report[f"{k}_busy"]) for k in ("edge_tile", "bsr")},
-        "bsr_nonzero_bound_ms": g(report["bsr_nonzero_bound_ms"])})
+        "bsr_nonzero_bound_ms": g(report["bsr_nonzero_bound_ms"]),
+        "edge_spmv_share": g(report["edge_spmv_share"]),
+        "auto_plans": report["auto_plans"],
+        "accelerate_matvecs": report["accelerate_matvecs"],
+        "power_step_ms_by_tile": {k: g(v) for k, v in
+                                  report["power_step_ms_by_tile"].items()}})
 
 
 def main() -> int:
@@ -533,20 +811,32 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call
+    from repro_torch.kernels.edge_spmv import edge_spmv_call
     from repro_torch.kernels.power_step import power_step_call
     report: dict = {}
-    counters = {"power_step": power_step_call, "bsr_spmv": bsr_spmv_call}
+    counters = {"power_step": power_step_call, "bsr_spmv": bsr_spmv_call,
+                "edge_spmv": edge_spmv_call}
+    # each main path and the kernels it must launch
+    paths = [("edge_tile", phase_edge_tile, ("power_step",)),
+             ("bsr", phase_bsr, ("bsr_spmv",)),
+             ("auto_model", lambda r: phase_auto(r, False), ("power_step",)),
+             ("auto_microbench", lambda r: phase_auto(r, True),
+              ("edge_spmv", "bsr_spmv")),
+             ("accelerate", phase_accelerate, ("power_step",))]
     try:
         phase_device(report)
         phase_kernels(report)
-        for fn in counters.values():
-            fn.launches = 0                      # main path starts here
-        phase_edge_tile(report)
-        phase_bsr(report)
-        report["launches"] = {k: fn.launches for k, fn in counters.items()}
-        say(f"main path launches: {report['launches']}")
-        for k, n in report["launches"].items():
-            check(n > 0, f"kernel {k} never launched on the main path")
+        report["launches"] = {}
+        for path, run, needs in paths:
+            for fn in counters.values():
+                fn.launches = 0                  # this main path starts here
+            run(report)
+            got = {k: fn.launches for k, fn in counters.items()}
+            report["launches"][path] = got
+            say(f"main path {path}: launches {got}")
+            for k in needs:
+                check(got[k] > 0, f"kernel {k} never launched on the main "
+                      f"path {path}")
         rows = phase_times(report)
     except SmokeFailure as exc:
         print(f"[smoke] FAIL: {exc}", file=sys.stderr)

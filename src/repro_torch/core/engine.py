@@ -14,10 +14,18 @@ Backends are registered by name and constructed through :func:`make_engine`:
   * ``cuda`` (alias ``pallas``) — the hand-written CUDA kernels in one of
     two execution regimes: the fused edge-tile ``power_step`` kernel
     (hyper-sparse graphs) or the dense-tile ``bsr_spmv`` kernel (clustered
-    graphs); pick with ``regime=``. On ``device="cpu"`` the same engine runs
-    each kernel's plain PyTorch version.
+    graphs); pick with ``regime=`` or hand over a
+    :class:`~repro_torch.kernels.autotune.RegimePlan`. On ``device="cpu"``
+    the same engine runs each kernel's plain PyTorch version.
+  * ``auto`` — a ``cuda`` engine whose regime and tile parameters are
+    chosen per graph by the :mod:`repro_torch.kernels.autotune` planner
+    (cost model, optional one-shot micro-benchmark, plan cache,
+    calibration store).
+  * ``accelerated`` — the ``reference`` iteration wrapped in the Aitken
+    extrapolation loop (:func:`_accelerated_loop`); any other backend opts
+    in with ``accelerate=True``.
 
-Both share one :class:`ConvergenceCriterion` — ε on ‖B‖·‖Δs‖ per Eq. 19 —
+All share one :class:`ConvergenceCriterion` — ε on ‖B‖·‖Δs‖ per Eq. 19 —
 and report interchangeable :class:`~repro_torch.core.power_psi.PsiResult`
 values (``s`` always in node order, so one backend's result warm-starts
 another). Engines expose the O(Δ) delta hooks (``patch_activity`` /
@@ -30,13 +38,16 @@ CUDA device is present unless ``device="cpu"`` is passed.
 PyTorch has no ``lax.while_loop``: the loop runs ``check_every`` steps on
 the device, then reads the gap on the host. ``iterations`` lands on a
 multiple of ``check_every``, never stops above the tolerance, and
-``matvecs = iterations + 1`` — the JAX package's semantics.
+``matvecs = iterations + 1`` — the JAX package's semantics. The accelerated
+loop reads the gap once per body of two mat-vecs and counts mat-vecs in
+``iterations``.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
 import inspect
+import time
 from typing import Any
 
 import numpy as np
@@ -47,13 +58,15 @@ from ..graphs.structure import Graph
 from ..kernels.formats import build_bsr, build_edge_tiles
 from ..kernels.ops import (DeviceBsr, DeviceEdgeTiles, _i32, bsr_spmv,
                            power_step)
+from ..obs import calibrate as obs_calibrate
 from .activity import Activity
 from .operators import HostOperators, PsiOperators
 from .power_psi import _NORMS, PsiResult
 
 __all__ = ["ConvergenceCriterion", "EngineState", "PsiEngine",
-           "ReferenceEngine", "CudaEngine", "make_engine", "register_backend",
-           "available_backends", "make_reference_step"]
+           "ReferenceEngine", "AcceleratedEngine", "CudaEngine", "AutoEngine",
+           "make_engine", "register_backend", "available_backends",
+           "make_reference_step"]
 
 
 # --------------------------------------------------------------------- #
@@ -105,10 +118,16 @@ class PsiEngine(abc.ABC):
     Alg. 2 step over ``_step_args()``; :meth:`_loop` and :meth:`step`
     drive it.
 
-    ``check_every=k`` evaluates the convergence gap every k-th iteration:
-    the k−1 steps between checks run back to back on the device with no
-    host read, and ``iterations`` lands on a multiple of k (overshoot < k,
-    never undershoot).
+    Loop-shaping options shared by every backend:
+
+    * ``accelerate`` — wrap the backend's step in the Aitken extrapolation
+      loop (:func:`_accelerated_loop`).
+    * ``extrapolate_every`` — target plain iterations between jump attempts.
+    * ``check_every=k`` evaluates the convergence gap every k-th iteration:
+      the k−1 steps between checks run back to back on the device with no
+      host read, and ``iterations`` lands on a multiple of k (overshoot < k,
+      never undershoot). Ignored by the accelerated loop, whose pairing of
+      a jump with its verify step fixes the cadence at 2.
     """
 
     name: str = "abstract"
@@ -116,11 +135,14 @@ class PsiEngine(abc.ABC):
     def __init__(self, *, dtype: torch.dtype = torch.float32,
                  device: str | torch.device = "cuda",
                  criterion: ConvergenceCriterion | None = None,
+                 accelerate: bool = False, extrapolate_every: int = 8,
                  check_every: int = 1):
         numpy_dtype(dtype)                       # rejects non-float dtypes
         self.dtype = dtype
         self.device = resolve_device(device)
         self.criterion = criterion or ConvergenceCriterion()
+        self.accelerate = bool(accelerate)
+        self.extrapolate_every = int(extrapolate_every)
         self.check_every = max(1, int(check_every))
         self._graph: Graph | None = None
         self._graph_stale = False
@@ -197,8 +219,12 @@ class PsiEngine(abc.ABC):
               max_iter: int) -> tuple[torch.Tensor, torch.Tensor, int]:
         """Iterate from native-layout ``s`` until ``gap ≤ tol`` (compared in
         the working dtype) or ``t ≥ max_iter``; returns (s, gap, t) with the
-        gap on the host."""
+        gap on the host. With ``accelerate`` the Aitken loop runs instead."""
         args, scale, k = self._step_args(), self._scale(), self.check_every
+        if self.accelerate:
+            return _accelerated_loop(
+                self.one_step, args, s, scale, tol, max_iter,
+                extrapolate_every=self.extrapolate_every)
         tol_t = torch.tensor(tol, dtype=self.dtype)
         gap = torch.tensor(float("inf"), dtype=self.dtype)
         t = 0
@@ -291,6 +317,68 @@ def make_reference_step(norm: str = "l1"):
     return one_step
 
 
+def _accelerated_loop(step_with_gap, args, s0: torch.Tensor,
+                      scale: torch.Tensor, tol: float, max_iter: int, *,
+                      extrapolate_every: int = 8):
+    """Aitken / geometric-series extrapolation around *any* backend step.
+
+    ``step_with_gap(args, s) -> (s_new, raw_gap)`` is a backend's
+    ``one_step``. Each loop body consumes exactly two mat-vecs and advances
+    either two plain iterations or one extrapolated jump plus its
+    verification step:
+
+        s₁ = step(s);  Δ = s₁ − s;  r = ‖Δ_t‖/‖Δ_{t−1}‖
+        s_x = s₁ + Δ · r/(1−r)      every ``extrapolate_every // 2`` bodies,
+                                    while contracting (0 < r < 0.999) and
+                                    far from tolerance (gap > 100·tol)
+        s₂ = step(s_x)              # verification (or second plain step)
+
+    The termination gap is *always* ``scale·‖s₂ − s_x‖`` — measured across
+    a genuine plain iteration — so the Eq. 19 guarantee survives every
+    jump. A jump that fails to shrink the gap is reverted and disables all
+    future jumps (plain Power-ψ at one wasted mat-vec); a stalled ratio
+    (r ≈ 1, a floating-point period-2 cycle) triggers a Krasnoselskii
+    averaging kick, which is always safe for a contraction.
+
+    The jump decisions are tensors on the device (``torch.where``); the
+    host reads the gap once a body, as :meth:`PsiEngine._loop` reads it
+    every ``check_every`` steps. Returns ``(s, gap on the host, t)`` with
+    ``t`` the mat-vecs consumed. The semantics are those of the JAX
+    package's ``_make_accelerated_loop``. Near a dtype's fixed-point floor
+    a jump can land in a basin whose plain f32 iteration limit-cycles;
+    request tolerances ≥ ~100·ulp for f32, or run float64.
+    """
+    kb = max(1, int(extrapolate_every) // 2)   # loop bodies between attempts
+    dtype, dev = s0.dtype, s0.device
+    tol_d = torch.tensor(tol, dtype=dtype, device=dev)
+    tol_h = torch.tensor(tol, dtype=dtype)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    prev_dn = torch.full((), float("inf"), dtype=dtype, device=dev)
+    enabled = torch.ones((), dtype=torch.bool, device=dev)
+    gap = torch.tensor(float("inf"), dtype=dtype)
+    s, t, j = s0, 0, 0
+    while bool(gap > tol_h) and t < max_iter:
+        s1, raw1 = step_with_gap(args, s)
+        gap_plain = scale * raw1
+        r = raw1 / torch.clamp(prev_dn, min=1e-30)
+        do_jump = ((r > 0.0) & (r < 0.999) & (gap_plain > 100.0 * tol_d)
+                   & enabled) if j % kb == kb - 1 else no
+        jump = torch.where(do_jump, r / (1.0 - r), torch.zeros_like(r))
+        s_x = s1 + (s1 - s) * jump            # == s₁ when not jumping
+        s2, raw2 = step_with_gap(args, s_x)
+        gap_ver = scale * raw2
+        bad = do_jump & (gap_ver >= gap_plain)
+        enabled = enabled & ~bad
+        s_next = torch.where(bad, s1, s2)
+        gap_d = torch.where(bad, gap_plain, gap_ver)
+        prev_dn = torch.where(bad, raw1, raw2)
+        stall = ~do_jump & (r > 0.999) & torch.isfinite(r)
+        s = torch.where(stall, 0.5 * (s_x + s2), s_next)
+        t, j = t + 2, j + 1
+        gap = gap_d.cpu()
+    return s, gap, t
+
+
 # --------------------------------------------------------------------- #
 # reference — edge-form segmented-sum iteration (power_psi semantics)
 # --------------------------------------------------------------------- #
@@ -330,6 +418,19 @@ class ReferenceEngine(PsiEngine):
         return True
 
 
+@register_backend("accelerated")
+class AcceleratedEngine(ReferenceEngine):
+    """Aitken-extrapolated ``reference`` iteration: the engine-level loop
+    composition every backend can opt into (``make_engine("cuda",
+    accelerate=True)``, …). ``iterations`` / ``matvecs`` count mat-vecs
+    actually consumed — the currency an extrapolated loop is judged in.
+    """
+
+    def __init__(self, **kw):
+        kw["accelerate"] = True
+        super().__init__(**kw)
+
+
 # --------------------------------------------------------------------- #
 # cuda — hand-written kernels in two execution regimes
 # --------------------------------------------------------------------- #
@@ -355,7 +456,7 @@ class CudaEngine(PsiEngine):
 
     def __init__(self, *, regime: str = "edge_tile", tile: int = 256,
                  e1: int = 8, e2: int = 128, ts: int = 128, td: int = 128,
-                 **kw):
+                 plan=None, **kw):
         super().__init__(**kw)
         if self.criterion.norm != "l1":
             raise ValueError("cuda backend computes the gap in l1; "
@@ -363,9 +464,20 @@ class CudaEngine(PsiEngine):
         self.tile, self.e1, self.e2 = tile, e1, e2
         self.ts, self.td = ts, td
         self.format_builds = 0
-        self._set_regime(regime)
+        if plan is not None:
+            self._apply_plan(plan)
+        else:
+            self._set_regime(regime)
 
     # -- regime plumbing ------------------------------------------------ #
+    def _apply_plan(self, plan) -> None:
+        """Adopt a :class:`~repro_torch.kernels.autotune.RegimePlan`."""
+        if plan.regime == "edge_tile":
+            self.tile, self.e1, self.e2 = plan.tile, plan.e1, plan.e2
+        else:
+            self.ts, self.td = plan.ts, plan.td
+        self._set_regime(plan.regime)
+
     def _set_regime(self, regime: str) -> None:
         if regime == "edge_tile":
             def one_step(args, s):
@@ -541,3 +653,63 @@ class CudaEngine(PsiEngine):
         self.fmt.tiles.index_put_(
             idx, torch.ones(b.size, dtype=self.dtype, device=self.device),
             accumulate=True)
+
+
+# --------------------------------------------------------------------- #
+# auto — the cuda engine with its regime chosen per graph
+# --------------------------------------------------------------------- #
+@register_backend("auto")
+class AutoEngine(CudaEngine):
+    """``cuda`` with the regime chosen per graph by the autotuner.
+
+    ``prepare`` asks :func:`repro_torch.kernels.autotune.plan_regime` for
+    the cheapest execution plan at the engine's dtype on its device (cost
+    model by default; ``microbench=True`` times one push launch of every
+    candidate). Plans are memoized in the process-level
+    :data:`~repro_torch.kernels.autotune.PLAN_CACHE` (or ``plan_cache=``)
+    keyed by graph *structure*, so ``patch_activity`` / warm re-``prepare``
+    cycles never re-plan, and the regime is re-installed only when the plan
+    changes.
+
+    Every ``run`` of more than 3 iterations feeds the resolve's wall time
+    per iteration to the :mod:`repro_torch.obs.calibrate` store as a
+    (modeled bytes, measured µs) sample for the plan's regime, under the key
+    of the engine's device and dtype (``calibrate=False`` opts out).
+    """
+
+    def __init__(self, *, microbench: bool = False, plan_cache=None,
+                 calibrate: bool = True, **kw):
+        kw.pop("regime", None)          # the planner owns the regime
+        self.microbench = bool(microbench)
+        self.calibrate = bool(calibrate)
+        self._plan_cache = plan_cache
+        self.plan = None
+        super().__init__(**kw)
+
+    def prepare(self, graph: Graph, activity: Activity) -> EngineState:
+        from ..kernels import autotune
+        cache = (autotune.PLAN_CACHE if self._plan_cache is None
+                 else self._plan_cache)
+        plan = autotune.plan_regime(
+            graph, microbench=self.microbench, dtype=self.dtype,
+            device=self.device, cache=cache,
+            calibration=(autotune._USE_GLOBAL if self.calibrate else None))
+        if plan != self.plan:
+            self.plan = plan
+            self._apply_plan(plan)
+        return super().prepare(graph, activity)
+
+    def run(self, *, tol=None, max_iter=None, s0=None) -> PsiResult:
+        t0 = time.perf_counter()
+        res = super().run(tol=tol, max_iter=max_iter, s0=s0)
+        wall = time.perf_counter() - t0
+        # a >3-iteration resolve amortizes the fixed overhead enough for
+        # wall/iter to stand in for the step time the model predicts
+        if (self.calibrate and self.plan is not None and res.iterations > 3
+                and wall > 0.0 and self.plan.est_bytes > 0.0):
+            obs_calibrate.get_store().observe(
+                self.plan.regime, self.plan.est_bytes,
+                wall / res.iterations * 1e6,
+                env=obs_calibrate.env_key(self.device, self.dtype),
+                source="step_span")
+        return res

@@ -14,10 +14,13 @@ memoized until the next mutation.
 """
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 
 from ..graphs.structure import Graph
+from ..kernels.autotune import choose_solver
 from .activity import Activity
 from .engine import PsiEngine, make_engine
 from .operators import _validate_rates
@@ -97,23 +100,30 @@ class PsiService(RankedQueries):
     Args:
       graph, activity: the initial platform state.
       tol / max_iter: shared convergence criterion for every (re)solve.
-      backend: engine name — ``reference`` (default) or ``cuda`` (alias
-        ``pallas``); see :func:`repro_torch.core.engine.make_engine`.
+      backend: engine name — ``reference`` (default), ``cuda`` (alias
+        ``pallas``), ``auto`` or ``accelerated``; see
+        :func:`repro_torch.core.engine.make_engine`.
+      accelerate: opt the chosen backend into the Aitken-extrapolated loop;
+        ``accelerated`` implies it.
       check_every: gap-evaluation cadence of the solver loop; 1 keeps the
         per-iteration check.
       dtype: working float type (float32 by default).
       device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
-      engine_opts: extra backend kwargs (``regime=...``, ``tile=...``).
+      engine_opts: extra backend kwargs (``regime=...``, ``tile=...``,
+        ``microbench=...``).
     """
 
     def __init__(self, graph: Graph, activity: Activity, *, tol: float = 1e-8,
                  max_iter: int = 10_000, backend: str = "reference",
-                 check_every: int = 1, dtype: torch.dtype | None = None,
+                 accelerate: bool = False, check_every: int = 1,
+                 dtype: torch.dtype | None = None,
                  device: str | torch.device = "cuda",
                  engine_opts: dict | None = None):
         self.tol = tol
         self.max_iter = max_iter
         opts = dict(engine_opts or {})
+        if accelerate:
+            opts.setdefault("accelerate", True)
         if check_every != 1:
             opts.setdefault("check_every", check_every)
         self._engine: PsiEngine = make_engine(
@@ -122,6 +132,7 @@ class PsiService(RankedQueries):
         self._last: PsiResult | None = None
         self._cache: RankingCache | None = None
         self._pending = False            # deferred patches awaiting resolve
+        self._dirty = 0                  # patched rows/edges since last solve
 
     # -- queries -------------------------------------------------------- #
     @property
@@ -162,6 +173,7 @@ class PsiService(RankedQueries):
         if not self._engine.patch_activity(users, lam=lam, mu=mu):
             self._full_rebuild(activity=self._patched_activity(users, lam, mu))
         self._pending = True
+        self._dirty += int(users.size)
         if resolve:
             self._resolve()
 
@@ -179,6 +191,7 @@ class PsiService(RankedQueries):
                 name=g.name).dedup()
             self._full_rebuild(graph=merged)
         self._pending = True
+        self._dirty += int(src.size)
         if resolve:
             self._resolve()
 
@@ -198,6 +211,7 @@ class PsiService(RankedQueries):
             self._full_rebuild(graph=Graph(g.n, g.src[keep], g.dst[keep],
                                            name=g.name))
         self._pending = True
+        self._dirty += int(src.size)
         if resolve:
             self._resolve()
 
@@ -214,6 +228,24 @@ class PsiService(RankedQueries):
             self._resolve()
 
     # -- internals ------------------------------------------------------ #
+    def _plan_query(self, k: int | None) -> None:
+        """Record the push-vs-global solver plan for a query.
+
+        Advisory: the engine already committed to its backend, so the
+        :func:`~repro_torch.kernels.autotune.choose_solver` verdict only
+        lands in the decision log (:mod:`repro_torch.obs.explain`) — what
+        the planner *would* pick from the dirty fraction and k. Pure host
+        arithmetic over counts the service already tracks: no device work
+        and no behaviour change.
+        """
+        host = self._engine.host
+        if host is None or host.n <= 0:
+            return
+        k = host.n if k is None else max(int(k), 1)  # full resolve ≡ k=n
+        choose_solver(types.SimpleNamespace(n=host.n, m=host.m),
+                      dirty_frac=min(1.0, self._dirty / host.n),
+                      k_frac=min(1.0, k / host.n))
+
     def _patched_activity(self, users, lam, mu) -> Activity:
         act = self._engine.activity
         new_lam, new_mu = act.lam.copy(), act.mu.copy()
@@ -229,11 +261,13 @@ class PsiService(RankedQueries):
                              activity or self._engine.activity)
 
     def _resolve(self) -> None:
+        self._plan_query(None)                    # log the solver verdict
         prev_s = None if self._last is None else self._last.s
         self._last = self._engine.run(tol=self.tol, max_iter=self.max_iter,
                                       s0=prev_s)
         self._cache = None                        # ranking invalidated
         self._pending = False
+        self._dirty = 0
 
     def _query(self) -> RankingCache:
         if self._last is None:

@@ -6,9 +6,9 @@ tensor the kernel.
 """
 from .formats import (EdgeTileFormat, BsrFormat, build_edge_tiles, build_bsr,
                       pad_edge_tile_blocks)
-from .ops import DeviceEdgeTiles, DeviceBsr, power_step, bsr_spmv
+from .ops import DeviceEdgeTiles, DeviceBsr, power_step, edge_spmv, bsr_spmv
 from . import ref
 
 __all__ = ["EdgeTileFormat", "BsrFormat", "build_edge_tiles", "build_bsr",
            "pad_edge_tile_blocks", "DeviceEdgeTiles", "DeviceBsr",
-           "power_step", "bsr_spmv", "ref"]
+           "power_step", "edge_spmv", "bsr_spmv", "ref"]

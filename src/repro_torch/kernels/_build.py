@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/<name>-<digest>.so`` at the repository root
-(a directory git ignores); the digest covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Nothing is built
+(a directory git ignores); the digest covers the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. Nothing is built
 when a module is imported: the first CUDA launch of a kernel builds its
 library, and :func:`build_all` starts every ``nvcc`` at once when a caller
 wants them all up front.
@@ -28,7 +29,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("power_step", "bsr_spmv")
+SOURCES = ("power_step", "bsr_spmv", "edge_spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,8 +51,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

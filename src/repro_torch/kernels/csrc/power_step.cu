@@ -16,13 +16,11 @@
 //     tile's block range (tile_first_block / tile_num_blocks, taken from
 //     block_tile, not from the block_last flags that pad blocks move).
 //   * The TPU's one-hot matmul (its workaround for having no scatter) is
-//     dropped. Each block's gathered values and dst_local rows are staged in
-//     shared memory; thread r then sums, in slot order, the values whose row
-//     is r. All threads of a warp read the same word, so the reads are
-//     broadcasts. The sum has a fixed order: no atomics, so the f32 iteration
-//     is a deterministic map and can reach an exact fixed point (gap 0).
-//   * Sentinel slots (src == n) are skipped wherever they lie, so slots filled
-//     later by edge patches need not come before them.
+//     dropped. The gather and the fixed-order, atomic-free sum into the
+//     tile are the shared core in edge_tile_scan.cuh (also used by
+//     edge_spmv.cu), so the f32 iteration is a deterministic map and can
+//     reach an exact fixed point (gap 0); sentinel slots are skipped
+//     wherever they lie.
 //   * Each CTA writes its partial gap; a second one-CTA kernel sums the
 //     partials in a fixed order.
 //   This is the simple, right version: every thread scans every slot of its
@@ -30,6 +28,8 @@
 //   work.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "edge_tile_scan.cuh"
 
 namespace {
 
@@ -70,24 +70,9 @@ __global__ void power_step_kernel(const T* __restrict__ s_pre, int n,
   int32_t* rows = reinterpret_cast<int32_t*>(vals + eblk);     // [eblk]
   const int tile = blockDim.x;
   const int r = threadIdx.x;
-  const int64_t b0 = tile_first_block[blockIdx.x];
-  const int nb = tile_num_blocks[blockIdx.x];
-
-  T acc = T(0);
-  for (int k = 0; k < nb; ++k) {
-    const int64_t base = (b0 + k) * (int64_t)eblk;
-    for (int e = r; e < eblk; e += tile) {
-      const int32_t j = src_idx[base + e];
-      const bool real = j >= 0 && j < n;                       // sentinel is n
-      vals[e] = real ? s_pre[j] : T(0);
-      rows[e] = real ? dst_local[base + e] : -1;
-    }
-    __syncthreads();
-    for (int e = 0; e < eblk; ++e) {
-      if (rows[e] == r) acc += vals[e];
-    }
-    __syncthreads();
-  }
+  const T acc = repro::tile_scan<T, false>(
+      s_pre, n, src_idx, dst_local, nullptr, tile_first_block[blockIdx.x],
+      tile_num_blocks[blockIdx.x], eblk, vals, rows);
 
   const int64_t node = (int64_t)blockIdx.x * tile + r;
   const T sn = mu[node] * acc + c[node];

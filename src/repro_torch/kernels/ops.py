@@ -4,9 +4,9 @@
 kernels and the engine read (the per-tile block ranges the CUDA kernels walk
 among them) as tensors on an explicit device. The host formats' first/last
 block flags stay on the host.
-:func:`power_step` and :func:`bsr_spmv` keep the signatures of the JAX
-package's wrappers; each launches its CUDA kernel on a CUDA tensor and runs
-the plain PyTorch version on a CPU tensor.
+:func:`power_step`, :func:`edge_spmv` and :func:`bsr_spmv` keep the
+signatures of the JAX package's wrappers; each launches its CUDA kernel on
+a CUDA tensor and runs the plain PyTorch version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -18,10 +18,12 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .bsr_spmv import bsr_spmv_call
+from .edge_spmv import edge_spmv_call
 from .formats import BsrFormat, EdgeTileFormat
 from .power_step import power_step_call
 
-__all__ = ["DeviceEdgeTiles", "DeviceBsr", "power_step", "bsr_spmv"]
+__all__ = ["DeviceEdgeTiles", "DeviceBsr", "power_step", "edge_spmv",
+           "bsr_spmv"]
 
 
 def _i32(x, device) -> torch.Tensor:
@@ -127,6 +129,16 @@ def power_step(s: torch.Tensor, inv_w_gather: torch.Tensor,
         s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
         fmt.tile_first_block, fmt.tile_num_blocks, mu_pad, c_pad, s,
         n=fmt.n, tile=fmt.tile)
+
+
+def edge_spmv(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,
+              weights: torch.Tensor | None = None) -> torch.Tensor:
+    """t_i = Σ_{(j→i)} w_e s_pre_j over the edge-tile format. ``weights``
+    (optional) is f[num_blocks, e1, e2] in the slot layout. Returns f[n]."""
+    out = edge_spmv_call(fmt.pad_gather_source(s_pre), fmt.src_idx,
+                         fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
+                         fmt.tile_num_blocks, weights, n=fmt.n, tile=fmt.tile)
+    return out[0, :fmt.n]
 
 
 def bsr_spmv(s_pre: torch.Tensor, fmt: DeviceBsr) -> torch.Tensor:

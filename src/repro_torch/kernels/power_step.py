@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from . import _build
+from .edge_spmv import edge_spmv_plain
 
 __all__ = ["power_step_call", "power_step_plain"]
 
@@ -26,14 +27,11 @@ def power_step_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
                      mu: torch.Tensor, c: torch.Tensor, s_old: torch.Tensor,
                      *, tile: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the fused step (same inputs, same
-    padded ``[1, n_pad]`` layout). Sentinel slots gather ``s_pre[n] == 0``."""
-    num_blocks = src_idx.shape[0]
-    vals = s_pre[0][src_idx.reshape(num_blocks, -1).long()]
-    rows = (block_tile.long()[:, None] * tile
-            + dst_local.reshape(num_blocks, -1).long())
-    t = torch.zeros(mu.shape[1], dtype=s_pre.dtype, device=s_pre.device)
-    t.index_add_(0, rows.reshape(-1), vals.reshape(-1))
-    s_new = mu * t[None, :] + c
+    padded ``[1, n_pad]`` layout): the plain push of :mod:`.edge_spmv`,
+    then the epilogue. Sentinel slots gather ``s_pre[n] == 0``."""
+    t = edge_spmv_plain(s_pre, src_idx, dst_local, block_tile, tile=tile,
+                        num_tiles=mu.shape[1] // tile)
+    s_new = mu * t + c
     return s_new, torch.sum(torch.abs(s_new - s_old))
 
 

@@ -1,13 +1,16 @@
 """Serving launcher: batched ψ-score queries on one graph.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch psi-score \
-        --backend cuda --requests 4
+        --backend auto --microbench --requests 4
 
 The single-tenant loop of the JAX package's launcher, on the same graph and
 seeds, printing the same lines: a cold solve, the top-k, ``--requests``
 batches of ``rank_of`` + ``scores_batch``, and a live activity update
-mid-traffic. ``--device cuda`` (the default) needs a card; ``--device cpu``
-runs the plain PyTorch versions of the kernels.
+mid-traffic. ``--backend auto`` lets the autotuner pick the kernel regime
+(``--microbench`` times every candidate instead of trusting the cost
+model) and prints the plan; ``--accelerate`` wraps any backend's step in
+the Aitken-extrapolated loop. ``--device cuda`` (the default) needs a card;
+``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -25,9 +28,16 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--top-k", type=int, default=3)
     ap.add_argument("--backend", default="reference",
-                    help="ψ solver backend: reference | cuda (alias pallas)")
+                    help="ψ solver backend: reference | cuda (alias pallas) "
+                         "| auto | accelerated")
+    ap.add_argument("--accelerate", action="store_true",
+                    help="wrap the backend's step in the Aitken-"
+                         "extrapolated loop")
     ap.add_argument("--check-every", type=int, default=1,
                     help="evaluate the convergence gap every k-th iteration")
+    ap.add_argument("--microbench", action="store_true",
+                    help="auto backend: time one push launch of every regime "
+                         "candidate instead of trusting the cost model")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -37,11 +47,18 @@ def main(argv=None) -> None:
     g = powerlaw_configuration(10_000, 70_000, seed=5)
     act = heterogeneous(g.n, seed=6)
     t0 = time.perf_counter()
+    engine_opts = {"microbench": True} if (
+        args.backend == "auto" and args.microbench) else None
     svc = PsiService(g, act, tol=1e-8, backend=args.backend,
-                     check_every=args.check_every, device=args.device)
+                     accelerate=args.accelerate,
+                     check_every=args.check_every, device=args.device,
+                     engine_opts=engine_opts)
     regime = getattr(svc.engine, "regime", None)
+    plan = getattr(svc.engine, "plan", None)
     print(f"[serve] backend={svc.backend}"
           + (f" regime={regime}" if regime else "")
+          + (f" plan={plan.label()} source={plan.source}" if plan else "")
+          + (" accelerated" if svc.engine.accelerate else "")
           + f" device={svc.engine.device}")
     svc.scores()
     print(f"[serve] backend={svc.backend} warm in "

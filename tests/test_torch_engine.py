@@ -128,7 +128,8 @@ def test_make_engine_rejects_unknown_options_and_backends():
         tc.make_engine("cuda", device="cpu", regime="dense")
     with pytest.raises(ValueError, match="activity"):
         tc.make_engine("cuda", device="cpu", graph=_graphs()[0])
-    assert tc.available_backends() == ("cuda", "reference")
+    assert tc.available_backends() == ("accelerated", "auto", "cuda",
+                                       "reference")
     assert isinstance(tc.make_engine("pallas", device="cpu"), tc.CudaEngine)
 
 

@@ -15,11 +15,16 @@ SLICE_MODULES = [
     "repro_torch.core", "repro_torch.core.activity",
     "repro_torch.core.operators", "repro_torch.core.power_psi",
     "repro_torch.core.engine", "repro_torch.core.incremental",
+    "repro_torch.core.accelerated",
     "repro_torch.kernels", "repro_torch.kernels.formats",
     "repro_torch.kernels.ref", "repro_torch.kernels._build",
     "repro_torch.kernels.power_step", "repro_torch.kernels.bsr_spmv",
+    "repro_torch.kernels.edge_spmv", "repro_torch.kernels.autotune",
     "repro_torch.kernels.ops", "repro_torch.launch",
     "repro_torch.launch.serve",
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.log",
+    "repro_torch.obs.convergence", "repro_torch.obs.explain",
+    "repro_torch.obs.calibrate", "repro_torch.obs.env",
 ]
 
 

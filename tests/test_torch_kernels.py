@@ -4,7 +4,8 @@ their checks against the plain versions are in ``test_torch_cuda.py``.
 
 Tolerances are those of the JAX package's own kernel sweeps: ``s_new`` at
 rtol 2e-5 / atol 2e-6 and the gap at relative 1e-3 for the fused step,
-rtol/atol 2e-5 for the BSR product — f32 sums taken in another order.
+rtol/atol 2e-5 for the BSR product and the bare ``edge_spmv`` push — f32
+sums taken in another order. At f64 the push is held at 1e-12.
 """
 import stat
 
@@ -18,10 +19,11 @@ import repro_torch.core as tc
 import repro_torch.graphs as tg
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.bsr_spmv import bsr_spmv_call
+from repro_torch.kernels.edge_spmv import edge_spmv_call
 from repro_torch.kernels.formats import (build_bsr, build_edge_tiles,
                                          pad_edge_tile_blocks)
 from repro_torch.kernels.ops import (DeviceBsr, DeviceEdgeTiles, bsr_spmv,
-                                     power_step)
+                                     edge_spmv, power_step)
 from repro_torch.kernels.power_step import power_step_call
 
 GRAPHS = [
@@ -108,6 +110,74 @@ def test_power_step_matches_oracle_f64(gname, gfn):
     assert abs(float(gap) - float(ref_gap)) <= 1e-12 * float(ref_gap)
 
 
+def _slot_weights(fmt_h, seed, dtype=np.float32):
+    """Per-edge weights in the padded slot layout (zero in sentinel slots),
+    and the same weights in edge order, as the JAX weighted sweep builds
+    them."""
+    rng = np.random.default_rng(seed)
+    slot = fmt_h.src_idx.reshape(-1) != fmt_h.n
+    w_edge = rng.uniform(size=int(slot.sum())).astype(dtype)
+    wpad = np.zeros(fmt_h.src_idx.size, dtype)
+    wpad[slot] = w_edge
+    return wpad.reshape(fmt_h.src_idx.shape), w_edge
+
+
+@pytest.mark.parametrize("gname,gfn", GRAPHS)
+@pytest.mark.parametrize("tile,e1,e2", TILES[:2])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_edge_spmv_plain_matches_pallas(gname, gfn, tile, e1, e2, weighted):
+    import jax.numpy as jnp
+    from repro.kernels.ref import edge_spmv_ref as jax_edge_spmv_ref
+    g_t, g_j = gfn(tg), gfn(jg)
+    fmt_h = build_edge_tiles(g_t, tile=tile, e1=e1, e2=e2)
+    s = np.random.default_rng(0).uniform(size=g_t.n).astype(np.float32)
+    wpad, w_edge = _slot_weights(fmt_h, 2) if weighted else (None, None)
+    out_t = edge_spmv(torch.as_tensor(s),
+                      DeviceEdgeTiles.from_format(fmt_h, "cpu"),
+                      None if wpad is None else torch.as_tensor(wpad))
+    out_j = jk.edge_spmv(jnp.asarray(s), jk.DeviceEdgeTiles.from_format(
+        jk.build_edge_tiles(g_j, tile=tile, e1=e1, e2=e2)),
+        weights=None if wpad is None else jnp.asarray(wpad), interpret=True)
+    src, dst = g_t.edges_by_dst
+    ref_t = ref.edge_spmv_ref(torch.as_tensor(s), torch.as_tensor(src),
+                              torch.as_tensor(dst), g_t.n,
+                              None if w_edge is None
+                              else torch.as_tensor(w_edge))
+    ref_j = jax_edge_spmv_ref(jnp.asarray(s), jnp.asarray(src),
+                              jnp.asarray(dst), g_j.n,
+                              None if w_edge is None else jnp.asarray(w_edge))
+    assert out_t.shape == (g_t.n,) and out_t.dtype == torch.float32
+    for other in (np.asarray(out_j), ref_t.numpy(), np.asarray(ref_j)):
+        np.testing.assert_allclose(out_t.numpy(), other, rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("gname,gfn", GRAPHS)
+@pytest.mark.parametrize("tile,e1,e2", TILES)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_edge_spmv_plain_matches_oracle_f64(gname, gfn, tile, e1, e2,
+                                            weighted):
+    g = gfn(tg)
+    fmt_h = build_edge_tiles(g, tile=tile, e1=e1, e2=e2)
+    fmt_h = pad_edge_tile_blocks(fmt_h, fmt_h.num_blocks + 3)
+    s = torch.as_tensor(np.random.default_rng(1).uniform(size=g.n))
+    wpad, w_edge = (_slot_weights(fmt_h, 3, np.float64) if weighted
+                    else (None, None))
+    fmt = DeviceEdgeTiles.from_format(fmt_h, "cpu")
+    out = edge_spmv(s, fmt, None if wpad is None else torch.as_tensor(wpad))
+    src, dst = (torch.as_tensor(x) for x in g.edges_by_dst)
+    want = ref.edge_spmv_ref(s, src, dst, g.n, None if w_edge is None
+                             else torch.as_tensor(w_edge))
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    # the raw call's padded tail beyond n is zero
+    raw = edge_spmv_call(fmt.pad_gather_source(s), fmt.src_idx,
+                         fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
+                         fmt.tile_num_blocks, n=g.n, tile=tile)
+    assert raw.shape == (1, fmt.n_pad) and bool((raw[0, g.n:] == 0).all())
+
+
 @pytest.mark.parametrize("gname,gfn", GRAPHS[:3])
 @pytest.mark.parametrize("ts,td", [(128, 128), (128, 256)])
 def test_bsr_spmv_plain_matches_pallas(gname, gfn, ts, td):
@@ -167,6 +237,9 @@ def test_wrappers_refuse_devices_other_than_cuda_and_cpu():
         power_step_call(meta, idx, idx, tiles_i, tiles_i, tiles_i,
                         meta[:, :256], meta[:, :256], meta[:, :256],
                         n=200, tile=256)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        edge_spmv_call(meta, idx, idx, tiles_i, tiles_i, tiles_i, n=200,
+                       tile=256)
     with pytest.raises(ValueError, match="cuda or cpu"):
         bsr_spmv_call(torch.empty(1, 128, device="meta"),
                       torch.empty(1, 128, 128, device="meta"), tiles_i,

@@ -153,6 +153,27 @@ def test_serve_cli_prints_the_jax_top_k():
     assert "delta update user" in out.stdout
 
 
+def test_serve_cli_auto_prints_the_plan_and_the_jax_top_k():
+    out = _serve("--requests", "2", "--device", "cpu", "--backend", "auto",
+                 "--microbench")
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"backend=auto regime=edge_tile plan=edge_tile\(tile="
+                     r"\d+,e1=8,e2=128\) source=microbench device=cpu",
+                     out.stdout), out.stdout
+    top = re.search(r"\[serve\] top-3: (\[[^\]]*\])", out.stdout).group(1)
+    g = jg.powerlaw_configuration(10_000, 70_000, seed=5)
+    svc = jc.PsiService(g, jc.heterogeneous(g.n, seed=6), tol=1e-8)
+    assert top == str(svc.top_k(3)[0].tolist())
+
+
+def test_serve_cli_auto_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is valid")
+    out = _serve("--requests", "1", "--backend", "auto", "--microbench",
+                 "--accelerate")
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+
+
 def test_serve_cli_refuses_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is valid")
