@@ -31,10 +31,24 @@ on the first check that does not hold:
 6. ``accelerate=True`` on the ``cuda`` backend at float64 on the twitter
    stand-in: the same ψ as the reference in fewer mat-vecs than the plain
    loop;
-7. times: CUDA events, warm, for each kernel, its plain version and one
-   PyTorch sparse call for the same push, beside the kernel's bound.
+7. ``gnn_train``: ``repro_torch.launch.train --arch graphsage-reddit --shape
+   minibatch_lg --steps 10`` (the full-width cell, a fresh fanout-sampled
+   minibatch of the synthetic Reddit graph each step, every loss finite),
+   then 10 steps on one fixed minibatch (the loss must fall), then one
+   full-width step (loss and every gradient) on the card at float32 through
+   ``seg_mm`` held against the same step at float64 on CPU copies through
+   the plain version;
+8. times: CUDA events, warm, for each kernel, its plain version and one
+   PyTorch sparse call for the same push or sum, beside the kernel's bound;
+   the GraphSAGE step under the profiler.
 
-Phases 3 to 6 are the main paths (the auto phase is two: model-only and
+Phase 2 holds ``seg_mm`` against its plain version on CPU copies, bitwise,
+at float32 and float64, d = 8, 128 and 602, on the trainer's format at the
+``minibatch_lg`` shape (as built, with padding blocks, with its slots
+shuffled within each tile), on a tile with only padding blocks and a tile
+with none; its backward against the plain gather.
+
+Phases 3 to 7 are the main paths (the auto phase is two: model-only and
 microbench): every launch counter is set to 0 just before each path and
 read just after, and each kernel of a path must have launched there. The
 last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -63,6 +77,13 @@ F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 POWER_TOL = {"float32": (1e-6, 1e-7), "float64": (1e-14, 1e-16)}
 GAP_RTOL = {"float32": 1e-4, "float64": 1e-10}
 BSR_TOL = {"float32": (2e-5, 2e-6), "float64": (1e-12, 1e-14)}
+# seg_mm against its plain version on CPU copies: both add every slot in slot
+# order, so they must agree bitwise (tolerance 0). The full-width GraphSAGE
+# step at float32 on the card against float64 on the CPU: relative error of
+# the loss and relative L2 error of each gradient (float32 rounding, matmul
+# and atomic gather-backward sums in another order).
+GNN_LOSS_RTOL = 1e-5
+GNN_GRAD_REL_L2 = 1e-4
 # the model-only plan the cost model gives both graphs (computed on the
 # host in the run as well; the two must agree)
 AUTO_MODEL_LABEL = "edge_tile(tile=512,e1=8,e2=128)"
@@ -204,7 +225,6 @@ def phase_kernels(report: dict) -> None:
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
     from repro_torch.kernels.power_step import (power_step_call,
                                                 power_step_plain)
-    torch.backends.cuda.matmul.allow_tf32 = False    # plain bmm in full f32
     twitter = load_dataset("twitter")
     cases = [("twitter", twitter, 256, 0), ("twitter+pad", twitter, 256, 7),
              ("twitter t128", twitter, 128, 0),
@@ -278,6 +298,7 @@ def phase_kernels(report: dict) -> None:
             del fmt, args, o1, o2, op
         torch.cuda.empty_cache()
     edge_spmv_cases(report, twitter)
+    seg_mm_cases(report)
 
 
 def _slot_weights(fmt_h, dtype, seed):
@@ -344,6 +365,137 @@ def edge_spmv_cases(report: dict, twitter) -> None:
     report["edge_spmv_share"] = worst[0]
     say(f"edge_spmv: 24 cases, worst element at {worst[0]:.3g} of its limit "
         f"(max abs err {worst[1]:.3e})")
+
+
+def _seg_mm_variants(report) -> dict:
+    """Host edge-tile layouts for seg_mm, as numpy (src_idx [B, eblk],
+    dst_local [B, eblk], block_tile [B], num_tiles, n): the trainer's format
+    on one minibatch_lg sample of the synthetic Reddit graph (as built, +3
+    padding blocks on the last tile, its slots shuffled within each tile's
+    range), a small graph with a tile whose one block is all padding, and the
+    same graph with one tile's blocks removed (an empty range)."""
+    from repro_torch.graphs import Graph, erdos_renyi
+    from repro_torch.kernels.formats import build_edge_tiles
+    from repro_torch.launch import train
+    from repro_torch.models.gnn.common import DEFAULT_TILES
+    t0 = time.perf_counter()
+    g = erdos_renyi(train.REDDIT_NODES, train.REDDIT_EDGES_CUT, seed=1)
+    t1 = time.perf_counter()
+    _, p, dims = train.cell()
+    seeds = np.random.default_rng(7).choice(g.n, p["batch_nodes"],
+                                            replace=False)
+    mb, split = train.sample_minibatch(g, seeds, p["fanout"], n=dims["n"],
+                                       e=dims["e"], seed=7)
+    fmt = mb.agg.fmt
+    say(f"seg_mm inputs: synthetic Reddit graph (n={g.n}, m={g.m}) in "
+        f"{t1 - t0:.2f} s; one minibatch_lg sample in {split['sample']:.3f} s"
+        f", its format in {split['format']:.3f} s: n={fmt.n}, "
+        f"{mb.agg.edge_ids.numel()} real edges in {mb.agg.num_slots} slots "
+        f"({mb.agg.padding:.3f} per edge), {fmt.num_tiles} tiles of "
+        f"{fmt.tile}, {fmt.src_idx.shape[0]} blocks of {fmt.e1 * fmt.e2}")
+    report["seg_mm_padding"] = mb.agg.padding
+    eblk = fmt.e1 * fmt.e2
+    src = fmt.src_idx.numpy().reshape(-1, eblk)
+    dstl = fmt.dst_local.numpy().reshape(-1, eblk)
+    bt = fmt.block_tile.numpy()
+    out = {"minibatch": (src, dstl, bt, fmt.num_tiles, fmt.n)}
+    last = fmt.num_tiles - 1
+    out["minibatch+pad"] = (
+        np.concatenate([src, np.full((3, eblk), fmt.n, np.int32)]),
+        np.concatenate([dstl, np.zeros((3, eblk), np.int32)]),
+        np.concatenate([bt, np.full(3, last, np.int32)]), fmt.num_tiles,
+        fmt.n)
+    rng = np.random.default_rng(9)
+    src_s, dstl_s = src.copy(), dstl.copy()
+    starts = np.searchsorted(bt, np.arange(fmt.num_tiles + 1))
+    for a, b in zip(starts[:-1], starts[1:]):
+        perm = rng.permutation((b - a) * eblk)
+        src_s[a:b] = src_s[a:b].reshape(-1)[perm].reshape(b - a, eblk)
+        dstl_s[a:b] = dstl_s[a:b].reshape(-1)[perm].reshape(b - a, eblk)
+    out["minibatch shuffled"] = (src_s, dstl_s, bt, fmt.num_tiles, fmt.n)
+    small = erdos_renyi(2000, 20000, seed=8)       # nodes 512..1023: no edge
+    keep = (small.dst < 512) | (small.dst >= 1024)
+    small = Graph(small.n, small.src[keep], small.dst[keep])
+    tile, e1, e2 = DEFAULT_TILES
+    f = build_edge_tiles(small, tile=tile, e1=e1, e2=e2)
+    s2, d2 = f.src_idx.reshape(-1, eblk), f.dst_local.reshape(-1, eblk)
+    check(bool((s2[f.block_tile == 1] == small.n).all()),
+          "seg_mm idle-tile case: tile 1 holds a real slot")
+    out["idle tile"] = (s2, d2, f.block_tile, f.num_tiles, small.n)
+    k = f.block_tile != 1
+    out["empty tile"] = (s2[k], d2[k], f.block_tile[k], f.num_tiles, small.n)
+    return out
+
+
+def _seg_mm_args(layout, d, dtype, gen):
+    """seg_mm_call's inputs on the card: random rows x[n + 1, d] (the
+    sentinel row n zero) gathered into the layout, and the int32 arrays."""
+    import torch
+    from repro_torch.kernels.formats import block_ranges
+    src, dstl, bt, num_tiles, n = layout
+    x = torch.randn(n + 1, d, generator=gen, dtype=dtype, device="cuda")
+    x[n] = 0.0
+    idx = torch.as_tensor(src.reshape(-1), device="cuda").long()
+    msgs = x.index_select(0, idx).reshape(src.shape[0], src.shape[1], d)
+    first, count = block_ranges(bt, num_tiles)
+    i32 = [torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+           for a in (dstl, bt, first, count)]
+    return (msgs, *i32)
+
+
+def seg_mm_cases(report: dict) -> None:
+    """seg_mm against its plain version on CPU copies of the inputs (both add
+    every slot in slot order: held bitwise), twice on the same inputs
+    (bitwise), at f32 and f64 and d = 8, 128, 602, on every layout of
+    :func:`_seg_mm_variants`; then the backward against the plain gather."""
+    import torch
+    from repro_torch.kernels.seg_mm import SegMM, seg_mm_call, seg_mm_plain
+    from repro_torch.models.gnn.common import DEFAULT_TILES
+    tile = DEFAULT_TILES[0]
+    layouts = _seg_mm_variants(report)
+    gen = torch.Generator("cuda").manual_seed(0)
+    errs = report["max_abs_err"]
+    n_cases = 0
+    for name, layout in layouts.items():
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            for d in (8, 128, 602):
+                args = _seg_mm_args(layout, d, dtype, gen)
+                o1 = seg_mm_call(*args, tile=tile)
+                o2 = seg_mm_call(*args, tile=tile)
+                torch.cuda.synchronize()
+                tag = f"seg_mm {name} d={d} {dname}"
+                check(torch.equal(o1, o2), f"{tag}: two runs differ")
+                host = [a.cpu() for a in args]
+                op = seg_mm_plain(host[0], host[1], host[2], tile=tile,
+                                  num_tiles=layout[3])
+                err = float((o1.cpu() - op).abs().max())
+                check(torch.equal(o1.cpu(), op), f"{tag}: differs from the "
+                      f"plain version (max abs err {err:.3e}; must be 0)")
+                check(bool(torch.isfinite(o1).all()), f"{tag}: non-finite")
+                if name == "empty tile":
+                    check(bool((o1[tile:2 * tile] == 0).all()),
+                          f"{tag}: the tile without blocks is not zero")
+                if name == "minibatch" and dname == "float32" and d > 8:
+                    errs["seg_mm" if d == 602 else "seg_mm_d128"] = err
+                n_cases += 1
+                del args, o1, o2, host, op
+        say(f"seg_mm {name:18s}: {layout[0].shape[0]} blocks, {layout[3]} "
+            f"tiles; f32/f64 x d 8/128/602 bitwise equal to the plain "
+            f"version and run to run")
+    # the backward: dM = dY at each slot's row, against the plain gather
+    args = _seg_mm_args(layouts["minibatch+pad"], 128, torch.float32, gen)
+    msgs = args[0].clone().requires_grad_()
+    out = SegMM.apply(msgs, *args[1:], tile)
+    w = torch.randn(out.shape, generator=gen, device="cuda")
+    (out * w).sum().backward()
+    rows = (args[2].long()[:, None] * tile + args[1].long()).reshape(-1)
+    check(torch.equal(msgs.grad.reshape(-1, 128).cpu(),
+                      w.cpu().index_select(0, rows.cpu())),
+          "seg_mm backward: differs from the plain gather")
+    say(f"seg_mm: {n_cases} cases bitwise equal to the plain version; "
+        f"backward equal to the plain gather (minibatch+pad, d=128)")
+    torch.cuda.empty_cache()
 
 
 def _check_fixed_point(tag, svc, ref, counter, before, report,
@@ -578,6 +730,87 @@ def phase_accelerate(report: dict) -> None:
     report["accelerate_matvecs"] = out
 
 
+def phase_gnn_train(report: dict) -> None:
+    """The ``graphsage-reddit`` ``minibatch_lg`` cell: 10 trainer steps
+    through the CLI entry point, 10 steps on one fixed minibatch (the loss
+    must fall), and one full-width step on the card at f32 held against the
+    same step at f64 on CPU copies (plain versions)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.seg_mm import seg_mm_call
+    from repro_torch.launch import train
+    from repro_torch.models.gnn import sage
+    from repro_torch.train.optim import (adamw, cosine_schedule, tree_leaves,
+                                         tree_map)
+    t0 = time.perf_counter()
+    before = seg_mm_call.launches
+    run = train.main(["--arch", "graphsage-reddit", "--shape", "minibatch_lg",
+                      "--steps", "10", "--device", "cuda"])
+    per_step = (seg_mm_call.launches - before) / 10
+    losses = run["losses"]
+    check(len(losses) == 10 and all(np.isfinite(losses)),
+          f"gnn_train: losses {losses}")
+    splits = {k: float(np.median([sp[k] for sp in run["splits"]]))
+              for k in ("sample", "format", "h2d", "device")}
+    say(f"gnn_train minibatch_lg: 10 steps in {time.perf_counter() - t0:.2f} "
+        f"s (data set-up included), losses {[round(x, 4) for x in losses]}, "
+        f"{per_step:g} seg_mm launches a step (2 layers, forward and the "
+        f"remat's recompute), median split (ms): "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in splits.items())
+        + f"; slots per real edge {min(run['padding']):.3f}-"
+        f"{max(run['padding']):.3f}")
+    check(max(run["padding"]) <= 2.0, "gnn_train: the aggregation format "
+          f"pads past 2x the real edges ({max(run['padding']):.3f})")
+    # one fixed minibatch: the loss must fall
+    cfg, p, dims = train.cell()
+    data = run["data"]
+    seeds = np.random.default_rng(11).choice(data.graph.n, p["batch_nodes"],
+                                             replace=False)
+    mb, _ = train.sample_minibatch(data.graph, seeds, p["fanout"],
+                                   n=dims["n"], e=dims["e"], seed=11)
+    batch = mb.to("cuda").batch(data)
+    fparams = sage.init_params(cfg, 1, device="cuda")
+    opt = adamw(cosine_schedule(1e-3, 10_000, 100))
+    state = opt.init(fparams)
+    fixed = []
+    for _ in range(10):
+        fparams, state, loss = train.train_step(fparams, state, batch, cfg,
+                                                opt)
+        fixed.append(float(loss))
+    check(all(np.isfinite(fixed)) and fixed[-1] < fixed[0],
+          f"gnn_train fixed minibatch: the loss did not fall: {fixed}")
+    say(f"gnn_train fixed minibatch: losses {[round(x, 5) for x in fixed]}")
+    # one full-width step: f32 on the card (seg_mm) against f64 on the CPU
+    params = sage.init_params(cfg, 2, device="cuda")
+    loss = sage.loss_fn(params, batch, cfg)
+    loss.backward()
+    loss = loss.detach()
+    p64 = tree_map(lambda t: t.detach().cpu().double().requires_grad_(),
+                   params)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    t1 = time.perf_counter()
+    loss64 = sage.loss_fn(p64, batch.to("cpu"), cfg64)
+    loss64.backward()
+    loss64 = loss64.detach()
+    loss_rel = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    grad_rel = [float((a.grad.cpu().double() - b.grad).norm() / b.grad.norm())
+                for a, b in zip(tree_leaves(params), tree_leaves(p64))]
+    check(loss_rel <= GNN_LOSS_RTOL, f"gnn_train f32 step vs f64: loss rel "
+          f"err {loss_rel:.3e} > {GNN_LOSS_RTOL}")
+    check(max(grad_rel) <= GNN_GRAD_REL_L2, f"gnn_train f32 step vs f64: "
+          f"gradient rel L2 errors {grad_rel} (limit {GNN_GRAD_REL_L2})")
+    say(f"gnn_train full-width step: f32 on the card vs f64 on the CPU "
+        f"({time.perf_counter() - t1:.2f} s): loss {float(loss):.6f} vs "
+        f"{float(loss64):.6f} (rel {loss_rel:.3e}, limit {GNN_LOSS_RTOL}), "
+        f"gradient rel L2 max {max(grad_rel):.3e} over {len(grad_rel)} "
+        f"leaves (limit {GNN_GRAD_REL_L2})")
+    report["gnn"] = dict(losses=losses, fixed=fixed, per_step=per_step,
+                         splits=splits, padding=max(run["padding"]),
+                         loss_rel=loss_rel, grad_rel=max(grad_rel))
+    report["gnn_step"] = (fparams, state, batch, cfg, opt)
+    del run, data, params, p64, loss64
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -747,20 +980,96 @@ def phase_times(report: dict) -> list[dict]:
         say(f"{tag} cold resolve: {iters} iterations, "
             f"{sorted(walls)} ms (min {min(walls):.3f} ms)")
         report[f"{tag}_resolve"] = (iters, min(walls))
-        report[f"{tag}_busy"] = profile_resolve(tag, eng)
+        report[f"{tag}_busy"] = profile_run(
+            f"{tag} resolve", lambda: float(eng.run(tol=1e-8).psi.sum()))
+    rows += seg_mm_times(report)
     return rows
 
 
-def profile_resolve(tag, eng) -> float | None:
-    """One cold resolve under ``torch.profiler``: device time by kernel and
-    the device's busy share of the resolve's wall time (returned; None when
+def seg_mm_times(report: dict) -> list[dict]:
+    """seg_mm at the trainer's shapes — the fixed minibatch_lg sample's
+    format, layer 1 (d = 602) and layer 2 (d = 128), f32 — beside its plain
+    version, the library's CSR sum of the same real rows and its bound; then
+    one GraphSAGE train step under the profiler."""
+    import torch
+    from repro_torch.kernels.seg_mm import seg_mm_call, seg_mm_plain
+    from repro_torch.launch import train
+    params, state, batch, cfg, opt = report.pop("gnn_step")
+    agg, fmt = batch.agg, batch.agg.fmt
+    gen = torch.Generator("cuda").manual_seed(3)
+    e_real = agg.edge_ids.numel()
+    crow = torch.zeros(batch.n + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(agg.in_degree, 0)
+    # receivers' rows of the real edges, in slot (= dst) order: CSR of ones
+    csr = torch.sparse_csr_tensor(
+        crow, torch.arange(e_real, device="cuda"),
+        torch.ones(e_real, device="cuda"), size=(batch.n, e_real),
+        check_invariants=True)
+    rows = []
+    for d in (602, 128):
+        x = torch.randn(batch.n + 1, d, generator=gen, device="cuda")
+        x[batch.n] = 0.0
+        msgs = x.index_select(0, fmt.src_idx.reshape(-1)).reshape(
+            fmt.src_idx.shape[0], -1, d)
+        args = (msgs, fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
+                fmt.tile_num_blocks)
+        ms = time_ms(lambda: seg_mm_call(*args, tile=fmt.tile), 50)
+        plain_ms = time_ms(lambda: seg_mm_plain(
+            msgs, fmt.dst_local, fmt.block_tile, tile=fmt.tile,
+            num_tiles=fmt.num_tiles), 20)
+        real = msgs.reshape(-1, d).index_select(0, agg.slots)
+        lib_ms = time_ms(lambda: torch.sparse.mm(csr, real), 50)
+        elt = msgs.element_size()
+        # every slot's message row (padding included) and dst_local, the
+        # block ranges, the output once; one add per real edge and column
+        nbytes = (msgs.nbytes + fmt.dst_local.nbytes
+                  + fmt.tile_first_block.nbytes + fmt.tile_num_blocks.nbytes
+                  + elt * fmt.num_tiles * fmt.tile * d)
+        flops = e_real * d
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+        name = "seg_mm" if d == 602 else "seg_mm_d128"
+        rows.append(dict(
+            name="seg_mm", d=d, route="cuda",
+            source="src/repro_torch/kernels/csrc/seg_mm.cu",
+            replaces="src/repro/kernels/seg_mm.py:43",
+            launches=report["launches"]["gnn_train"]["seg_mm"],
+            max_abs_err=report["max_abs_err"][name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / F32_FLOP_PER_S else "operations"),
+            library_ms=lib_ms))
+        say(f"seg_mm (minibatch_lg, d={d}, f32): {ms:.4f} ms/launch, "
+            f"{report['gnn']['per_step']:g} launches a train step, bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s: "
+            f"{fmt.src_idx.numel()} slots for {e_real} real edges), plain "
+            f"{plain_ms:.4f} ms, torch.sparse.mm CSR sum {lib_ms:.4f} ms")
+        del x, msgs, args, real
+    report["seg_mm_ms"] = {r["d"]: r["ms"] for r in rows}
+    # the train step (fixed minibatch, full width) under the profiler
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, state, loss = train.train_step(params, state, batch, cfg, opt)
+        float(loss)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    say(f"gnn train step (fixed minibatch, device part): {sorted(walls)} ms")
+    report["gnn_step_ms"] = min(walls)
+    report["gnn_busy"] = profile_run("gnn train step", lambda: float(
+        train.train_step(params, state, batch, cfg, opt)[2]))
+    return rows
+
+
+def profile_run(tag, fn) -> float | None:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel
+    and the device's busy share of the call's wall time (returned; None when
     the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(eng.run(tol=1e-8).psi.sum())
+        fn()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device activities only (kernels, copies): a host op such as
     # aten::copy_ also reports the device time of what it launched
@@ -785,7 +1094,11 @@ def summary(report: dict) -> str:
     the auto runs), the worst kernel element's share of its limit, min cold
     resolve ms and the profiled busy share of each regime, bsr_spmv's
     nonzero floor, the auto plans, the plain and accelerated f64 mat-vecs
-    and power_step's ms at each edge tile."""
+    and power_step's ms at each edge tile; for the GraphSAGE cell the first
+    and last loss of the trainer's run and of the fixed minibatch, seg_mm
+    launches a step, slots per real edge, the median step split, the f32
+    step's error against f64, the step's ms and busy share and seg_mm's ms
+    at d = 602 and 128."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -801,7 +1114,20 @@ def summary(report: dict) -> str:
         "auto_plans": report["auto_plans"],
         "accelerate_matvecs": report["accelerate_matvecs"],
         "power_step_ms_by_tile": {k: g(v) for k, v in
-                                  report["power_step_ms_by_tile"].items()}})
+                                  report["power_step_ms_by_tile"].items()},
+        "gnn": {"losses": [g(x) for x in report["gnn"]["losses"][::9]],
+                "fixed_batch_losses": [g(x) for x in
+                                       report["gnn"]["fixed"][::9]],
+                "seg_mm_launches_per_step": report["gnn"]["per_step"],
+                "slots_per_edge": g(report["gnn"]["padding"]),
+                "split_ms": {k: g(v * 1e3) for k, v in
+                             report["gnn"]["splits"].items()},
+                "f64_loss_rel": g(report["gnn"]["loss_rel"]),
+                "f64_grad_rel_l2": g(report["gnn"]["grad_rel"]),
+                "step_ms": g(report["gnn_step_ms"]),
+                "busy": g(report["gnn_busy"]),
+                "seg_mm_ms": {k: g(v) for k, v in
+                              report["seg_mm_ms"].items()}}})
 
 
 def main() -> int:
@@ -813,16 +1139,22 @@ def main() -> int:
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call
     from repro_torch.kernels.edge_spmv import edge_spmv_call
     from repro_torch.kernels.power_step import power_step_call
+    from repro_torch.kernels.seg_mm import seg_mm_call
+    # float32 products and convolutions in full float32 on the card (the
+    # references the checks compare with are float32 or float64)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     report: dict = {}
     counters = {"power_step": power_step_call, "bsr_spmv": bsr_spmv_call,
-                "edge_spmv": edge_spmv_call}
+                "edge_spmv": edge_spmv_call, "seg_mm": seg_mm_call}
     # each main path and the kernels it must launch
     paths = [("edge_tile", phase_edge_tile, ("power_step",)),
              ("bsr", phase_bsr, ("bsr_spmv",)),
              ("auto_model", lambda r: phase_auto(r, False), ("power_step",)),
              ("auto_microbench", lambda r: phase_auto(r, True),
               ("edge_spmv", "bsr_spmv")),
-             ("accelerate", phase_accelerate, ("power_step",))]
+             ("accelerate", phase_accelerate, ("power_step",)),
+             ("gnn_train", phase_gnn_train, ("seg_mm",))]
     try:
         phase_device(report)
         phase_kernels(report)

@@ -1,0 +1,90 @@
+"""Architecture registry: ``--arch <id>`` → config + shapes + family glue.
+
+The JAX package's registry, with the archs this package runs: the paper's
+``psi-score`` and ``graphsage-reddit``. Every other arch id of the JAX
+package raises ``KeyError`` naming the ROADMAP item that brings it.
+``reduced=True`` returns the CPU-smoke variant of the same family.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+__all__ = ["ShapeCfg", "ArchEntry", "get_arch", "ARCHS"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    kind: str                  # full_graph | minibatch | molecule |
+    #                            psi_iterate
+    params: dict[str, Any]
+    skip: str | None = None    # reason, if this (arch, shape) is skipped
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchEntry:
+    arch_id: str
+    family: str                # gnn | psi
+    module: str                # configs module defining config(reduced)
+    shapes: tuple[ShapeCfg, ...]
+
+    def config(self, reduced: bool = False):
+        mod = importlib.import_module(self.module)
+        return mod.config(reduced=reduced)
+
+    def shape(self, name: str) -> ShapeCfg:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id} has no shape {name!r}; have "
+                       f"{[s.name for s in self.shapes]}")
+
+
+_GNN_SHAPES = (
+    ShapeCfg("full_graph_sm", "full_graph",
+             dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
+    ShapeCfg("minibatch_lg", "minibatch",
+             dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                  fanout=(15, 10))),
+    ShapeCfg("ogb_products", "full_graph",
+             dict(n_nodes=2449029, n_edges=61859140, d_feat=100)),
+    ShapeCfg("molecule", "molecule",
+             dict(n_nodes=30, n_edges=64, batch=128)),
+)
+
+_PSI_SHAPES = (
+    ShapeCfg("twitter_scale", "psi_iterate", dict(dataset="twitter")),
+    ShapeCfg("rmat24", "psi_iterate", dict(dataset="rmat24")),
+)
+
+ARCHS: dict[str, ArchEntry] = {
+    e.arch_id: e for e in [
+        ArchEntry("graphsage-reddit", "gnn",
+                  "repro_torch.configs.graphsage_reddit", _GNN_SHAPES),
+        ArchEntry("psi-score", "psi", "repro_torch.configs.psi_score",
+                  _PSI_SHAPES),
+    ]
+}
+
+# arch ids of the JAX package not ported yet, and the ROADMAP item
+# (queue 1) that brings each
+UNPORTED: dict[str, str] = {
+    **{a: "ROADMAP queue 1 item 12 (models/transformer, the LM family)"
+       for a in ("tinyllama-1.1b", "yi-9b", "nemotron-4-340b",
+                 "mixtral-8x22b", "mixtral-8x7b")},
+    **{a: "ROADMAP queue 1 item 12 (models/gnn: pna, nequip, "
+          "equiformer_v2, so3)"
+       for a in ("pna", "nequip", "equiformer-v2")},
+    "mind": "ROADMAP queue 1 item 12 (models/recsys)",
+}
+
+
+def get_arch(arch_id: str) -> ArchEntry:
+    if arch_id in UNPORTED:
+        raise KeyError(f"arch {arch_id!r} is not ported to this package yet: "
+                       f"{UNPORTED[arch_id]}")
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
+    return ARCHS[arch_id]

@@ -24,7 +24,7 @@ from .kernels.formats import BsrFormat, EdgeTileFormat
 from .kernels.ops import DeviceBsr, DeviceEdgeTiles
 
 __all__ = ["operators_from_numpy", "edge_tiles_from_numpy", "bsr_from_numpy",
-           "warm_start_from_numpy"]
+           "warm_start_from_numpy", "sage_params_from_numpy"]
 
 
 def _host_fields(fields: Mapping, names) -> dict:
@@ -83,3 +83,21 @@ def warm_start_from_numpy(s: np.ndarray, *, dtype: torch.dtype = torch.float32,
     """A node-order series vector (e.g. a JAX ``PsiResult.s``) that any
     engine's ``run(s0=...)`` accepts."""
     return _vec(s, dtype, resolve_device(device))
+
+
+def sage_params_from_numpy(tree, *, dtype: torch.dtype | None = None,
+                           device: str | torch.device = "cuda") -> dict:
+    """GraphSAGE parameters from the JAX package's ``sage.init_params`` tree
+    as numpy (``jax.tree.map(np.asarray, params)``): the same nesting
+    (``layers`` list of ``w_self`` / ``w_neigh``, ``head``) and the same
+    ``w[d_in, d_out]`` layout, so nothing is transposed. Every leaf becomes
+    a tensor that requires grad; ``dtype`` defaults to the arrays' own."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return torch.tensor(np.asarray(a), dtype=dtype,
+                            device=dev).requires_grad_()
+
+    return dict(layers=[{k: {kk: leaf(vv) for kk, vv in v.items()}
+                         for k, v in lyr.items()} for lyr in tree["layers"]],
+                head={k: leaf(v) for k, v in tree["head"].items()})

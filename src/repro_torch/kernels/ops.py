@@ -4,9 +4,9 @@
 kernels and the engine read (the per-tile block ranges the CUDA kernels walk
 among them) as tensors on an explicit device. The host formats' first/last
 block flags stay on the host.
-:func:`power_step`, :func:`edge_spmv` and :func:`bsr_spmv` keep the
-signatures of the JAX package's wrappers; each launches its CUDA kernel on
-a CUDA tensor and runs the plain PyTorch version on a CPU tensor.
+:func:`power_step`, :func:`edge_spmv`, :func:`bsr_spmv` and :func:`seg_mm`
+keep the signatures of the JAX package's wrappers; each launches its CUDA
+kernel on a CUDA tensor and runs the plain PyTorch version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -21,9 +21,10 @@ from .bsr_spmv import bsr_spmv_call
 from .edge_spmv import edge_spmv_call
 from .formats import BsrFormat, EdgeTileFormat
 from .power_step import power_step_call
+from .seg_mm import SegMM
 
 __all__ = ["DeviceEdgeTiles", "DeviceBsr", "power_step", "edge_spmv",
-           "bsr_spmv"]
+           "bsr_spmv", "seg_mm"]
 
 
 def _i32(x, device) -> torch.Tensor:
@@ -148,3 +149,12 @@ def bsr_spmv(s_pre: torch.Tensor, fmt: DeviceBsr) -> torch.Tensor:
                         fmt.dst_first_block, fmt.dst_num_blocks,
                         num_dst_tiles=fmt.num_dst_tiles)
     return out[0, :fmt.n]
+
+
+def seg_mm(messages: torch.Tensor, fmt: DeviceEdgeTiles) -> torch.Tensor:
+    """Blocked segment-sum of rows, differentiable in ``messages``.
+    messages: f[num_blocks, e1*e2, d] in the fmt's padded edge order
+    (padding rows zero). Returns f[n, d]."""
+    out = SegMM.apply(messages, fmt.dst_local, fmt.block_tile,
+                      fmt.tile_first_block, fmt.tile_num_blocks, fmt.tile)
+    return out[:fmt.n]

@@ -1,0 +1,61 @@
+"""Cell sizing for the GNN family: the JAX package's ``launch/specs.py``
+GNN section without its sharding and lowering (TPU dry-run machinery).
+
+``_gnn_shape_dims`` turns a registry shape into the static padded dims of a
+train step, ``_gnn_cfg_for`` fits the arch's config to them and
+``_gnn_model_flops`` counts the step's dominant matmul FLOPs, so the trainer
+sizes a cell from the same code as the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..configs.registry import ArchEntry, ShapeCfg
+from ..graphs.sampler import subgraph_budget
+
+
+def _pad_to(x: int, mult: int = 2048) -> int:
+    return -(-x // mult) * mult
+
+
+def _gnn_shape_dims(shape: ShapeCfg) -> dict:
+    """Static padded dims; padding uses sentinel edges / masked nodes."""
+    p = shape.params
+    if shape.kind == "full_graph":
+        n, e = _pad_to(p["n_nodes"]), _pad_to(2 * p["n_edges"])
+        return dict(n=n, e=e, d_feat=p["d_feat"],
+                    n_classes=47 if n > 10 ** 6 else 7,
+                    n_graphs=1, kind="node_class")
+    if shape.kind == "minibatch":
+        n, e = subgraph_budget(p["batch_nodes"], p["fanout"])
+        return dict(n=_pad_to(n), e=_pad_to(e), d_feat=602, n_classes=41,
+                    n_graphs=1, kind="node_class")
+    # molecule
+    n = _pad_to(p["n_nodes"] * p["batch"])
+    e = _pad_to(2 * p["n_edges"] * p["batch"])
+    return dict(n=n, e=e, d_feat=16, n_classes=1, n_graphs=p["batch"],
+                kind="graph")
+
+
+def _gnn_cfg_for(entry: ArchEntry, dims: dict):
+    cfg = entry.config()
+    kw = dict(d_feat=dims["d_feat"])
+    if entry.arch_id in ("pna", "graphsage-reddit"):
+        kw["out_kind"] = "graph" if dims["kind"] == "graph" else "node"
+        kw["n_classes"] = dims["n_classes"]
+    else:
+        kw["out_kind"] = dims["kind"]
+        kw["n_classes"] = dims["n_classes"] if dims["kind"] != "graph" else 1
+    return dataclasses.replace(cfg, **kw)
+
+
+def _gnn_model_flops(arch: str, cfg, n: int, e: int) -> int:
+    """Analytic model FLOPs of a train step (dominant message/feature
+    matmuls, fwd+bwd ~3x)."""
+    L = cfg.n_layers
+    if arch == "graphsage-reddit":
+        h = cfg.d_hidden
+        per = 2 * n * (cfg.d_feat * h + h * h)
+        return 3 * L * (per + e * h)
+    raise KeyError(f"no FLOP count for {arch!r} in this package yet: "
+                   "ROADMAP queue 1 item 12")

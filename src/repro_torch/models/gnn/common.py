@@ -1,0 +1,293 @@
+"""Shared GNN substrate: graph batches, segment aggregation, MLPs.
+
+A port of the JAX package's ``models/gnn/common.py``. Edges are dst-sorted
+with sentinel padding (src = dst = n). Sum and mean aggregation go through
+the ``seg_mm`` kernel (:mod:`repro_torch.kernels.seg_mm`) over an edge-tile
+format of the batch's real edges (:class:`EdgeAgg`); sentinel edges are
+dropped when the format is built, where the JAX package aggregates them into
+a dropped segment ``n``. Max, min, the segment softmax and graph pooling are
+plain torch.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...device import resolve_device
+from ...graphs.structure import Graph
+from ...kernels import ops
+from ...kernels.formats import build_edge_tiles
+from ...kernels.ops import DeviceEdgeTiles
+
+__all__ = ["GraphBatch", "EdgeAgg", "edge_agg", "segment_agg",
+           "neighbor_agg", "segment_softmax", "graph_pool", "mlp_init",
+           "mlp_apply", "dense_init", "batch_from_graph", "pad_graph_batch",
+           "tensors_to", "DEFAULT_TILES"]
+
+# (tile, e1, e2) of the aggregation format. At the minibatch_lg shape
+# (1,024 seeds, fanout (15, 10)) it pads the 168,960 real edges to ~1.34x
+# their count in slots, where the JAX kernel test's (128, 8, 128) pads them
+# 8x; a 512-row tile keeps seg_mm's f32 accumulator at 64 KB a CTA.
+DEFAULT_TILES = (512, 2, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeAgg:
+    """The edge-tile format of a batch's real edges, on a device.
+
+    ``fmt.src_idx`` holds the senders (sentinel ``n`` in padding slots), so
+    messages gather straight into the blocked layout. ``edge_ids`` lists,
+    in slot order, the position of each real edge in the edge arrays the
+    format was built from, and ``slots`` the flat slot it occupies."""
+
+    fmt: DeviceEdgeTiles
+    edge_ids: torch.Tensor       # i64[e_real]
+    slots: torch.Tensor          # i64[e_real]
+    in_degree: torch.Tensor      # i64[n]: real edges into each node
+
+    @property
+    def num_slots(self) -> int:
+        return self.fmt.src_idx.numel()
+
+    @property
+    def padding(self) -> float:
+        """Slots in the blocked layout per real edge."""
+        return self.num_slots / max(1, self.edge_ids.numel())
+
+
+def edge_agg(src, dst, n: int, *, tiles: tuple[int, int, int] = DEFAULT_TILES,
+             device: str | torch.device = "cuda") -> EdgeAgg:
+    """The :class:`EdgeAgg` of the edges ``src → dst`` (numpy, host) over
+    ``n`` nodes. Edges with ``dst`` outside ``[0, n)`` (the sentinel) are
+    dropped; the rest are stably sorted by ``dst``."""
+    dev = resolve_device(device)
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    real = np.flatnonzero((dst >= 0) & (dst < n))
+    ids = real[np.argsort(dst[real], kind="stable")]
+    tile, e1, e2 = tiles
+    fmt_h = build_edge_tiles(Graph(n, src[ids], dst[ids]), tile=tile, e1=e1,
+                             e2=e2)
+    # build_edge_tiles places the k-th edge (dst order) in the k-th real slot
+    slots = np.flatnonzero(fmt_h.src_idx.reshape(-1) != n)
+    return EdgeAgg(fmt=DeviceEdgeTiles.from_format(fmt_h, dev),
+                   edge_ids=torch.as_tensor(ids, device=dev),
+                   slots=torch.as_tensor(slots, device=dev),
+                   in_degree=torch.as_tensor(
+                       np.bincount(dst[real], minlength=n), device=dev))
+
+
+def _scatter_extreme(values: torch.Tensor, dst: torch.Tensor, n: int,
+                     reduce: str) -> torch.Tensor:
+    """f[n + 1, ...]: the max or min of each segment; 0 where empty."""
+    idx = dst.long().reshape((-1,) + (1,) * (values.dim() - 1))
+    return values.new_zeros((n + 1,) + values.shape[1:]).scatter_reduce(
+        0, idx.expand_as(values), values, reduce, include_self=False)
+
+
+def _seg_sum(msgs: torch.Tensor, fmt: DeviceEdgeTiles) -> torch.Tensor:
+    """f[num_slots, d] in slot order → f[n, d] through ``seg_mm``."""
+    return ops.seg_mm(msgs.reshape(fmt.src_idx.shape[0], -1, msgs.shape[-1]),
+                      fmt)
+
+
+def _per_node(cnt: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return cnt.to(like.dtype).reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def segment_agg(values: torch.Tensor, dst: torch.Tensor, n: int, kind: str,
+                *, agg: EdgeAgg | None = None) -> torch.Tensor:
+    """Aggregate edge rows onto nodes. kind ∈ {sum, mean, max, min, std}.
+
+    ``values`` f[e, ...] per edge, ``dst`` i32[e] (sentinel ``n``). Sum and
+    mean scatter the rows into the slots of ``agg`` (built from ``dst`` when
+    not given) and run ``seg_mm``."""
+    if kind in ("sum", "mean"):
+        if agg is None:
+            d_host = dst.cpu().numpy()
+            agg = edge_agg(np.zeros_like(d_host), d_host, n,
+                           device=values.device)
+        flat = values.reshape(values.shape[0], -1)
+        msgs = flat.new_zeros(agg.num_slots, flat.shape[1]).index_copy(
+            0, agg.slots, flat.index_select(0, agg.edge_ids))
+        s = _seg_sum(msgs, agg.fmt).reshape((n,) + values.shape[1:])
+        if kind == "sum":
+            return s
+        return s / torch.clamp(_per_node(agg.in_degree, s), min=1)
+    if kind in ("max", "min"):
+        m = _scatter_extreme(values, dst, n, "amax" if kind == "max"
+                             else "amin")[:n]
+        return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    if kind == "std":
+        mean = segment_agg(values, dst, n, "mean", agg=agg)
+        sq = segment_agg(values * values, dst, n, "mean", agg=agg)
+        return torch.sqrt(torch.clamp(sq - mean * mean, min=1e-8))
+    raise ValueError(kind)
+
+
+def neighbor_agg(h: torch.Tensor, batch: "GraphBatch",
+                 kind: str) -> torch.Tensor:
+    """Aggregate the senders' rows ``h[src]`` onto each receiver. For sum
+    and mean the messages are gathered from ``h`` straight into the blocked
+    layout of ``batch.agg`` (``h`` padded with a zero row at index ``n``,
+    the sentinel source) and summed by ``seg_mm``."""
+    if kind not in ("sum", "mean"):
+        src = torch.clamp(batch.src.long(), max=batch.n - 1)
+        return segment_agg(h.index_select(0, src), batch.dst, batch.n, kind)
+    fmt = batch.agg.fmt
+    h_pad = F.pad(h, (0, 0, 0, 1))
+    msgs = h_pad.index_select(0, fmt.src_idx.reshape(-1))
+    s = _seg_sum(msgs, fmt)
+    if kind == "sum":
+        return s
+    return s / torch.clamp(_per_node(batch.agg.in_degree, s), min=1)
+
+
+def segment_softmax(logits: torch.Tensor, dst: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Edge-wise softmax normalized per destination node."""
+    dst = dst.long()
+    mx = _scatter_extreme(logits, dst, n, "amax")
+    e = torch.exp(logits - mx[dst])
+    z = logits.new_zeros((n + 1,) + logits.shape[1:]).index_add(0, dst, e)
+    return e / torch.clamp(z[dst], min=1e-20)
+
+
+def graph_pool(values: torch.Tensor, batch: "GraphBatch",
+               kind: str = "sum") -> torch.Tensor:
+    """Pool node values per graph (molecule shape)."""
+    gid = (batch.graph_ids.long() if batch.graph_ids is not None
+           else torch.zeros(batch.n, dtype=torch.long, device=values.device))
+    if batch.node_mask is not None:
+        values = values * batch.node_mask[:, None].to(values.dtype)
+    out = values.new_zeros((batch.n_graphs,) + values.shape[1:]).index_add(
+        0, gid, values)
+    if kind == "mean":
+        w = (batch.node_mask.to(values.dtype) if batch.node_mask is not None
+             else values.new_ones(batch.n))
+        cnt = values.new_zeros(batch.n_graphs).index_add(0, gid, w)
+        out = out / torch.clamp(cnt[:, None], min=1)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Tiny functional-MLP helpers
+# --------------------------------------------------------------------- #
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype = torch.float32) -> dict:
+    """``{w: f[d_in, d_out] ~ N(0, 1/d_in), b: zeros}`` on the generator's
+    device (the JAX package's layout: ``x @ w + b``)."""
+    scale = 1.0 / math.sqrt(d_in)
+    return dict(w=torch.randn(d_in, d_out, generator=gen, dtype=dtype,
+                              device=gen.device) * scale,
+                b=torch.zeros(d_out, dtype=dtype, device=gen.device))
+
+
+def mlp_init(gen: torch.Generator, dims: list[int],
+             dtype: torch.dtype = torch.float32) -> list[dict]:
+    return [dense_init(gen, a, b, dtype) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp_apply(layers, x, act=F.silu, final_act: bool = False):
+    for i, lyr in enumerate(layers):
+        x = x @ lyr["w"] + lyr["b"]
+        if i < len(layers) - 1 or final_act:
+            x = act(x)
+    return x
+
+
+# --------------------------------------------------------------------- #
+# Batches
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """One (possibly batched/padded) graph on a device. n = #node slots
+    (incl. pad); ``agg`` is the edge-tile format of the real edges."""
+    n: int
+    x: torch.Tensor                         # f[n, d_feat] (pad rows zero)
+    src: torch.Tensor                       # i32[e] sender; sentinel = n
+    dst: torch.Tensor                       # i32[e] receiver; sentinel = n
+    pos: torch.Tensor | None = None         # f[n, 3]
+    node_mask: torch.Tensor | None = None   # bool[n] valid nodes
+    graph_ids: torch.Tensor | None = None   # i32[n] for pooling
+    n_graphs: int = 1
+    labels: torch.Tensor | None = None      # i64[n] or f[n_graphs, ...]
+    seed_mask: torch.Tensor | None = None   # bool[n] readout nodes
+    agg: EdgeAgg | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def to(self, device: str | torch.device) -> "GraphBatch":
+        return tensors_to(self, resolve_device(device))
+
+
+def tensors_to(obj, device: torch.device):
+    """A copy of a dataclass with every tensor field (nested dataclasses
+    included) on ``device``."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = v.to(device)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = tensors_to(v, device)
+    return dataclasses.replace(obj, **changes)
+
+
+def _tensor(a, device, dtype=None):
+    return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype,
+                                                  device=device)
+
+
+def batch_from_graph(graph, x: np.ndarray, *, labels=None, pos=None,
+                     bidirectional: bool = True,
+                     device: str | torch.device = "cuda") -> GraphBatch:
+    """Host Graph → device GraphBatch (dst-sorted, with its format)."""
+    dev = resolve_device(device)
+    src, dst = graph.src, graph.dst
+    if bidirectional:
+        src, dst = (np.concatenate([src, graph.dst]),
+                    np.concatenate([dst, graph.src]))
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    return GraphBatch(
+        n=graph.n, x=_tensor(x, dev),
+        src=_tensor(src, dev, torch.int32), dst=_tensor(dst, dev, torch.int32),
+        pos=_tensor(pos, dev), labels=_tensor(labels, dev),
+        node_mask=torch.ones(graph.n, dtype=torch.bool, device=dev),
+        agg=edge_agg(src, dst, graph.n, device=dev))
+
+
+def pad_graph_batch(b: GraphBatch, n_pad: int, e_pad: int) -> GraphBatch:
+    """Pad to (n_pad, e_pad) with sentinel edges and zero rows; the format
+    is rebuilt over ``n_pad`` nodes."""
+    dn = n_pad - b.n
+    de = e_pad - b.src.shape[0]
+    dev = b.device
+
+    def pad_row(a):
+        return None if a is None else F.pad(a, (0, 0) * (a.dim() - 1)
+                                            + (0, dn))
+
+    def pad_vec(a, value):
+        return torch.cat([a, torch.full((dn,), value, dtype=a.dtype,
+                                        device=dev)])
+
+    sentinel = torch.full((de,), n_pad, dtype=torch.int32, device=dev)
+    src, dst = torch.cat([b.src, sentinel]), torch.cat([b.dst, sentinel])
+    node_mask = (b.node_mask if b.node_mask is not None
+                 else torch.ones(b.n, dtype=torch.bool, device=dev))
+    return GraphBatch(
+        n=n_pad, x=pad_row(b.x), src=src, dst=dst, pos=pad_row(b.pos),
+        node_mask=pad_vec(node_mask, False),
+        graph_ids=None if b.graph_ids is None else pad_vec(b.graph_ids, 0),
+        n_graphs=b.n_graphs, labels=b.labels,
+        seed_mask=None if b.seed_mask is None else pad_vec(b.seed_mask,
+                                                           False),
+        agg=edge_agg(src.cpu().numpy(), dst.cpu().numpy(), n_pad, device=dev))

@@ -223,3 +223,123 @@ def test_accelerated_cuda_backend_on_card(card):
     acc = tc.make_engine("cuda", accelerate=True, **kw).run(tol=1e-9)
     assert acc.converged and acc.matvecs < plain.matvecs
     assert float((acc.psi - plain.psi).abs().max()) <= 1e-9
+
+
+# --------------------------------------------------------------------- #
+# seg_mm (GNN aggregation) and the GraphSAGE step
+# --------------------------------------------------------------------- #
+def _seg_mm_format(kind):
+    """Host edge-tile formats at the trainer's (tile, e1, e2): ``plain``,
+    ``padded`` (+3 padding blocks on the last tile), ``shuffled`` (slots in
+    random order within each tile's range: the kernel may not assume them
+    sorted), ``idle tile`` (a tile whose one block is all padding) and
+    ``empty tile`` (a tile with no blocks at all)."""
+    from repro_torch.kernels.formats import block_ranges
+    from repro_torch.models.gnn.common import DEFAULT_TILES
+    tile, e1, e2 = DEFAULT_TILES
+    if kind == "idle tile":          # nodes [512, 1024) receive no edge
+        g = tg.erdos_renyi(2000, 20000, seed=8)
+        keep = (g.dst < 512) | (g.dst >= 1024)
+        g = tg.Graph(g.n, g.src[keep], g.dst[keep])
+    else:
+        g = tg.powerlaw_configuration(5000, 40000, seed=3)
+    fmt = build_edge_tiles(g, tile=tile, e1=e1, e2=e2)
+    if kind == "padded":
+        fmt = pad_edge_tile_blocks(fmt, fmt.num_blocks + 3)
+    src = fmt.src_idx.reshape(fmt.num_blocks, -1).copy()
+    dstl = fmt.dst_local.reshape(fmt.num_blocks, -1).copy()
+    block_tile = fmt.block_tile
+    if kind == "shuffled":
+        rng = np.random.default_rng(9)
+        first, count = block_ranges(block_tile, fmt.num_tiles)
+        for f, c in zip(first, count):
+            span = slice(f, f + c)
+            perm = rng.permutation(c * src.shape[1])
+            src[span] = src[span].reshape(-1)[perm].reshape(c, -1)
+            dstl[span] = dstl[span].reshape(-1)[perm].reshape(c, -1)
+    if kind == "empty tile":         # drop tile 1's blocks
+        keep = block_tile != 1
+        src, dstl, block_tile = src[keep], dstl[keep], block_tile[keep]
+    first, count = block_ranges(block_tile, fmt.num_tiles)
+    return g.n, tile, src, dstl, block_tile, first, count
+
+
+def _seg_mm_args(kind, d, dtype, device):
+    n, tile, src, dstl, block_tile, first, count = _seg_mm_format(kind)
+    x = np.random.default_rng(d).normal(size=(n + 1, d))
+    x[n] = 0.0                                  # the sentinel source
+    msgs = torch.as_tensor(x[src], dtype=dtype, device=device)
+    i32 = [torch.as_tensor(a, dtype=torch.int32, device=device)
+           for a in (dstl, block_tile, first, count)]
+    return (msgs, *i32), tile, n
+
+
+# Both sum every slot in slot order (padding rows included), so they agree
+# to the last bit.
+@pytest.mark.parametrize("kind", ["plain", "padded", "shuffled", "idle tile",
+                                  "empty tile"])
+@pytest.mark.parametrize("d", [8, 128, 602])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_mm_kernel_matches_plain_on_card(card, kind, d, dtype):
+    from repro_torch.kernels.seg_mm import seg_mm_call, seg_mm_plain
+    args, tile, n = _seg_mm_args(kind, d, dtype, card)
+    before = seg_mm_call.launches
+    o1 = seg_mm_call(*args, tile=tile)
+    o2 = seg_mm_call(*args, tile=tile)
+    torch.cuda.synchronize()
+    assert seg_mm_call.launches == before + 2
+    assert torch.equal(o1, o2)
+    host = [a.cpu() for a in args]
+    op = seg_mm_plain(host[0], host[1], host[2], tile=tile,
+                      num_tiles=host[3].shape[0])
+    assert torch.equal(o1.cpu(), op)
+    if kind == "empty tile":
+        assert bool((o1[tile:2 * tile] == 0).all())
+
+
+def test_seg_mm_backward_on_card(card):
+    from repro_torch.kernels.seg_mm import SegMM
+    args, tile, _ = _seg_mm_args("padded", 128, torch.float32, card)
+    msgs = args[0].clone().requires_grad_()
+    out = SegMM.apply(msgs, *args[1:], tile)
+    w = torch.randn(out.shape, generator=torch.Generator(card).manual_seed(0),
+                    device=card)
+    (out * w).sum().backward()
+    rows = (args[2].long()[:, None] * tile + args[1].long()).reshape(-1)
+    assert torch.equal(msgs.grad.reshape(-1, 128).cpu(),
+                       w.cpu().index_select(0, rows.cpu()))
+
+
+def test_sage_reduced_train_step_on_card_matches_cpu(card):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.seg_mm import seg_mm_call
+    from repro_torch.launch import train
+    from repro_torch.models.gnn import sage
+    from repro_torch.train.optim import (adamw, cosine_schedule, tree_leaves,
+                                         tree_map)
+    cfg = get_arch("graphsage-reddit").config(reduced=True)
+    out = {}
+    for dev in ("cpu", card):
+        batch = train.reduced_batch(cfg, dev)
+        params = sage.init_params(cfg, 0, device=dev)
+        opt = adamw(cosine_schedule(3e-3, 5, 2))
+        state = opt.init(params)
+        loss = sage.loss_fn(params, batch, cfg)
+        loss.backward()
+        grads = [p.grad.clone() for p in tree_leaves(params)]
+        opt.apply(tree_map(lambda p: p.grad, params), state, params)
+        out[str(dev)] = (loss.item(), grads,
+                         [p.detach().clone() for p in tree_leaves(params)])
+    loss_c, grads_c, params_c = out["cpu"]
+    loss_g, grads_g, params_g = out[str(card)]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for a, b in zip(grads_g, grads_c):
+        assert float((a.cpu() - b).norm() / b.norm()) <= 1e-4
+    for a, b in zip(params_g, params_c):
+        assert float((a.cpu() - b).norm() / b.norm()) <= 1e-3
+    # forward + the remat's recompute: one seg_mm launch each, per layer
+    batch = train.reduced_batch(cfg, card)
+    params = sage.init_params(cfg, 0, device=card)
+    before = seg_mm_call.launches
+    sage.loss_fn(params, batch, cfg).backward()
+    assert seg_mm_call.launches - before == 2 * cfg.n_layers

@@ -25,6 +25,13 @@ SLICE_MODULES = [
     "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.log",
     "repro_torch.obs.convergence", "repro_torch.obs.explain",
     "repro_torch.obs.calibrate", "repro_torch.obs.env",
+    "repro_torch.graphs.sampler", "repro_torch.kernels.seg_mm",
+    "repro_torch.models", "repro_torch.models.gnn",
+    "repro_torch.models.gnn.common", "repro_torch.models.gnn.sage",
+    "repro_torch.train", "repro_torch.train.optim",
+    "repro_torch.configs", "repro_torch.configs.registry",
+    "repro_torch.configs.graphsage_reddit", "repro_torch.configs.psi_score",
+    "repro_torch.launch.specs", "repro_torch.launch.train",
 ]
 
 

@@ -5,7 +5,9 @@ their checks against the plain versions are in ``test_torch_cuda.py``.
 Tolerances are those of the JAX package's own kernel sweeps: ``s_new`` at
 rtol 2e-5 / atol 2e-6 and the gap at relative 1e-3 for the fused step,
 rtol/atol 2e-5 for the BSR product and the bare ``edge_spmv`` push — f32
-sums taken in another order. At f64 the push is held at 1e-12.
+sums taken in another order. At f64 the push is held at 1e-12. ``seg_mm``'s
+plain version is held against the Pallas kernel at rtol 2e-5 / atol 2e-6
+(f32, the one-hot matmul sums in another order).
 """
 import stat
 
@@ -23,8 +25,9 @@ from repro_torch.kernels.edge_spmv import edge_spmv_call
 from repro_torch.kernels.formats import (build_bsr, build_edge_tiles,
                                          pad_edge_tile_blocks)
 from repro_torch.kernels.ops import (DeviceBsr, DeviceEdgeTiles, bsr_spmv,
-                                     edge_spmv, power_step)
+                                     edge_spmv, power_step, seg_mm)
 from repro_torch.kernels.power_step import power_step_call
+from repro_torch.kernels.seg_mm import SegMM, seg_mm_call, seg_mm_plain
 
 GRAPHS = [
     ("er-small", lambda m: m.erdos_renyi(100, 500, seed=1)),
@@ -282,3 +285,98 @@ def test_build_writes_library_and_log_then_reuses(tmp_path, monkeypatch):
     assert "-gencode" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def _seg_mm_both(d, tile=128, e1=8, e2=128, pad_blocks=0):
+    """seg_mm of the same gathered messages through the port (plain) and
+    the JAX package (Pallas, interpret mode), and the oracle's sum."""
+    from repro.kernels.ref import seg_mm_ref as jax_seg_mm_ref
+    g_t = tg.powerlaw_configuration(300, 1800, seed=5)
+    g_j = jg.powerlaw_configuration(300, 1800, seed=5)
+    fmt_h = build_edge_tiles(g_t, tile=tile, e1=e1, e2=e2)
+    fmt_hj = jk.build_edge_tiles(g_j, tile=tile, e1=e1, e2=e2)
+    if pad_blocks:
+        fmt_h = pad_edge_tile_blocks(fmt_h, fmt_h.num_blocks + pad_blocks)
+        fmt_hj = jk.formats.pad_edge_tile_blocks(
+            fmt_hj, fmt_hj.num_blocks + pad_blocks)
+    x = np.random.default_rng(3).normal(size=(g_t.n, d)).astype(np.float32)
+    xpad = np.concatenate([x, np.zeros((1, d), np.float32)])
+    msgs = xpad[fmt_h.src_idx.reshape(fmt_h.num_blocks, -1)]
+    out_t = seg_mm(torch.as_tensor(msgs),
+                   DeviceEdgeTiles.from_format(fmt_h, "cpu"))
+    out_j = jk.ops.seg_mm(jnp_asarray(msgs),
+                          jk.DeviceEdgeTiles.from_format(fmt_hj),
+                          interpret=True)
+    src, dst = g_t.edges_by_dst
+    want = np.asarray(jax_seg_mm_ref(jnp_asarray(x[src]), jnp_asarray(dst),
+                                     g_t.n))
+    return out_t, np.asarray(out_j), want
+
+
+def jnp_asarray(x):
+    import jax.numpy as jnp
+    return jnp.asarray(x)
+
+
+@pytest.mark.parametrize("d", [8, 16, 64])
+def test_seg_mm_plain_matches_pallas(d):
+    out_t, out_j, want = _seg_mm_both(d)
+    assert out_t.shape == (300, d) and out_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(out_t.numpy(), want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("tile,e1,e2,pad_blocks", [(256, 2, 128, 0),
+                                                   (512, 2, 128, 3),
+                                                   (128, 8, 128, 5)])
+def test_seg_mm_plain_matches_pallas_at_other_formats(tile, e1, e2,
+                                                      pad_blocks):
+    out_t, out_j, want = _seg_mm_both(16, tile, e1, e2, pad_blocks)
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(out_t.numpy(), want, rtol=2e-5, atol=2e-6)
+
+
+def test_seg_mm_gradcheck_f64():
+    g = tg.erdos_renyi(90, 300, seed=6)
+    fmt = DeviceEdgeTiles.from_format(build_edge_tiles(g, tile=32, e1=1,
+                                                       e2=32), "cpu")
+    msgs = torch.tensor(np.random.default_rng(4).normal(
+        size=(fmt.src_idx.shape[0], 32, 3)), requires_grad=True)
+    args = (fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
+            fmt.tile_num_blocks, fmt.tile)
+    assert torch.autograd.gradcheck(lambda m: SegMM.apply(m, *args), (msgs,))
+
+
+def test_seg_mm_plain_writes_zeros_for_tiles_without_blocks():
+    """A tile whose range is empty or holds only padding blocks sums to 0,
+    and the raw call returns every tile's rows."""
+    g = tg.erdos_renyi(100, 400, seed=7)
+    fmt_h = pad_edge_tile_blocks(build_edge_tiles(g, tile=64, e1=1, e2=64),
+                                 build_edge_tiles(g, tile=64, e1=1,
+                                                  e2=64).num_blocks + 2)
+    fmt = DeviceEdgeTiles.from_format(fmt_h, "cpu")
+    msgs = torch.zeros(fmt_h.num_blocks, 64, 5, dtype=torch.float64)
+    msgs[:-2] = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(fmt_h.num_blocks - 2, 64, 5)))
+    msgs[torch.as_tensor(fmt_h.src_idx.reshape(fmt_h.num_blocks, 64)
+                         == g.n)] = 0.0
+    out = seg_mm_call(msgs, fmt.dst_local, fmt.block_tile,
+                      fmt.tile_first_block, fmt.tile_num_blocks, tile=64)
+    assert out.shape == (fmt.n_pad, 5)
+    src, dst = (torch.as_tensor(x) for x in g.edges_by_dst)
+    real = torch.as_tensor(fmt_h.src_idx.reshape(-1) != g.n)
+    want = ref.seg_mm_ref(msgs.reshape(-1, 5)[real], dst, g.n)
+    np.testing.assert_allclose(out[:g.n].numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    assert bool((out[g.n:] == 0).all())
+    empty = seg_mm_plain(msgs[:0], fmt.dst_local[:0], fmt.block_tile[:0],
+                         tile=64, num_tiles=2)
+    assert empty.shape == (128, 5) and bool((empty == 0).all())
+
+
+def test_seg_mm_refuses_devices_other_than_cuda_and_cpu():
+    meta = torch.empty(1, 256, 8, device="meta")
+    idx = torch.empty(1, 256, dtype=torch.int32, device="meta")
+    tiles_i = torch.empty(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        seg_mm_call(meta, idx, tiles_i, tiles_i, tiles_i, tile=256)
