@@ -12,10 +12,13 @@ on the first check that does not hold:
 1. device: CUDA present, the card's name and power limit, kernel build time;
 2. every kernel on the card against its plain PyTorch version on the same
    inputs (``power_step``'s and ``edge_spmv``'s on CPU copies, which sum in
-   the kernel's slot order), at float32 and float64, at the main path's
-   shapes, at every shape the autotuner may pick or time (edge tiles 128,
-   256, 512; BSR ``td`` 128 and 256), on ragged and padded cases, and twice
-   on the same inputs (outputs must be bitwise equal);
+   the kernel's slot order; ``edge_spmv`` must match to the last bit), at
+   float32 and float64, at the main path's shapes, at every shape the
+   autotuner may pick or time (edge tiles 128, 256, 512; BSR ``td`` 128 and
+   256), on ragged and padded cases, on edge-tile slots shuffled within
+   each tile, on a ``cuda`` engine's format after ``patch_edges`` and on a
+   hub node of more than two blocks of in-edges, and twice on the same
+   inputs (outputs must be bitwise equal);
 3. the serving path in the ``edge_tile`` regime: ``PsiService`` on the
    twitter stand-in with ``backend="cuda"`` through a cold solve, ranked
    requests, an activity update, an edge insert into free sentinel slots
@@ -38,9 +41,13 @@ on the first check that does not hold:
    full-width step (loss and every gradient) on the card at float32 through
    ``seg_mm`` held against the same step at float64 on CPU copies through
    the plain version;
-8. times: CUDA events, warm, for each kernel, its plain version and one
-   PyTorch sparse call for the same push or sum, beside the kernel's bound;
-   the GraphSAGE step under the profiler.
+8. times: CUDA events around back-to-back calls, warm, for each kernel,
+   its plain version and one PyTorch sparse call for the same push or sum,
+   beside the kernel's bound, and the device time (``torch.profiler``) of
+   the kernel and the library call; the edge-tile kernels at every
+   autotuner tile and, in device time, with every tile's slots dealt in
+   order over its rows (the tail of the in-degree skew); the cold resolves
+   and the GraphSAGE step under the profiler.
 
 Phase 2 holds ``seg_mm`` against its plain version on CPU copies, bitwise,
 at float32 and float64, d = 8, 128 and 602, on the trainer's format at the
@@ -111,7 +118,9 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean ms per call over ``iters`` back-to-back calls, after warm-up."""
+    """Mean ms per call over ``iters`` back-to-back calls, after warm-up
+    (CUDA events): the larger of the device time and the host's time to
+    issue a call."""
     import torch
     for _ in range(3):
         fn()
@@ -126,14 +135,39 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time per call in ms, after 3 warm-up calls: the summed
+    duration of every kernel and copy that ``iters`` calls of ``fn`` put on
+    the card (``torch.profiler``, CUPTI). Host time between launches is not
+    counted, so where a wrapper takes longer to issue a call than its kernel
+    takes to run, this is below :func:`time_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU)
+    check(us > 0, "the profiler saw no device time")
+    return us / iters / 1e3
+
+
+def both_ms(fn, iters: int) -> tuple[float, float]:
+    """(:func:`time_ms`, :func:`device_ms`) of ``fn``."""
+    return time_ms(fn, iters), device_ms(fn, iters)
+
+
 # --------------------------------------------------------------------- #
 # Inputs
 # --------------------------------------------------------------------- #
 def edge_tile_inputs(graph, dtype, *, tile=256, pad_blocks=0, seed=0):
     """Everything ``power_step_call`` takes for ``graph``, on the card, with
     a random series vector made from ``seed``."""
-    import torch
-    from repro_torch.core import build_operators, heterogeneous
     from repro_torch.kernels.formats import (build_edge_tiles,
                                              pad_edge_tile_blocks)
     from repro_torch.kernels.ops import DeviceEdgeTiles
@@ -141,16 +175,96 @@ def edge_tile_inputs(graph, dtype, *, tile=256, pad_blocks=0, seed=0):
     if pad_blocks:
         fmt_h = pad_edge_tile_blocks(fmt_h, fmt_h.num_blocks + pad_blocks)
     fmt = DeviceEdgeTiles.from_format(fmt_h, "cuda")
+    return fmt_h, fmt, power_step_args(graph, fmt, dtype, seed)
+
+
+def power_step_args(graph, fmt, dtype, seed=0):
+    """``power_step_call``'s inputs over the device format ``fmt`` of
+    ``graph``: the operators of heterogeneous rates (seed + 1) and a random
+    series vector (seed)."""
+    import torch
+    from repro_torch.core import build_operators, heterogeneous
     ops = build_operators(graph, heterogeneous(graph.n, seed=seed + 1),
                           dtype=dtype, device="cuda")
     rng = np.random.default_rng(seed)
     s = torch.as_tensor(rng.uniform(size=graph.n), dtype=dtype, device="cuda")
-    s_pad = fmt.pad_node_vector(s)
-    s_pre = fmt.pad_gather_source(s * ops.inv_w)
-    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
-            fmt.tile_first_block, fmt.tile_num_blocks,
-            fmt.pad_node_vector(ops.mu), fmt.pad_node_vector(ops.c), s_pad)
-    return fmt_h, fmt, args
+    return (fmt.pad_gather_source(s * ops.inv_w), fmt.src_idx, fmt.dst_local,
+            fmt.block_tile, fmt.tile_first_block, fmt.tile_num_blocks,
+            fmt.pad_node_vector(ops.mu), fmt.pad_node_vector(ops.c),
+            fmt.pad_node_vector(s))
+
+
+def edge_tile_variants(twitter, tile) -> dict:
+    """Slot layouts beyond the dst-sorted build, each ``name: (graph, device
+    format)`` at ``(tile, 8, 128)``: the twitter stand-in's format with its
+    slots shuffled within each tile's block range; the format of a ``cuda``
+    engine on the twitter stand-in after ``patch_edges`` (64 new edges in
+    sentinel slots after their tiles' sorted edges); and a hub graph,
+    ``powerlaw_configuration(5000, 40000, seed=3)`` plus 2,600 in-edges of
+    node 1234, whose run spans three or more blocks. (The twitter stand-in
+    itself has a hub of 4,644 in-edges.)"""
+    import dataclasses
+    import torch
+    from repro_torch.core import heterogeneous, make_engine
+    from repro_torch.graphs import Graph, powerlaw_configuration
+    from repro_torch.kernels.formats import block_ranges, build_edge_tiles
+    from repro_torch.kernels.ops import DeviceEdgeTiles
+    out = {}
+    fmt = DeviceEdgeTiles.from_format(build_edge_tiles(twitter, tile=tile),
+                                      "cuda")
+    rng = np.random.default_rng(9)
+    src = fmt.src_idx.reshape(fmt.src_idx.shape[0], -1).cpu().numpy().copy()
+    dstl = fmt.dst_local.reshape(src.shape).cpu().numpy().copy()
+    first, count = block_ranges(fmt.block_tile.cpu().numpy(), fmt.num_tiles)
+    for a, c in zip(first, count):
+        perm = rng.permutation(c * src.shape[1])
+        src[a:a + c] = src[a:a + c].reshape(-1)[perm].reshape(c, -1)
+        dstl[a:a + c] = dstl[a:a + c].reshape(-1)[perm].reshape(c, -1)
+    out["shuffled"] = (twitter, dataclasses.replace(
+        fmt, src_idx=torch.as_tensor(src, device="cuda").reshape(
+            fmt.src_idx.shape),
+        dst_local=torch.as_tensor(dstl, device="cuda").reshape(
+            fmt.dst_local.shape)))
+    eng = make_engine("cuda", graph=twitter,
+                      activity=heterogeneous(twitter.n, seed=6),
+                      device="cuda", tile=tile)
+    used = np.bincount(twitter.dst // tile, minlength=fmt.num_tiles)
+    free = eng.fmt_host.tile_num_blocks * eng.fmt_host.eblk - used
+    roomy = np.flatnonzero(free >= 64)
+    rng = np.random.default_rng(10)
+    dst = np.minimum(rng.choice(roomy, 64) * tile + rng.integers(0, tile, 64),
+                     twitter.n - 1)
+    eng.patch_edges(rng.integers(0, twitter.n, 64), dst)
+    check(eng.format_builds == 1, f"patched t{tile}: the format was rebuilt")
+    out["patched"] = (eng.graph, eng.fmt)
+    g = powerlaw_configuration(5000, 40000, seed=3)
+    hub_src = np.random.default_rng(12).choice(
+        np.delete(np.arange(g.n), 1234), 2600, replace=False)
+    g = Graph(g.n, np.concatenate([g.src, hub_src]),
+              np.concatenate([g.dst, np.full(2600, 1234)]))
+    out["hub"] = (g, DeviceEdgeTiles.from_format(
+        build_edge_tiles(g, tile=tile), "cuda"))
+    return out
+
+
+def deal_rows(fmt):
+    """A copy of ``fmt`` whose slots are dealt in order over the rows of
+    their tile (slot k of a tile's range of b blocks goes to row
+    ``k * tile // (b * eblk)``): the same slots, gathers and blocks, still
+    sorted by row, but no row with more than ``b * eblk / tile`` slots.
+    Timing both isolates the tail of the in-degree skew (the sums differ;
+    nothing is checked)."""
+    import dataclasses
+    import torch
+    eblk = fmt.src_idx[0].numel()
+    bt = fmt.block_tile.long()
+    first = fmt.tile_first_block.long()[bt]
+    span = fmt.tile_num_blocks.long()[bt] * eblk
+    pos = ((torch.arange(bt.numel(), device=bt.device) - first)[:, None]
+           * eblk + torch.arange(eblk, device=bt.device))
+    rows = pos * fmt.tile // span[:, None]
+    return dataclasses.replace(fmt, dst_local=rows.to(torch.int32).reshape(
+        fmt.dst_local.shape))
 
 
 def bsr_inputs(graph, dtype, *, td=128, seed=0):
@@ -223,8 +337,6 @@ def phase_kernels(report: dict) -> None:
     import torch
     from repro_torch.graphs import clustered_blocks, erdos_renyi, load_dataset
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
-    from repro_torch.kernels.power_step import (power_step_call,
-                                                power_step_plain)
     twitter = load_dataset("twitter")
     cases = [("twitter", twitter, 256, 0), ("twitter+pad", twitter, 256, 7),
              ("twitter t128", twitter, 128, 0),
@@ -241,30 +353,24 @@ def phase_kernels(report: dict) -> None:
         for cname, g, tile, pad in cases:
             fmt_h, fmt, args = edge_tile_inputs(g, dtype, tile=tile,
                                                 pad_blocks=pad)
-            kw = dict(n=fmt.n, tile=fmt.tile)
-            s1, gap1 = power_step_call(*args, **kw)
-            s2, gap2 = power_step_call(*args, **kw)
-            torch.cuda.synchronize()
-            check(torch.equal(s1, s2) and torch.equal(gap1, gap2),
-                  f"power_step {cname} {dname}: two runs differ")
-            host = [a.cpu() for a in args]
-            sp, gapp = power_step_plain(*host[:4], *host[6:], tile=fmt.tile)
-            err, share = _compare(f"power_step {cname} {dname}", s1.cpu(), sp,
-                                  rtol, atol)
-            gap_rel = abs(float(gap1) - float(gapp)) / max(abs(float(gapp)),
-                                                          1e-30)
-            check(gap_rel <= gtol, f"power_step {cname} {dname}: gap rel "
-                  f"err {gap_rel:.3e} > {gtol}")
-            say(f"power_step {cname:16s} {dname}: {fmt_h.num_tiles} tiles, "
-                f"{fmt_h.num_blocks} blocks (max {fmt_h.tile_num_blocks.max()}"
-                f"/tile), max abs err {err:.3e} (rtol {rtol}, atol {atol}; "
-                f"worst element at {share:.3g} of its limit), gap rel err "
-                f"{gap_rel:.3e} (tol {gtol}), bitwise repeatable")
+            err, share = _check_power_step(f"{cname} {dname}", fmt, args,
+                                           rtol, atol, gtol)
             if cname == "twitter" and dname == "float32":
                 errs["power_step"] = err
                 report["power_step_share"] = share
                 say(f"  twitter format indices: "
                     f"{(fmt_h.src_idx.nbytes + fmt_h.dst_local.nbytes) / 1e6:.1f} MB")
+    # the layouts beyond the dst-sorted build, at every autotuner tile
+    report["variants"] = {t: edge_tile_variants(twitter, t)
+                          for t in (128, 256, 512)}
+    for tile, variants in report["variants"].items():
+        for vname, (g, fmt) in variants.items():
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).removeprefix("torch.")
+                rtol, atol = POWER_TOL[dname]
+                _check_power_step(f"t{tile} {vname} {dname}", fmt,
+                                  power_step_args(g, fmt, dtype), rtol, atol,
+                                  GAP_RTOL[dname])
     clustered = clustered_blocks(262_144, 4_194_304, block=128, p_in=1.0,
                                  seed=3)
     report["clustered"] = clustered
@@ -301,70 +407,106 @@ def phase_kernels(report: dict) -> None:
     seg_mm_cases(report)
 
 
-def _slot_weights(fmt_h, dtype, seed):
-    """Random per-edge weights in the slot layout, 0 in sentinel slots."""
+def _check_power_step(name, fmt, args, rtol, atol, gtol):
+    """power_step twice on ``args`` (bitwise equal) and against its plain
+    version on CPU copies; returns (max abs err, worst share of limit)."""
+    import torch
+    from repro_torch.kernels.power_step import (power_step_call,
+                                                power_step_plain)
+    kw = dict(n=fmt.n, tile=fmt.tile)
+    s1, gap1 = power_step_call(*args, **kw)
+    s2, gap2 = power_step_call(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(s1, s2) and torch.equal(gap1, gap2),
+          f"power_step {name}: two runs differ")
+    host = [a.cpu() for a in args]
+    sp, gapp = power_step_plain(*host[:4], *host[6:], tile=fmt.tile)
+    err, share = _compare(f"power_step {name}", s1.cpu(), sp, rtol, atol)
+    gap_rel = abs(float(gap1) - float(gapp)) / max(abs(float(gapp)), 1e-30)
+    check(gap_rel <= gtol, f"power_step {name}: gap rel err {gap_rel:.3e} > "
+          f"{gtol}")
+    counts = fmt.tile_num_blocks
+    say(f"power_step {name:24s}: {fmt.num_tiles} tiles, "
+        f"{fmt.src_idx.shape[0]} blocks (max {int(counts.max())}/tile), max "
+        f"abs err {err:.3e} (rtol {rtol}, atol {atol}; worst element at "
+        f"{share:.3g} of its limit), gap rel err {gap_rel:.3e} (tol {gtol}), "
+        f"bitwise repeatable")
+    return err, share
+
+
+def _slot_weights(fmt, dtype, seed):
+    """Random per-edge weights in the slot layout of the device format
+    ``fmt``, 0 in sentinel slots."""
     import torch
     w = np.random.default_rng(seed).uniform(0.5, 2.0,
-                                            size=fmt_h.src_idx.shape)
-    w[fmt_h.src_idx == fmt_h.n] = 0.0
+                                            size=tuple(fmt.src_idx.shape))
+    w[fmt.src_idx.cpu().numpy() == fmt.n] = 0.0
     return torch.as_tensor(w, dtype=dtype, device="cuda")
 
 
 def edge_spmv_cases(report: dict, twitter) -> None:
-    """edge_spmv on the twitter stand-in's format at every edge-tile shape
-    the autotuner times, plain and with 7 pad blocks, weighted and not, at
-    f32 and f64, against its plain version on CPU copies of the inputs."""
+    """edge_spmv at every edge-tile shape the autotuner times, on the twitter
+    stand-in's format (as built, with 7 pad blocks, shuffled, patched) and on
+    the hub graph (:func:`edge_tile_variants`), weighted and not, at f32 and
+    f64: twice on the same inputs and against its plain version on CPU copies
+    of the inputs, both bitwise (both fold each row in slot order and round
+    the weight product before the add)."""
     import torch
     from repro_torch.kernels.edge_spmv import edge_spmv_call, edge_spmv_plain
     from repro_torch.kernels.formats import (build_edge_tiles,
                                              pad_edge_tile_blocks)
     from repro_torch.kernels.ops import DeviceEdgeTiles
-    worst = (0.0, 0.0)
+    n_cases, worst = 0, 0.0
     for tile in (128, 256, 512):
         base = build_edge_tiles(twitter, tile=tile)
-        for pad in (0, 7):
-            fmt_h = (pad_edge_tile_blocks(base, base.num_blocks + pad)
-                     if pad else base)
-            fmt = DeviceEdgeTiles.from_format(fmt_h, "cuda")
+        layouts = {"": DeviceEdgeTiles.from_format(base, "cuda"),
+                   "+pad": DeviceEdgeTiles.from_format(
+                       pad_edge_tile_blocks(base, base.num_blocks + 7),
+                       "cuda")}
+        layouts.update({f" {k}": fmt for k, (_, fmt)
+                        in report["variants"][tile].items()})
+        for lname, fmt in layouts.items():
             host_fmt = [t.cpu() for t in (fmt.src_idx, fmt.dst_local,
                                           fmt.block_tile)]
             for dtype in (torch.float32, torch.float64):
                 dname = str(dtype).removeprefix("torch.")
-                # both add in slot order and round the weight product
-                # before the sum: they should agree to the last bit; held
-                # at power_step's tolerances
-                rtol, atol = POWER_TOL[dname]
                 s = torch.as_tensor(
-                    np.random.default_rng(tile + pad).uniform(size=fmt.n),
-                    dtype=dtype, device="cuda")
+                    np.random.default_rng(tile + len(lname)).uniform(
+                        size=fmt.n), dtype=dtype, device="cuda")
                 s_pre = fmt.pad_gather_source(s)
                 for weighted in (False, True):
-                    w = (_slot_weights(fmt_h, dtype, tile + pad + 1)
-                         if weighted else None)
+                    w = (_slot_weights(fmt, dtype, tile + 1) if weighted
+                         else None)
                     args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
                             fmt.tile_first_block, fmt.tile_num_blocks, w)
                     kw = dict(n=fmt.n, tile=tile)
                     o1 = edge_spmv_call(*args, **kw)
                     o2 = edge_spmv_call(*args, **kw)
                     torch.cuda.synchronize()
-                    name = (f"edge_spmv t{tile}{'+pad' if pad else ''} "
+                    name = (f"edge_spmv t{tile}{lname} "
                             f"{'weighted' if weighted else 'plain'} {dname}")
                     check(torch.equal(o1, o2), f"{name}: two runs differ")
                     op = edge_spmv_plain(s_pre.cpu(), *host_fmt,
                                          None if w is None else w.cpu(),
                                          tile=tile, num_tiles=fmt.num_tiles)
-                    err, share = _compare(name, o1.cpu(), op, rtol, atol)
-                    worst = max(worst, (share, err))
-                    say(f"{name:34s}: {fmt_h.num_blocks} blocks, max abs err "
-                        f"{err:.3e} (rtol {rtol}, atol {atol}; worst element "
-                        f"at {share:.3g} of its limit), bitwise repeatable")
-                    if tile == 512 and not pad and not weighted \
+                    err = float((o1.cpu() - op).abs().max())
+                    worst = max(worst, err)
+                    check(torch.equal(o1.cpu(), op), f"{name}: differs from "
+                          f"the plain version (max abs err {err:.3e}; must "
+                          f"be 0)")
+                    check(bool(torch.isfinite(o1).all()),
+                          f"{name}: non-finite output")
+                    n_cases += 1
+                    if tile == 512 and not lname and not weighted \
                             and dname == "float32":
                         report["max_abs_err"]["edge_spmv"] = err
+            say(f"edge_spmv t{tile}{lname:10s}: {fmt.src_idx.shape[0]} "
+                f"blocks; f32/f64 x plain/weighted bitwise equal to the "
+                f"plain version and run to run")
             del fmt, host_fmt
-    report["edge_spmv_share"] = worst[0]
-    say(f"edge_spmv: 24 cases, worst element at {worst[0]:.3g} of its limit "
-        f"(max abs err {worst[1]:.3e})")
+    report["edge_spmv_worst_err"] = worst
+    say(f"edge_spmv: {n_cases} cases bitwise equal to the plain version "
+        f"(worst max abs err {worst:.3e})")
 
 
 def _seg_mm_variants(report) -> dict:
@@ -826,13 +968,13 @@ def phase_times(report: dict) -> list[dict]:
     args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
             fmt.tile_first_block, fmt.tile_num_blocks, eng._mu_pad,
             eng._c_pad, s)
-    kw = dict(n=fmt.n, tile=fmt.tile)
-    ms = time_ms(lambda: power_step_call(*args, **kw), 200)
+    kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+    ms, dev_ms = both_ms(lambda: power_step_call(*args, **kw), 200)
     plain_ms = time_ms(lambda: power_step_plain(*args[:4], *args[6:],
                                                 tile=fmt.tile), 200)
     csr = push_csr(eng.graph, torch.float32)
     x = s_pre[0, :fmt.n, None].contiguous()
-    lib_ms = time_ms(lambda: torch.sparse.mm(csr, x), 200)
+    lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, x), 200)
     elt = s.element_size()
     # every slot's src_idx (a sentinel, src == n, can sit anywhere), dst_local
     # of the real slots only (the kernel skips the sentinels'), s_pre's n
@@ -852,26 +994,44 @@ def phase_times(report: dict) -> list[dict]:
         plain_ms=plain_ms, bound_ms=bound,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                   >= flops / F32_FLOP_PER_S else "operations"),
-        library_ms=lib_ms))
-    say(f"power_step (twitter, f32): {ms:.4f} ms/launch, "
+        library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms))
+    say(f"power_step (twitter, f32): {ms:.4f} ms/launch by CUDA events "
+        f"({dev_ms:.4f} ms of device time), "
         f"{report['edge_tile_cold_launches']} launches per cold resolve, "
         f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB a step at 3.35 TB/s, "
         f"{real} real slots of {fmt.src_idx.numel()}; "
         f"the step's working set fits the 50 MB L2, so the loop runs warm "
         f"and is timed warm), plain {plain_ms:.4f} ms, "
-        f"torch.sparse.mm CSR push {lib_ms:.4f} ms")
+        f"torch.sparse.mm CSR push {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms of "
+        f"device time)")
     del csr, x
     # power_step at the autotuner's other edge tiles, same graph and dtype
-    ms_by_tile = {256: ms}
+    by_tile = {256: (ms, dev_ms)}
     for tile in (128, 512):
         _, fmt_t, args_t = edge_tile_inputs(eng.graph, torch.float32,
                                             tile=tile)
-        ms_by_tile[tile] = time_ms(
-            lambda: power_step_call(*args_t, n=fmt_t.n, tile=tile), 200)
-    report["power_step_ms_by_tile"] = ms_by_tile
-    say("power_step (twitter, f32) ms/launch by tile: "
-        + ", ".join(f"{t}: {v:.4f}" for t, v in sorted(ms_by_tile.items())))
+        by_tile[tile] = both_ms(lambda: power_step_call(
+            *args_t, n=fmt_t.n, tile=tile, tile_order=fmt_t.tile_order), 200)
+    report["power_step_ms_by_tile"] = {t: v[0] for t, v in by_tile.items()}
+    report["power_step_device_ms_by_tile"] = {t: v[1]
+                                              for t, v in by_tile.items()}
+    say("power_step (twitter, f32) ms/launch by tile, CUDA events (device "
+        "time): " + ", ".join(f"{t}: {v[0]:.4f} ({v[1]:.4f})"
+                              for t, v in sorted(by_tile.items())))
     del fmt_t, args_t
+    # the tail of the in-degree skew, in device time: the same step with
+    # every tile's slots dealt in order over its rows
+    args_d = args[:2] + (deal_rows(fmt).dst_local,) + args[3:]
+    dealt_ms = device_ms(lambda: power_step_call(*args_d, **kw), 200)
+    report["skew_tail_device_ms"] = {"power_step_t256": dev_ms - dealt_ms}
+    longest = (int(fmt.tile_num_blocks.max()) * fmt.src_idx[0].numel()
+               // fmt.tile)
+    say(f"power_step (twitter, t256, f32) with every tile's slots dealt in "
+        f"order over its rows (no row longer than {longest} slots; the "
+        f"largest in-degree is {int(eng.graph.in_degree.max())}): "
+        f"{dealt_ms:.4f} ms/launch of device time; the skew's tail "
+        f"{dev_ms - dealt_ms:.4f} ms")
+    del args_d
 
     # bsr_spmv at the bsr service's shapes: clustered graph, float32
     eng = report["bsr_service"].engine
@@ -882,11 +1042,11 @@ def phase_times(report: dict) -> list[dict]:
     args = (s_pad, fmt.tiles, fmt.src_tile, fmt.dst_tile,
             fmt.dst_first_block, fmt.dst_num_blocks)
     kw = dict(num_dst_tiles=fmt.num_dst_tiles)
-    ms = time_ms(lambda: bsr_spmv_call(*args, **kw), 100)
+    ms, dev_ms = both_ms(lambda: bsr_spmv_call(*args, **kw), 100)
     plain_ms = time_ms(lambda: bsr_spmv_plain(*args[:4], **kw), 20)
     csr = push_csr(eng.graph, torch.float32)
     x = s_pad[0, :fmt.n, None].contiguous()
-    lib_ms = time_ms(lambda: torch.sparse.mm(csr, x), 100)
+    lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, x), 100)
     elt = s.element_size()
     nbytes = (fmt.tiles.nbytes + fmt.src_tile.nbytes
               + fmt.dst_first_block.nbytes + fmt.dst_num_blocks.nbytes
@@ -909,8 +1069,9 @@ def phase_times(report: dict) -> list[dict]:
         plain_ms=plain_ms, bound_ms=bound,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                   >= flops / F32_FLOP_PER_S else "operations"),
-        library_ms=lib_ms))
-    say(f"bsr_spmv (clustered, f32): {ms:.4f} ms/launch, "
+        library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms))
+    say(f"bsr_spmv (clustered, f32): {ms:.4f} ms/launch ({dev_ms:.4f} ms of "
+        f"device time), "
         f"{report['bsr_cold_launches']} launches per cold resolve, "
         f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB a step at 3.35 TB/s; "
         f"the tiles exceed the 50 MB L2, so every step streams them; the "
@@ -920,26 +1081,43 @@ def phase_times(report: dict) -> list[dict]:
         f"{lib_ms:.4f} ms")
     del csr, x
 
-    # edge_spmv at the tile the cost model picks for the twitter stand-in,
-    # unweighted, f32 — the shape the auto --microbench path times (it also
-    # launches tiles 128 and 256)
+    # edge_spmv at every autotuner tile, unweighted, f32, on the twitter
+    # stand-in (the shapes the auto --microbench path times); its row is
+    # tile 512, the tile the cost model picks
     from repro_torch.kernels.edge_spmv import edge_spmv_call, edge_spmv_plain
     from repro_torch.kernels.formats import build_edge_tiles
     from repro_torch.kernels.ops import DeviceEdgeTiles
     g = report["twitter"]
-    fmt = DeviceEdgeTiles.from_format(build_edge_tiles(g, tile=512), "cuda")
     s = torch.as_tensor(np.random.default_rng(0).random(g.n),
                         dtype=torch.float32, device="cuda")
-    s_pre = fmt.pad_gather_source(s)
-    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
-            fmt.tile_first_block, fmt.tile_num_blocks)
-    kw = dict(n=fmt.n, tile=fmt.tile)
-    ms = time_ms(lambda: edge_spmv_call(*args, **kw), 200)
+    by_tile, tails = {}, report["skew_tail_device_ms"]
+    for tile in (128, 256, 512):
+        fmt = DeviceEdgeTiles.from_format(build_edge_tiles(g, tile=tile),
+                                          "cuda")
+        s_pre = fmt.pad_gather_source(s)
+        args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+                fmt.tile_first_block, fmt.tile_num_blocks)
+        kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+        ms, dev_ms = by_tile[tile] = both_ms(
+            lambda: edge_spmv_call(*args, **kw), 200)
+        args_d = args[:2] + (deal_rows(fmt).dst_local,) + args[3:]
+        tails[f"edge_spmv_t{tile}"] = dev_ms - device_ms(
+            lambda: edge_spmv_call(*args_d, **kw), 200)
+        del args_d
+    report["edge_spmv_ms_by_tile"] = {t: v[0] for t, v in by_tile.items()}
+    report["edge_spmv_device_ms_by_tile"] = {t: v[1]
+                                             for t, v in by_tile.items()}
+    say("edge_spmv (twitter, f32) ms/launch by tile, CUDA events (device "
+        "time): " + ", ".join(f"{t}: {v[0]:.4f} ({v[1]:.4f})"
+                              for t, v in sorted(by_tile.items()))
+        + "; the skew's tail (device ms/launch less that with every tile's "
+        "slots dealt in order over its rows): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in tails.items()))
     plain_ms = time_ms(lambda: edge_spmv_plain(
         *args[:4], tile=fmt.tile, num_tiles=fmt.num_tiles), 200)
     csr = push_csr(g, torch.float32)
     x = s_pre[0, :fmt.n, None].contiguous()
-    lib_ms = time_ms(lambda: torch.sparse.mm(csr, x), 200)
+    lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, x), 200)
     elt = s.element_size()
     # every slot's src_idx, dst_local of the real slots only (the kernel
     # skips the sentinels'; no weights on this path), the block ranges,
@@ -958,12 +1136,14 @@ def phase_times(report: dict) -> list[dict]:
         plain_ms=plain_ms, bound_ms=bound,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                   >= flops / F32_FLOP_PER_S else "operations"),
-        library_ms=lib_ms))
-    say(f"edge_spmv (twitter, tile 512, f32): {ms:.4f} ms/launch, "
+        library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms))
+    say(f"edge_spmv (twitter, tile 512, f32): {ms:.4f} ms/launch by CUDA "
+        f"events ({dev_ms:.4f} ms of device time), "
         f"{rows[-1]['launches']} launches on the auto --microbench path, "
         f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {real} "
         f"real slots of {fmt.src_idx.numel()}), plain {plain_ms:.4f} ms, "
-        f"torch.sparse.mm CSR push {lib_ms:.4f} ms")
+        f"torch.sparse.mm CSR push {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms of "
+        f"device time)")
     del csr, x, fmt, s_pre, args
 
     # end-to-end cold resolve (host clock, synchronized), three repeats
@@ -980,8 +1160,10 @@ def phase_times(report: dict) -> list[dict]:
         say(f"{tag} cold resolve: {iters} iterations, "
             f"{sorted(walls)} ms (min {min(walls):.3f} ms)")
         report[f"{tag}_resolve"] = (iters, min(walls))
-        report[f"{tag}_busy"] = profile_run(
-            f"{tag} resolve", lambda: float(eng.run(tol=1e-8).psi.sum()))
+        kernel = "power_step" if tag == "edge_tile" else "bsr_spmv"
+        report[f"{tag}_busy"], report[f"{tag}_kernel_share"] = profile_run(
+            f"{tag} resolve", lambda: float(eng.run(tol=1e-8).psi.sum()),
+            kernel)
     rows += seg_mm_times(report)
     return rows
 
@@ -1013,12 +1195,12 @@ def seg_mm_times(report: dict) -> list[dict]:
             fmt.src_idx.shape[0], -1, d)
         args = (msgs, fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
                 fmt.tile_num_blocks)
-        ms = time_ms(lambda: seg_mm_call(*args, tile=fmt.tile), 50)
+        ms, dev_ms = both_ms(lambda: seg_mm_call(*args, tile=fmt.tile), 50)
         plain_ms = time_ms(lambda: seg_mm_plain(
             msgs, fmt.dst_local, fmt.block_tile, tile=fmt.tile,
             num_tiles=fmt.num_tiles), 20)
         real = msgs.reshape(-1, d).index_select(0, agg.slots)
-        lib_ms = time_ms(lambda: torch.sparse.mm(csr, real), 50)
+        lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, real), 50)
         elt = msgs.element_size()
         # every slot's message row (padding included) and dst_local, the
         # block ranges, the output once; one add per real edge and column
@@ -1037,12 +1219,15 @@ def seg_mm_times(report: dict) -> list[dict]:
             plain_ms=plain_ms, bound_ms=bound,
             bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                       >= flops / F32_FLOP_PER_S else "operations"),
-            library_ms=lib_ms))
-        say(f"seg_mm (minibatch_lg, d={d}, f32): {ms:.4f} ms/launch, "
+            library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms))
+        say(f"seg_mm (minibatch_lg, d={d}, f32): {ms:.4f} ms/launch "
+            f"({dev_ms:.4f} ms of device time), "
             f"{report['gnn']['per_step']:g} launches a train step, bound "
             f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s: "
             f"{fmt.src_idx.numel()} slots for {e_real} real edges), plain "
-            f"{plain_ms:.4f} ms, torch.sparse.mm CSR sum {lib_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, torch.sparse.mm CSR sum {lib_ms:.4f} ms "
+            f"({lib_dev_ms:.4f} ms of device time)")
         del x, msgs, args, real
     report["seg_mm_ms"] = {r["d"]: r["ms"] for r in rows}
     # the train step (fixed minibatch, full width) under the profiler
@@ -1055,15 +1240,16 @@ def seg_mm_times(report: dict) -> list[dict]:
         walls.append((time.perf_counter() - t0) * 1e3)
     say(f"gnn train step (fixed minibatch, device part): {sorted(walls)} ms")
     report["gnn_step_ms"] = min(walls)
-    report["gnn_busy"] = profile_run("gnn train step", lambda: float(
+    report["gnn_busy"], _ = profile_run("gnn train step", lambda: float(
         train.train_step(params, state, batch, cfg, opt)[2]))
     return rows
 
 
-def profile_run(tag, fn) -> float | None:
-    """One call of ``fn`` under ``torch.profiler``: device time by kernel
-    and the device's busy share of the call's wall time (returned; None when
-    the profiler saw no device time)."""
+def profile_run(tag, fn, kernel=None) -> tuple[float | None, float | None]:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel.
+    Returns the device's busy share of the call's wall time and the share
+    of the device time spent in kernels whose name holds ``kernel`` (both
+    None when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1080,12 +1266,14 @@ def profile_run(tag, fn) -> float | None:
     busy_us = sum(r[0] for r in rows)
     if not rows:
         say(f"{tag} profile: no device time recorded (not measured)")
-        return None
+        return None, None
     say(f"{tag} profile: device busy {busy_us:.1f} us of {wall_us:.1f} us "
         f"wall ({busy_us / wall_us:.1%}); by kernel:")
     for dev_us, count, key in rows[:8]:
         say(f"  {dev_us:10.1f} us  x{count:<4d} {key[:90]}")
-    return busy_us / wall_us
+    share = (sum(us for us, _, key in rows if kernel in key) / busy_us
+             if kernel else None)
+    return busy_us / wall_us, share
 
 
 def summary(report: dict) -> str:
@@ -1093,9 +1281,12 @@ def summary(report: dict) -> str:
     iterations and rel L1 error of each fixed point (edge_tile, bsr, then
     the auto runs), the worst kernel element's share of its limit, min cold
     resolve ms and the profiled busy share of each regime, bsr_spmv's
-    nonzero floor, the auto plans, the plain and accelerated f64 mat-vecs
-    and power_step's ms at each edge tile; for the GraphSAGE cell the first
-    and last loss of the trainer's run and of the fixed minibatch, seg_mm
+    nonzero floor, edge_spmv's worst error against its plain version (0:
+    bitwise), the auto plans, the plain and accelerated f64 mat-vecs,
+    power_step's and edge_spmv's ms (CUDA events) and device ms at each edge
+    tile and the in-degree skew's tail in their device time; for
+    the GraphSAGE cell the first and last loss of the trainer's run and of
+    the fixed minibatch, seg_mm
     launches a step, slots per real edge, the median step split, the f32
     step's error against f64, the step's ms and busy share and seg_mm's ms
     at d = 602 and 128."""
@@ -1109,12 +1300,16 @@ def summary(report: dict) -> str:
         "resolve_ms": {k: g(report[f"{k}_resolve"][1])
                        for k in ("edge_tile", "bsr")},
         "busy": {k: g(report[f"{k}_busy"]) for k in ("edge_tile", "bsr")},
+        "kernel_share": {k: g(report[f"{k}_kernel_share"])
+                         for k in ("edge_tile", "bsr")},
         "bsr_nonzero_bound_ms": g(report["bsr_nonzero_bound_ms"]),
-        "edge_spmv_share": g(report["edge_spmv_share"]),
+        "edge_spmv_max_abs_err": g(report["edge_spmv_worst_err"]),
         "auto_plans": report["auto_plans"],
         "accelerate_matvecs": report["accelerate_matvecs"],
-        "power_step_ms_by_tile": {k: g(v) for k, v in
-                                  report["power_step_ms_by_tile"].items()},
+        **{key: {k: g(v) for k, v in report[key].items()} for key in (
+            "power_step_ms_by_tile", "power_step_device_ms_by_tile",
+            "edge_spmv_ms_by_tile", "edge_spmv_device_ms_by_tile",
+            "skew_tail_device_ms")},
         "gnn": {"losses": [g(x) for x in report["gnn"]["losses"][::9]],
                 "fixed_batch_losses": [g(x) for x in
                                        report["gnn"]["fixed"][::9]],
@@ -1147,12 +1342,19 @@ def main() -> int:
     report: dict = {}
     counters = {"power_step": power_step_call, "bsr_spmv": bsr_spmv_call,
                 "edge_spmv": edge_spmv_call, "seg_mm": seg_mm_call}
-    # each main path and the kernels it must launch
+    # each main path and the kernels it must launch; the microbench path
+    # times every candidate's push (edge_spmv, bsr_spmv on the clustered
+    # graph) and then solves with the step of each plan it picks
+    def picked(report):
+        return tuple("power_step" if label.startswith("edge_tile")
+                     else "bsr_spmv" for key, label in
+                     report["auto_plans"].items()
+                     if key.startswith("microbench/"))
     paths = [("edge_tile", phase_edge_tile, ("power_step",)),
              ("bsr", phase_bsr, ("bsr_spmv",)),
              ("auto_model", lambda r: phase_auto(r, False), ("power_step",)),
              ("auto_microbench", lambda r: phase_auto(r, True),
-              ("edge_spmv", "bsr_spmv")),
+              lambda r: ("edge_spmv", "bsr_spmv") + picked(r)),
              ("accelerate", phase_accelerate, ("power_step",)),
              ("gnn_train", phase_gnn_train, ("seg_mm",))]
     try:
@@ -1166,7 +1368,7 @@ def main() -> int:
             got = {k: fn.launches for k, fn in counters.items()}
             report["launches"][path] = got
             say(f"main path {path}: launches {got}")
-            for k in needs:
+            for k in (needs(report) if callable(needs) else needs):
                 check(got[k] > 0, f"kernel {k} never launched on the main "
                       f"path {path}")
         rows = phase_times(report)

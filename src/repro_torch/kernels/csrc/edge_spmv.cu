@@ -5,21 +5,33 @@
 //   optional per-edge weight, scatter into the block's node tile; the output
 //   tile is written once.
 //
-// What bounds it on this card: bytes. A launch reads the int32 src_idx of
-//   every slot, dst_local (and the weight) of every real slot, gathers s_pre
-//   at random and writes t once; about two flops per edge.
+// What bounds it on this card: the order of the sums, then latency. A
+//   launch reads the int32 src_idx of every slot, dst_local (and the
+//   weight) of every real slot, gathers s_pre at random and writes t once;
+//   about two flops per edge. Each node's sum must be the plain version's
+//   left fold in slot order (no atomics, no tree within a row), so the
+//   bound is the longest chain: a node of thousands of in-edges, whose tile
+//   spans several blocks (edge_tile_scan.cuh).
 //
 // What the design does about it, and about the TPU's sequential grid: the
-//   TPU kernel carries each output tile in VMEM across consecutive grid steps
-//   and scatters with a one-hot MXU matmul (its workaround for having no
-//   scatter). Here one CTA per node tile walks its tile's block range
-//   (tile_first_block / tile_num_blocks) and thread r sums, in slot order,
-//   the slots whose row is r: the core shared with power_step.cu
-//   (edge_tile_scan.cuh). No atomics, so the result is the same from run to
-//   run and equals the plain version's slot-order sum on the CPU. The
-//   power_step epilogue (mu, c, the gap) is dropped. A tile without real
-//   slots writes zeros. Simple and right first: every thread scans every slot
-//   of its tile's blocks; a faster scatter is later work.
+//   TPU kernel carries each output tile in VMEM across consecutive grid
+//   steps and scatters with a one-hot MXU matmul (its workaround for having
+//   no scatter). Here one CTA per node tile walks its tile's block range
+//   (tile_first_block / tile_num_blocks), in the launch order tile_order
+//   (the tiles with the most blocks first), through the core shared with
+//   power_step.cu (edge_tile_scan.cuh): it stages sblk blocks at a time and
+//   each thread folds only its own row's slots, in slot order, in place
+//   when the stage is sorted and through a stable counting sort in shared
+//   memory when it is not, into a register that carries across the tile's
+//   blocks. The weight product is rounded before the add (__fmul_rn /
+//   __dmul_rn), as in the plain version. So the result is the same from run
+//   to run and equals the plain version's index_add_ on the CPU, with the
+//   slots sorted or not and sentinels anywhere. The power_step epilogue (mu,
+//   c, the gap) is dropped. A tile without real slots, or without blocks,
+//   writes zeros.
+// Shared memory: edge_tile_smem_bytes(tile, eblk, sblk, sizeof(T)) of
+//   edge_tile_scan.cuh, dynamic; above 48 KB the launch opts in (up to the
+//   card's 227 KB).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,38 +46,54 @@ __global__ void edge_spmv_kernel(const T* __restrict__ s_pre, int n,
                                  const T* __restrict__ weights,
                                  const int32_t* __restrict__ tile_first_block,
                                  const int32_t* __restrict__ tile_num_blocks,
-                                 T* __restrict__ out, int eblk) {
+                                 const int32_t* __restrict__ tile_order,
+                                 T* __restrict__ out, int eblk, int sblk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* vals = reinterpret_cast<T*>(smem_raw);                   // [eblk]
-  int32_t* rows = reinterpret_cast<int32_t*>(vals + eblk);     // [eblk]
-  const T acc = repro::tile_scan<T, kWeighted>(
-      s_pre, n, src_idx, dst_local, weights, tile_first_block[blockIdx.x],
-      tile_num_blocks[blockIdx.x], eblk, vals, rows);
-  out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
+  const int t = tile_order[blockIdx.x];
+  const T acc = repro::tile_fold<T, kWeighted>(
+      s_pre, n, src_idx, dst_local, weights, tile_first_block[t],
+      tile_num_blocks[t], eblk, sblk,
+      repro::carve<T>(smem_raw, blockDim.x, sblk * eblk));
+  out[(int64_t)t * blockDim.x + threadIdx.x] = acc;
+}
+
+template <typename T, bool kWeighted>
+int launch_kernel(const T* s, int n, const int32_t* si, const int32_t* dl,
+                  const T* w, const int32_t* tf, const int32_t* tn,
+                  const int32_t* to, T* o, int num_tiles, int tile, int eblk,
+                  int sblk, cudaStream_t st) {
+  const size_t smem = repro::edge_tile_smem_bytes(tile, eblk, sblk, sizeof(T));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        edge_spmv_kernel<T, kWeighted>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  edge_spmv_kernel<T, kWeighted><<<num_tiles, tile, smem, st>>>(
+      s, n, si, dl, w, tf, tn, to, o, eblk, sblk);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* s_pre, int n, const void* src_idx, const void* dst_local,
            const void* weights, const void* tile_first_block,
-           const void* tile_num_blocks, void* out, int num_tiles, int tile,
-           int eblk, void* stream) {
+           const void* tile_num_blocks, const void* tile_order, void* out,
+           int num_tiles, int tile, int eblk, int sblk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)eblk * (sizeof(T) + sizeof(int32_t));
   const T* s = static_cast<const T*>(s_pre);
   const int32_t* si = static_cast<const int32_t*>(src_idx);
   const int32_t* dl = static_cast<const int32_t*>(dst_local);
   const T* w = static_cast<const T*>(weights);
   const int32_t* tf = static_cast<const int32_t*>(tile_first_block);
   const int32_t* tn = static_cast<const int32_t*>(tile_num_blocks);
+  const int32_t* to = static_cast<const int32_t*>(tile_order);
   T* o = static_cast<T*>(out);
   if (w != nullptr) {
-    edge_spmv_kernel<T, true><<<num_tiles, tile, smem, st>>>(s, n, si, dl, w, tf,
-                                                             tn, o, eblk);
-  } else {
-    edge_spmv_kernel<T, false><<<num_tiles, tile, smem, st>>>(s, n, si, dl, w, tf,
-                                                              tn, o, eblk);
+    return launch_kernel<T, true>(s, n, si, dl, w, tf, tn, to, o, num_tiles,
+                                  tile, eblk, sblk, st);
   }
-  return (int)cudaGetLastError();
+  return launch_kernel<T, false>(s, n, si, dl, w, tf, tn, to, o, num_tiles,
+                                 tile, eblk, sblk, st);
 }
 
 }  // namespace
@@ -76,17 +104,21 @@ extern "C" {
 int repro_edge_spmv_f32(const void* s_pre, int n, const void* src_idx,
                         const void* dst_local, const void* weights,
                         const void* tile_first_block, const void* tile_num_blocks,
-                        void* out, int num_tiles, int tile, int eblk, void* stream) {
+                        const void* tile_order, void* out, int num_tiles, int tile,
+                        int eblk, int sblk, void* stream) {
   return launch<float>(s_pre, n, src_idx, dst_local, weights, tile_first_block,
-                       tile_num_blocks, out, num_tiles, tile, eblk, stream);
+                       tile_num_blocks, tile_order, out, num_tiles, tile, eblk,
+                       sblk, stream);
 }
 
 int repro_edge_spmv_f64(const void* s_pre, int n, const void* src_idx,
                         const void* dst_local, const void* weights,
                         const void* tile_first_block, const void* tile_num_blocks,
-                        void* out, int num_tiles, int tile, int eblk, void* stream) {
+                        const void* tile_order, void* out, int num_tiles, int tile,
+                        int eblk, int sblk, void* stream) {
   return launch<double>(s_pre, n, src_idx, dst_local, weights, tile_first_block,
-                        tile_num_blocks, out, num_tiles, tile, eblk, stream);
+                        tile_num_blocks, tile_order, out, num_tiles, tile, eblk,
+                        sblk, stream);
 }
 
 const char* repro_error_string(int err) {

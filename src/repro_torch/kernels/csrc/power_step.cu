@@ -5,27 +5,41 @@
 //   block's node tile, on the tile's last block s' = mu * t + c, and the L1
 //   gap ||s' - s_old||_1 accumulated in the kernel.
 //
-// What bounds it on this card: bytes. Each step reads the int32 src_idx of
-//   every slot and dst_local of every real slot, gathers s_pre at random, and
-//   streams mu, c, s_old in and s_new out; about two flops per edge. On the
-//   twitter stand-in that is about 20 MB a step, which stays in the 50 MB L2
-//   across the solver loop.
+// What bounds it on this card: the order of the sums, then latency. Each
+//   step reads the int32 src_idx of every slot and dst_local of every real
+//   slot, gathers s_pre at random and streams mu, c, s_old in and s_new out:
+//   about 20 MB on the twitter stand-in, which stays in the 50 MB L2 across
+//   the solver loop, and two flops per edge. The f32 map must stay
+//   deterministic (the solve ends at gap exactly 0), so each node's sum is
+//   one left fold in slot order: no atomics, no tree within a row. So the
+//   bound is the longest chain: a node of thousands of in-edges, whose tile
+//   spans several blocks (edge_tile_scan.cuh).
 //
 // What the design does about it, and about the TPU's sequential grid:
 //   * One CTA per node tile, one thread per output node. The CTA walks its
 //     tile's block range (tile_first_block / tile_num_blocks, taken from
-//     block_tile, not from the block_last flags that pad blocks move).
+//     block_tile, not from the block_last flags that pad blocks move), in
+//     the launch order tile_order: the tiles with the most blocks first,
+//     so the longest chains start in the first wave.
 //   * The TPU's one-hot matmul (its workaround for having no scatter) is
-//     dropped. The gather and the fixed-order, atomic-free sum into the
-//     tile are the shared core in edge_tile_scan.cuh (also used by
-//     edge_spmv.cu), so the f32 iteration is a deterministic map and can
-//     reach an exact fixed point (gap 0); sentinel slots are skipped
-//     wherever they lie.
-//   * Each CTA writes its partial gap; a second one-CTA kernel sums the
-//     partials in a fixed order.
-//   This is the simple, right version: every thread scans every slot of its
-//   tile's blocks (tile x eblk compares a block). A faster scatter is later
-//   work.
+//     dropped. The gather and the fixed-order sum into the tile are the
+//     shared core in edge_tile_scan.cuh (also used by edge_spmv.cu): it
+//     stages sblk blocks at a time, and each thread folds only its own
+//     row's slots, in slot order, in place when the stage is sorted and
+//     through a stable counting sort in shared memory when it is not.
+//     Sentinel slots are skipped wherever they lie.
+//   * The gap in the same launch: each CTA writes its tile's partial gap,
+//     fences, and draws an integer ticket from a device counter; the CTA
+//     that draws the last ticket sums all partials in tile order in the
+//     fixed order of a 256-thread CTA (that of the two-kernel version),
+//     writes the gap and resets the counter to 0. The sum does not depend
+//     on which CTA finished last, so a step is bitwise repeatable. The
+//     wrapper owns the counter (one per device and stream, zeroed once):
+//     launches that share a counter must not overlap, and launches on one
+//     stream never do.
+// Shared memory: edge_tile_smem_bytes(tile, eblk, sblk, sizeof(T)) of
+//   edge_tile_scan.cuh, dynamic; above 48 KB the launch opts in (up to the
+//   card's 227 KB).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,61 +70,100 @@ __device__ T block_sum(T v, T* scratch) {
   return v;
 }
 
+// The sum of partial[0, count) in the order of a CTA of kGapWidth threads:
+// virtual thread k adds partial[k], partial[k + kGapWidth], ... in turn,
+// each virtual warp folds its lanes with warp_sum, then lane 0 of warp 0
+// folds the virtual warps' sums with warp_sum. Any blockDim (a multiple of
+// 32) gives the same bits; the result is valid in thread 0. The partials
+// are read through L2 (__ldcg): other CTAs wrote them.
+template <typename T>
+__device__ T gap_sum(const T* partial, int count, T* scratch) {
+  constexpr int kGapWidth = 256;
+  constexpr int kGapWarps = kGapWidth / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int vw = warp; vw < kGapWarps; vw += nwarps) {
+    T v = T(0);
+    for (int i = vw * 32 + lane; i < count; i += kGapWidth) v += __ldcg(partial + i);
+    v = warp_sum(v);
+    if (lane == 0) scratch[vw] = v;
+  }
+  __syncthreads();
+  T v = T(0);
+  if (warp == 0) {
+    v = lane < kGapWarps ? scratch[lane] : T(0);
+    v = warp_sum(v);
+  }
+  return v;
+}
+
 template <typename T>
 __global__ void power_step_kernel(const T* __restrict__ s_pre, int n,
                                   const int32_t* __restrict__ src_idx,
                                   const int32_t* __restrict__ dst_local,
                                   const int32_t* __restrict__ tile_first_block,
                                   const int32_t* __restrict__ tile_num_blocks,
+                                  const int32_t* __restrict__ tile_order,
                                   const T* __restrict__ mu, const T* __restrict__ c,
                                   const T* __restrict__ s_old, T* __restrict__ s_new,
-                                  T* __restrict__ gap_partial, int eblk) {
+                                  T* __restrict__ gap_partial, T* __restrict__ gap,
+                                  unsigned int* __restrict__ ticket, int eblk,
+                                  int sblk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* vals = reinterpret_cast<T*>(smem_raw);                   // [eblk]
-  int32_t* rows = reinterpret_cast<int32_t*>(vals + eblk);     // [eblk]
   const int tile = blockDim.x;
   const int r = threadIdx.x;
-  const T acc = repro::tile_scan<T, false>(
-      s_pre, n, src_idx, dst_local, nullptr, tile_first_block[blockIdx.x],
-      tile_num_blocks[blockIdx.x], eblk, vals, rows);
+  const repro::EdgeTileSmem<T> sm =
+      repro::carve<T>(smem_raw, tile, sblk * eblk);
+  const int t = tile_order[blockIdx.x];
+  const T acc = repro::tile_fold<T, false>(
+      s_pre, n, src_idx, dst_local, nullptr, tile_first_block[t],
+      tile_num_blocks[t], eblk, sblk, sm);
 
-  const int64_t node = (int64_t)blockIdx.x * tile + r;
+  const int64_t node = (int64_t)t * tile + r;
   const T sn = mu[node] * acc + c[node];
   s_new[node] = sn;
   const T d = sn - s_old[node];
-  const T total = block_sum(d < T(0) ? -d : d, vals);
-  if (r == 0) gap_partial[blockIdx.x] = total;
-}
-
-template <typename T>
-__global__ void gap_reduce_kernel(const T* __restrict__ partial, int count,
-                                  T* __restrict__ gap) {
-  __shared__ T scratch[32];
-  T v = T(0);
-  for (int i = threadIdx.x; i < count; i += blockDim.x) v += partial[i];
-  v = block_sum(v, scratch);
-  if (threadIdx.x == 0) *gap = v;
+  const T total = block_sum(d < T(0) ? -d : d, sm.scratch);
+  bool last = false;
+  if (r == 0) {
+    gap_partial[t] = total;
+    __threadfence();                       // the partial before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  if (!__syncthreads_or(last)) return;
+  __threadfence();                         // every partial is visible now
+  const T g = gap_sum(gap_partial, gridDim.x, sm.scratch);
+  if (r == 0) {
+    *gap = g;
+    *ticket = 0u;                          // ready for the next launch
+  }
 }
 
 template <typename T>
 int launch(const void* s_pre, int n, const void* src_idx, const void* dst_local,
            const void* tile_first_block, const void* tile_num_blocks,
-           const void* mu, const void* c, const void* s_old, void* s_new,
-           void* gap_partial, void* gap, int num_tiles, int tile, int eblk,
-           void* stream) {
+           const void* tile_order, const void* mu, const void* c,
+           const void* s_old, void* s_new,
+           void* gap_partial, void* gap, void* ticket, int num_tiles, int tile,
+           int eblk, int sblk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)eblk * (sizeof(T) + sizeof(int32_t));
+  const size_t smem = repro::edge_tile_smem_bytes(tile, eblk, sblk, sizeof(T));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        power_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   power_step_kernel<T><<<num_tiles, tile, smem, st>>>(
       static_cast<const T*>(s_pre), n, static_cast<const int32_t*>(src_idx),
       static_cast<const int32_t*>(dst_local),
       static_cast<const int32_t*>(tile_first_block),
-      static_cast<const int32_t*>(tile_num_blocks), static_cast<const T*>(mu),
+      static_cast<const int32_t*>(tile_num_blocks),
+      static_cast<const int32_t*>(tile_order), static_cast<const T*>(mu),
       static_cast<const T*>(c), static_cast<const T*>(s_old), static_cast<T*>(s_new),
-      static_cast<T*>(gap_partial), eblk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gap_reduce_kernel<T><<<1, 256, 0, st>>>(static_cast<const T*>(gap_partial),
-                                          num_tiles, static_cast<T*>(gap));
+      static_cast<T*>(gap_partial), static_cast<T*>(gap),
+      static_cast<unsigned int*>(ticket), eblk, sblk);
   return (int)cudaGetLastError();
 }
 
@@ -120,22 +173,28 @@ extern "C" {
 
 int repro_power_step_f32(const void* s_pre, int n, const void* src_idx,
                          const void* dst_local, const void* tile_first_block,
-                         const void* tile_num_blocks, const void* mu, const void* c,
-                         const void* s_old, void* s_new, void* gap_partial, void* gap,
-                         int num_tiles, int tile, int eblk, void* stream) {
+                         const void* tile_num_blocks, const void* tile_order,
+                         const void* mu, const void* c, const void* s_old,
+                         void* s_new, void* gap_partial, void* gap, void* ticket,
+                         int num_tiles, int tile, int eblk, int sblk,
+                         void* stream) {
   return launch<float>(s_pre, n, src_idx, dst_local, tile_first_block,
-                       tile_num_blocks, mu, c, s_old, s_new, gap_partial, gap,
-                       num_tiles, tile, eblk, stream);
+                       tile_num_blocks, tile_order, mu, c, s_old, s_new,
+                       gap_partial, gap, ticket, num_tiles, tile, eblk, sblk,
+                       stream);
 }
 
 int repro_power_step_f64(const void* s_pre, int n, const void* src_idx,
                          const void* dst_local, const void* tile_first_block,
-                         const void* tile_num_blocks, const void* mu, const void* c,
-                         const void* s_old, void* s_new, void* gap_partial, void* gap,
-                         int num_tiles, int tile, int eblk, void* stream) {
+                         const void* tile_num_blocks, const void* tile_order,
+                         const void* mu, const void* c, const void* s_old,
+                         void* s_new, void* gap_partial, void* gap, void* ticket,
+                         int num_tiles, int tile, int eblk, int sblk,
+                         void* stream) {
   return launch<double>(s_pre, n, src_idx, dst_local, tile_first_block,
-                        tile_num_blocks, mu, c, s_old, s_new, gap_partial, gap,
-                        num_tiles, tile, eblk, stream);
+                        tile_num_blocks, tile_order, mu, c, s_old, s_new,
+                        gap_partial, gap, ticket, num_tiles, tile, eblk, sblk,
+                        stream);
 }
 
 const char* repro_error_string(int err) {

@@ -16,10 +16,17 @@ import torch
 
 from . import _build
 
-__all__ = ["edge_spmv_call", "edge_spmv_plain"]
+__all__ = ["edge_spmv_call", "edge_spmv_plain", "edge_tile_smem_bytes",
+           "stage_blocks", "check_edge_tile_smem", "heavy_first",
+           "SMEM_LIMIT_BYTES", "STAGE_BYTES"]
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# The most dynamic shared memory a CTA may opt in to on the H100 (227 KB),
+# and the most the edge-tile kernels take to stage several blocks at once.
+SMEM_LIMIT_BYTES = 232_448
+STAGE_BYTES = 48 * 1024
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def edge_spmv_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
@@ -41,15 +48,65 @@ def edge_spmv_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
     return out[None, :]
 
 
+def edge_tile_smem_bytes(tile: int, eblk: int, element_size: int,
+                         sblk: int = 1) -> int:
+    """Shared memory of one CTA of the edge-tile kernels (``power_step``,
+    ``edge_spmv``) staging ``sblk`` blocks at a time, in bytes:
+    ``edge_tile_smem_bytes`` of ``csrc/edge_tile_scan.cuh``. Staged and
+    row-grouped values (``2 · sblk · eblk`` elements), a 32-element scratch,
+    the per-warp 16-bit row counts (``tile / 32 × tile``), the 16-bit staged
+    rows (``sblk · eblk``) and the 16-bit run bounds of the rows
+    (``2 · tile``)."""
+    return (sblk * eblk * (2 * element_size + 2) + 32 * element_size
+            + tile * (tile // 32) * 2 + tile * 4)
+
+
+def stage_blocks(tile: int, eblk: int, element_size: int) -> int:
+    """Blocks a CTA of the edge-tile kernels stages at once: the most of 4,
+    2 and 1 whose shared memory stays within :data:`STAGE_BYTES` (else 1).
+    More blocks a stage shorten the chain of a tile with many blocks; more
+    shared memory a CTA leaves fewer CTAs an SM."""
+    for sblk in (4, 2):
+        if edge_tile_smem_bytes(tile, eblk, element_size, sblk) <= STAGE_BYTES:
+            return sblk
+    return 1
+
+
+def check_edge_tile_smem(kernel: str, tile: int, eblk: int,
+                         element_size: int) -> int:
+    """The blocks a CTA stages at once (:func:`stage_blocks`); raises
+    unless its shared memory fits :data:`SMEM_LIMIT_BYTES`."""
+    sblk = stage_blocks(tile, eblk, element_size)
+    need = edge_tile_smem_bytes(tile, eblk, element_size, sblk)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"{kernel}: tile {tile} with edge blocks of {eblk} "
+                         f"slots needs {need} bytes of shared memory; the "
+                         f"kernel has {SMEM_LIMIT_BYTES}")
+    return sblk
+
+
+def heavy_first(tile_num_blocks: torch.Tensor) -> torch.Tensor:
+    """The edge-tile kernels' launch order: tile ids with the most blocks
+    first (ties in id order), so the CTAs with the longest chains start in
+    the first wave. Any order gives the same bits; this one shortens the
+    tail. :class:`~repro_torch.kernels.ops.DeviceEdgeTiles` computes it once
+    as ``tile_order``; a wrapper called without one computes it here."""
+    return torch.argsort(tile_num_blocks, descending=True,
+                         stable=True).to(torch.int32)
+
+
 def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
-                  tile_num_blocks, weights, n, tile) -> None:
+                  tile_num_blocks, tile_order, weights, n, tile) -> int:
+    """Raise on what the kernel does not take; returns the blocks a CTA
+    stages at once."""
     dev, dtype = s_pre.device, s_pre.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"edge_spmv takes float32 or float64; got {dtype}")
     named = [("s_pre", s_pre, dtype), ("src_idx", src_idx, torch.int32),
              ("dst_local", dst_local, torch.int32),
              ("tile_first_block", tile_first_block, torch.int32),
-             ("tile_num_blocks", tile_num_blocks, torch.int32)]
+             ("tile_num_blocks", tile_num_blocks, torch.int32),
+             ("tile_order", tile_order, torch.int32)]
     if weights is not None:
         named.append(("weights", weights, dtype))
     for name, x, want in named:
@@ -60,9 +117,10 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
     if tile % 32 or not 32 <= tile <= 1024:
         raise ValueError(f"edge_spmv: tile must be a multiple of 32 in "
                          f"[32, 1024]; got {tile}")
-    if tile_num_blocks.shape != (num_tiles,):
-        raise ValueError("edge_spmv: tile_num_blocks must match "
-                         "tile_first_block")
+    if tile_num_blocks.shape != (num_tiles,) or \
+            tile_order.shape != (num_tiles,):
+        raise ValueError("edge_spmv: tile_num_blocks and tile_order must "
+                         "match tile_first_block")
     if s_pre.dim() != 2 or s_pre.shape[0] != 1 or s_pre.shape[1] < n:
         raise ValueError(f"edge_spmv: s_pre must be [1, >= {n}]")
     eblk = src_idx[0].numel() if src_idx.shape[0] else 0
@@ -72,9 +130,8 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
     if weights is not None and weights.shape != src_idx.shape:
         raise ValueError(f"edge_spmv: weights must be "
                          f"{tuple(src_idx.shape)}; got {tuple(weights.shape)}")
-    if eblk * (s_pre.element_size() + 4) > 48 * 1024:
-        raise ValueError(f"edge_spmv: an edge block of {eblk} slots does "
-                         f"not fit the kernel's 48 KiB of shared memory")
+    return check_edge_tile_smem("edge_spmv", tile, eblk,
+                                s_pre.element_size())
 
 
 def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
@@ -82,7 +139,8 @@ def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                    tile_first_block: torch.Tensor,
                    tile_num_blocks: torch.Tensor,
                    weights: torch.Tensor | None = None, *, n: int,
-                   tile: int) -> torch.Tensor:
+                   tile: int,
+                   tile_order: torch.Tensor | None = None) -> torch.Tensor:
     """The bare push over a device edge-tile format.
 
     Args:
@@ -91,6 +149,10 @@ def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
       block_tile: i32[num_blocks]; tile_first_block / tile_num_blocks:
         i32[num_tiles], each tile's contiguous block range.
       weights: optional f[num_blocks, e1, e2] per-edge weights.
+      tile_order: optional i32[num_tiles], the order in which the kernel
+        takes the tiles, a permutation of the tile ids (the format's
+        ``tile_order``; :func:`heavy_first` of ``tile_num_blocks`` when
+        absent). It moves no bit of the result.
 
     Returns:
       f[1, num_tiles * tile]; the caller slices ``[:, :n]``.
@@ -101,8 +163,10 @@ def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                                tile=tile, num_tiles=num_tiles)
     if s_pre.device.type != "cuda":
         raise ValueError(f"edge_spmv runs on cuda or cpu; got {s_pre.device}")
-    _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
-                  tile_num_blocks, weights, n, tile)
+    if tile_order is None:
+        tile_order = heavy_first(tile_num_blocks)
+    sblk = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
+                         tile_num_blocks, tile_order, weights, n, tile)
     out = torch.empty(1, num_tiles * tile, dtype=s_pre.dtype,
                       device=s_pre.device)
     symbol = ("repro_edge_spmv_f32" if s_pre.dtype == torch.float32
@@ -114,8 +178,8 @@ def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                     dst_local.data_ptr(),
                     None if weights is None else weights.data_ptr(),
                     tile_first_block.data_ptr(), tile_num_blocks.data_ptr(),
-                    out.data_ptr(), num_tiles, tile, src_idx[0].numel(),
-                    stream)
+                    tile_order.data_ptr(), out.data_ptr(),
+                    num_tiles, tile, src_idx[0].numel(), sblk, stream)
     _build.check("edge_spmv", status)
     edge_spmv_call.launches += 1
     return out

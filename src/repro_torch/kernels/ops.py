@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .bsr_spmv import bsr_spmv_call
-from .edge_spmv import edge_spmv_call
+from .edge_spmv import edge_spmv_call, heavy_first
 from .formats import BsrFormat, EdgeTileFormat
 from .power_step import power_step_call
 from .seg_mm import SegMM
@@ -54,19 +54,21 @@ class DeviceEdgeTiles:
     block_tile: torch.Tensor        # i32[num_blocks]
     tile_first_block: torch.Tensor  # i32[num_tiles]
     tile_num_blocks: torch.Tensor   # i32[num_tiles]
+    tile_order: torch.Tensor        # i32[num_tiles], a permutation
 
     @classmethod
     def from_format(cls, fmt: EdgeTileFormat,
                     device: str | torch.device = "cuda") -> "DeviceEdgeTiles":
         dev = resolve_device(device)
         n_pad = fmt.num_tiles * fmt.tile
+        num_blocks = _i32(fmt.tile_num_blocks, dev)
         return cls(
             n=fmt.n, n_pad=n_pad, n_gather=n_pad + 1, tile=fmt.tile,
             e1=fmt.e1, e2=fmt.e2, num_tiles=fmt.num_tiles,
             src_idx=_i32(fmt.src_idx, dev), dst_local=_i32(fmt.dst_local, dev),
             block_tile=_i32(fmt.block_tile, dev),
             tile_first_block=_i32(fmt.tile_first_block, dev),
-            tile_num_blocks=_i32(fmt.tile_num_blocks, dev))
+            tile_num_blocks=num_blocks, tile_order=heavy_first(num_blocks))
 
     @property
     def device(self) -> torch.device:
@@ -129,7 +131,7 @@ def power_step(s: torch.Tensor, inv_w_gather: torch.Tensor,
     return power_step_call(
         s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
         fmt.tile_first_block, fmt.tile_num_blocks, mu_pad, c_pad, s,
-        n=fmt.n, tile=fmt.tile)
+        n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
 
 
 def edge_spmv(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,
@@ -138,7 +140,8 @@ def edge_spmv(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,
     (optional) is f[num_blocks, e1, e2] in the slot layout. Returns f[n]."""
     out = edge_spmv_call(fmt.pad_gather_source(s_pre), fmt.src_idx,
                          fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
-                         fmt.tile_num_blocks, weights, n=fmt.n, tile=fmt.tile)
+                         fmt.tile_num_blocks, weights, n=fmt.n, tile=fmt.tile,
+                         tile_order=fmt.tile_order)
     return out[0, :fmt.n]
 
 

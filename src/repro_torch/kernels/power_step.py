@@ -14,12 +14,27 @@ import ctypes
 import torch
 
 from . import _build
-from .edge_spmv import edge_spmv_plain
+from .edge_spmv import check_edge_tile_smem, edge_spmv_plain, heavy_first
 
 __all__ = ["power_step_call", "power_step_plain"]
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12 + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+# One int32 ticket counter per (device, stream): the kernel's CTAs draw
+# tickets from it to find the last one, which sums the partial gaps and
+# resets it to 0. Launches that share a counter must run one after another,
+# which launches on one stream do; launches on two streams may overlap, so
+# each stream has its own counter.
+_TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    t = _TICKETS.get((device, stream))
+    if t is None:
+        t = _TICKETS[device, stream] = torch.zeros(1, dtype=torch.int32,
+                                                   device=device)
+    return t
 
 
 def power_step_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
@@ -36,7 +51,9 @@ def power_step_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
 
 
 def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
-                  tile_num_blocks, mu, c, s_old, n, tile) -> None:
+                  tile_num_blocks, tile_order, mu, c, s_old, n, tile) -> int:
+    """Raise on what the kernel does not take; returns the blocks a CTA
+    stages at once."""
     dev, dtype = s_pre.device, s_pre.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"power_step takes float32 or float64; got {dtype}")
@@ -45,7 +62,8 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                           ("src_idx", src_idx, torch.int32),
                           ("dst_local", dst_local, torch.int32),
                           ("tile_first_block", tile_first_block, torch.int32),
-                          ("tile_num_blocks", tile_num_blocks, torch.int32)):
+                          ("tile_num_blocks", tile_num_blocks, torch.int32),
+                          ("tile_order", tile_order, torch.int32)):
         if x.device != dev or x.dtype != want or not x.is_contiguous():
             raise ValueError(f"power_step: {name} must be a contiguous {want} "
                              f"tensor on {dev}; got {x.dtype} on {x.device}")
@@ -54,9 +72,10 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
     if tile % 32 or not 32 <= tile <= 1024:
         raise ValueError(f"power_step: tile must be a multiple of 32 in "
                          f"[32, 1024]; got {tile}")
-    if tile_num_blocks.shape != (num_tiles,):
-        raise ValueError("power_step: tile_num_blocks must match "
-                         "tile_first_block")
+    if tile_num_blocks.shape != (num_tiles,) or \
+            tile_order.shape != (num_tiles,):
+        raise ValueError("power_step: tile_num_blocks and tile_order must "
+                         "match tile_first_block")
     for name, x in (("mu", mu), ("c", c), ("s_old", s_old)):
         if x.shape != (1, n_pad):
             raise ValueError(f"power_step: {name} must be [1, {n_pad}]; "
@@ -67,9 +86,8 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
     if dst_local.shape != src_idx.shape or eblk < 32:
         raise ValueError("power_step: src_idx/dst_local must share a "
                          "[blocks, e1, e2] shape with e1*e2 >= 32")
-    if eblk * (s_pre.element_size() + 4) > 48 * 1024:
-        raise ValueError(f"power_step: an edge block of {eblk} slots does "
-                         f"not fit the kernel's 48 KiB of shared memory")
+    return check_edge_tile_smem("power_step", tile, eblk,
+                                s_pre.element_size())
 
 
 def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
@@ -77,7 +95,8 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                     tile_first_block: torch.Tensor,
                     tile_num_blocks: torch.Tensor, mu: torch.Tensor,
                     c: torch.Tensor, s_old: torch.Tensor, *, n: int,
-                    tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    tile: int, tile_order: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused step over a device edge-tile format.
 
     Args:
@@ -86,6 +105,10 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
       block_tile: i32[num_blocks]; tile_first_block / tile_num_blocks:
         i32[num_tiles], each tile's contiguous block range.
       mu / c / s_old: f[1, num_tiles * tile].
+      tile_order: optional i32[num_tiles], the order in which the kernel
+        takes the tiles, a permutation of the tile ids (the format's
+        ``tile_order``; ``heavy_first`` of ``tile_num_blocks`` when absent).
+        It moves no bit of the result.
 
     Returns:
       (s_new f[1, num_tiles * tile], gap 0-dim ‖s_new − s_old‖₁).
@@ -95,8 +118,10 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                                 s_old, tile=tile)
     if s_pre.device.type != "cuda":
         raise ValueError(f"power_step runs on cuda or cpu; got {s_pre.device}")
-    _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
-                  tile_num_blocks, mu, c, s_old, n, tile)
+    if tile_order is None:
+        tile_order = heavy_first(tile_num_blocks)
+    sblk = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
+                         tile_num_blocks, tile_order, mu, c, s_old, n, tile)
     num_tiles = tile_first_block.shape[0]
     s_new = torch.empty_like(mu)
     partial = torch.empty(num_tiles, dtype=s_pre.dtype, device=s_pre.device)
@@ -108,10 +133,12 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(s_pre.data_ptr(), n, src_idx.data_ptr(),
                     dst_local.data_ptr(), tile_first_block.data_ptr(),
-                    tile_num_blocks.data_ptr(), mu.data_ptr(), c.data_ptr(),
-                    s_old.data_ptr(), s_new.data_ptr(), partial.data_ptr(),
-                    gap.data_ptr(), num_tiles, tile, src_idx[0].numel(),
-                    stream)
+                    tile_num_blocks.data_ptr(),
+                    tile_order.data_ptr(), mu.data_ptr(),
+                    c.data_ptr(), s_old.data_ptr(), s_new.data_ptr(),
+                    partial.data_ptr(), gap.data_ptr(),
+                    _ticket(s_pre.device, stream).data_ptr(), num_tiles, tile,
+                    src_idx[0].numel(), sblk, stream)
     _build.check("power_step", status)
     power_step_call.launches += 1
     return s_new, gap

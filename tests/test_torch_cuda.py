@@ -20,6 +20,7 @@ from repro_torch.kernels.formats import (build_bsr, build_edge_tiles,
 from repro_torch.kernels.ops import (DeviceBsr, DeviceEdgeTiles, bsr_spmv,
                                      edge_spmv)
 from repro_torch.kernels.power_step import power_step_call, power_step_plain
+from test_torch_edge_layouts import KINDS, edge_tile_layout, slot_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -105,13 +106,11 @@ def _slot_weights(fmt_h, dtype, seed):
 
 # edge_spmv against its plain version on CPU copies: both add in slot order,
 # and the weight product is rounded before the sum in both, so they agree to
-# the last bit; the tolerances are power_step's.
+# the last bit.
 @pytest.mark.parametrize("tile", [128, 256, 512])
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-6, 1e-7),
-                                             (torch.float64, 1e-14, 1e-16)])
-def test_edge_spmv_kernel_matches_plain_on_card(card, tile, weighted, dtype,
-                                                rtol, atol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_spmv_kernel_matches_plain_on_card(card, tile, weighted, dtype):
     g = tg.powerlaw_configuration(5000, 40000, seed=3)
     fmt_h = build_edge_tiles(g, tile=tile)
     fmt_h = pad_edge_tile_blocks(fmt_h, fmt_h.num_blocks + 7)
@@ -127,7 +126,92 @@ def test_edge_spmv_kernel_matches_plain_on_card(card, tile, weighted, dtype,
                          fmt.dst_local.cpu(), fmt.block_tile.cpu(),
                          None if w is None else w.cpu(), tile=tile,
                          num_tiles=fmt.num_tiles)[0, :g.n]
-    torch.testing.assert_close(o1.cpu(), op, rtol=rtol, atol=atol)
+    assert torch.equal(o1.cpu(), op)
+
+
+# Every slot layout the kernels must take (test_torch_edge_layouts.KINDS:
+# shuffled, patched through a cuda engine's patch_edges, an idle and an
+# empty tile, a hub row over three or more blocks) at the autotuner's three
+# tiles. power_step at the tolerances above; edge_spmv bitwise: both it and
+# its plain version on CPU copies fold each row in slot order.
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-6, 1e-7),
+                                             (torch.float64, 1e-14, 1e-16)])
+def test_power_step_kernel_matches_plain_at_every_slot_layout(card, kind,
+                                                              tile, dtype,
+                                                              rtol, atol):
+    g, fmt = edge_tile_layout(kind, tile, card)
+    rng = np.random.default_rng(5)
+    s_pre = fmt.pad_gather_source(torch.as_tensor(
+        rng.uniform(size=g.n), dtype=dtype, device=card))
+    mu, c, s_old = (fmt.pad_node_vector(torch.as_tensor(
+        rng.uniform(size=g.n), dtype=dtype, device=card)) for _ in range(3))
+    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+            fmt.tile_first_block, fmt.tile_num_blocks, mu, c, s_old)
+    s1, gap1 = power_step_call(*args, n=g.n, tile=tile)
+    s2, gap2 = power_step_call(*args, n=g.n, tile=tile)
+    assert torch.equal(s1, s2) and torch.equal(gap1, gap2)
+    host = [a.cpu() for a in (s_pre, fmt.src_idx, fmt.dst_local,
+                              fmt.block_tile, mu, c, s_old)]
+    sp, gapp = power_step_plain(*host, tile=tile)
+    torch.testing.assert_close(s1.cpu(), sp, rtol=rtol, atol=atol)
+    assert abs(float(gap1) - float(gapp)) <= 1e-3 * float(gapp)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_spmv_kernel_equals_plain_at_every_slot_layout(card, kind, tile,
+                                                            weighted, dtype):
+    g, fmt = edge_tile_layout(kind, tile, card)
+    s = torch.as_tensor(np.random.default_rng(6).uniform(size=g.n),
+                        dtype=dtype, device=card)
+    w = slot_weights(fmt, dtype, 7) if weighted else None
+    o1, o2 = edge_spmv(s, fmt, w), edge_spmv(s, fmt, w)
+    assert torch.equal(o1, o2)
+    op = edge_spmv_plain(fmt.pad_gather_source(s).cpu(), fmt.src_idx.cpu(),
+                         fmt.dst_local.cpu(), fmt.block_tile.cpu(),
+                         None if w is None else w.cpu(), tile=tile,
+                         num_tiles=fmt.num_tiles)[0, :g.n]
+    assert torch.equal(o1.cpu(), op)
+
+
+# The launch order moves no bit: the tiles in id order give what the
+# format's heavy-first tile_order gives. The gap's ticket counter is kept per
+# stream, so steps launched on two streams at once each find their own last
+# CTA and both equal the one-stream step to the last bit.
+def test_edge_tile_kernels_take_any_tile_order_and_two_streams(card):
+    g, fmt = edge_tile_layout("hub", 256, card)
+    rng = np.random.default_rng(8)
+    s_pre = fmt.pad_gather_source(torch.as_tensor(
+        rng.uniform(size=g.n), dtype=torch.float32, device=card))
+    mu, c, s_old = (fmt.pad_node_vector(torch.as_tensor(
+        rng.uniform(size=g.n), dtype=torch.float32, device=card))
+        for _ in range(3))
+    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+            fmt.tile_first_block, fmt.tile_num_blocks)
+    ident = torch.arange(fmt.num_tiles, dtype=torch.int32, device=card)
+    assert not torch.equal(ident, fmt.tile_order)
+    kw = dict(n=g.n, tile=256)
+    assert torch.equal(edge_spmv_call(*args, **kw, tile_order=ident),
+                       edge_spmv_call(*args, **kw, tile_order=fmt.tile_order))
+    s0, gap0 = power_step_call(*args, mu, c, s_old, **kw,
+                               tile_order=fmt.tile_order)
+    s1, gap1 = power_step_call(*args, mu, c, s_old, **kw, tile_order=ident)
+    assert torch.equal(s0, s1) and torch.equal(gap0, gap1)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                outs.append(power_step_call(*args, mu, c, s_old, **kw,
+                                            tile_order=fmt.tile_order))
+    torch.cuda.synchronize()
+    for s, gap in outs:
+        assert torch.equal(s, s0) and torch.equal(gap, gap0)
 
 
 @pytest.mark.parametrize("td", [128, 256])
