@@ -18,19 +18,26 @@ on the first check that does not hold:
    256), on ragged and padded cases, on edge-tile slots shuffled within
    each tile, on a ``cuda`` engine's format after ``patch_edges`` and on a
    hub node of more than two blocks of in-edges, and twice on the same
-   inputs (outputs must be bitwise equal);
+   inputs (outputs must be bitwise equal); ``bsr_spmv`` on one-byte tiles
+   also bitwise against the same tiles in the working dtype, and the fused
+   ``bsr_step`` bitwise against the composition it replaces (``s_new``;
+   the gap within GAP_RTOL);
 3. the serving path in the ``edge_tile`` regime: ``PsiService`` on the
    twitter stand-in with ``backend="cuda"`` through a cold solve, ranked
    requests, an activity update, an edge insert into free sentinel slots
    and an edge removal, each fixed point held against the ``reference``
    backend at float64 on the card;
-4. the same in the ``bsr`` regime on a clustered graph, with an edge insert
-   into an existing dense tile;
+4. the same in the ``bsr`` regime on a clustered graph (one ``bsr_step``
+   launch a step, one-byte tiles), with an edge insert into an existing
+   dense tile;
 5. ``backend="auto"`` on both graphs: a cold solve and a warm activity
    update, first with the cost model's plan (which must equal the plan
    computed on the host), then with ``microbench=True`` (every candidate's
    push kernel timed on the card; the candidate table is printed), each
-   fixed point at gap 0 and held against the float64 reference;
+   fixed point at gap 0 and held against the float64 reference; before it,
+   the clustered graph planned with the microbench three times, every
+   candidate's µs printed each time: the pick must not change (or the
+   candidates must tie within 3%);
 6. ``accelerate=True`` on the ``cuda`` backend at float64 on the twitter
    stand-in: the same ψ as the reference in fewer mat-vecs than the plain
    loop;
@@ -44,16 +51,22 @@ on the first check that does not hold:
 8. times: CUDA events around back-to-back calls, warm, for each kernel,
    its plain version and one PyTorch sparse call for the same push or sum,
    beside the kernel's bound, and the device time (``torch.profiler``) of
-   the kernel and the library call; the edge-tile kernels at every
+   the kernel and the library call; ``bsr_spmv`` also once after an L2
+   flush (its one-byte tiles fit the L2) and beside the floors of f32
+   tiles and of the nonzeros; ``bsr_step`` beside the six-launch
+   composition it replaced; ``seg_mm``'s bound counts the real message
+   rows, the padded count printed beside it, and its device time at other
+   aggregation tiles; the edge-tile kernels at every
    autotuner tile and, in device time, with every tile's slots dealt in
    order over its rows (the tail of the in-degree skew); the cold resolves
    and the GraphSAGE step under the profiler.
 
 Phase 2 holds ``seg_mm`` against its plain version on CPU copies, bitwise,
-at float32 and float64, d = 8, 128 and 602, on the trainer's format at the
-``minibatch_lg`` shape (as built, with padding blocks, with its slots
-shuffled within each tile), on a tile with only padding blocks and a tile
-with none; its backward against the plain gather.
+at float32 and float64, d = 8, 128 and 602, with and without the layout's
+tile spans, on the trainer's format at the ``minibatch_lg`` shape (as
+built, with padding blocks, with its slots shuffled within each tile), on
+a tile with only padding blocks and a tile with none; its backward against
+the plain gather.
 
 Phases 3 to 7 are the main paths (the auto phase is two: model-only and
 microbench): every launch counter is set to 0 just before each path and
@@ -79,8 +92,9 @@ F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # relative tolerance of power_step's gap. power_step is held against its plain
 # version on CPU copies of the inputs: the CPU's index_add_ adds in slot order,
 # as the kernel does, so only the epilogue's FMA contraction (<= 1 ulp) and
-# the gap's summation order differ. bsr_spmv is held against its plain
-# version on the card, a batched matmul that sums in another order.
+# the gap's summation order differ. bsr_spmv and bsr_step are held against
+# their plain versions on the card, a batched matmul that sums in another
+# order; bsr_step's gap against the unfused composition's within GAP_RTOL.
 POWER_TOL = {"float32": (1e-6, 1e-7), "float64": (1e-14, 1e-16)}
 GAP_RTOL = {"float32": 1e-4, "float64": 1e-10}
 BSR_TOL = {"float32": (2e-5, 2e-6), "float64": (1e-12, 1e-14)}
@@ -94,6 +108,14 @@ GNN_GRAD_REL_L2 = 1e-4
 # the model-only plan the cost model gives both graphs (computed on the
 # host in the run as well; the two must agree)
 AUTO_MODEL_LABEL = "edge_tile(tile=512,e1=8,e2=128)"
+# the iterations of every checked fixed point, in order: edge_tile (cold,
+# update_activity, add_edges, remove_edges), bsr (the same four), then
+# auto[model] and auto[microbench], each twitter (cold, update) and
+# clustered (cold, update). The f32 maps are deterministic, so a count
+# moves only with the summation order or the plan: the microbench picks
+# bsr(128,128) on the clustered graph, so that pair is the bsr regime's.
+FIXED_POINT_ITERS = [33, 13, 23, 25, 44, 24, 23, 22,
+                     33, 12, 42, 24, 33, 12, 44, 23]
 
 
 class SmokeFailure(Exception):
@@ -160,6 +182,28 @@ def device_ms(fn, iters: int) -> float:
 def both_ms(fn, iters: int) -> tuple[float, float]:
     """(:func:`time_ms`, :func:`device_ms`) of ``fn``."""
     return time_ms(fn, iters), device_ms(fn, iters)
+
+
+def cold_ms(fn, reps: int = 10) -> tuple[float, float]:
+    """(min, median) device ms of one call of ``fn`` that finds the L2
+    cold: each time 256 MB are read (more than the 50 MB L2; read, so the
+    lines they leave are clean), then a spin kernel holds the card while
+    the host queues the call, and CUDA events bracket the call alone."""
+    import torch
+    flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.sum()
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return min(times), float(np.median(times))
 
 
 # --------------------------------------------------------------------- #
@@ -336,7 +380,6 @@ def _compare(name, out_k, out_p, rtol, atol) -> tuple[float, float]:
 def phase_kernels(report: dict) -> None:
     import torch
     from repro_torch.graphs import clustered_blocks, erdos_renyi, load_dataset
-    from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
     twitter = load_dataset("twitter")
     cases = [("twitter", twitter, 256, 0), ("twitter+pad", twitter, 256, 7),
              ("twitter t128", twitter, 128, 0),
@@ -375,36 +418,97 @@ def phase_kernels(report: dict) -> None:
                                  seed=3)
     report["clustered"] = clustered
     report["twitter"] = twitter
+    bsr_cases(report, clustered)
+    edge_spmv_cases(report, twitter)
+    seg_mm_cases(report)
+
+
+def bsr_cases(report: dict, clustered) -> None:
+    """bsr_spmv (the bare push) and bsr_step (the fused step) at every BSR
+    shape the autotuner may pick or time and at td 64 and 32 (a thread then
+    owns 2 or 1 columns), on the clustered graph and a ragged one, at f32
+    and f64: the push on one-byte tiles twice (bitwise
+    equal), against the same tiles stored in the working dtype (bitwise
+    equal: the cell conversion is exact) and against its plain version (a
+    batched matmul summing in another order, BSR_TOL); the step twice
+    (bitwise), against the composition it replaces, ``mu * push(s * inv_w)
+    + c`` (s_new bitwise, gap within GAP_RTOL), and against its plain
+    version (BSR_TOL)."""
+    import torch
+    from repro_torch.core import build_operators, heterogeneous
+    from repro_torch.graphs import clustered_blocks
+    from repro_torch.kernels.bsr_spmv import (bsr_spmv_call, bsr_spmv_plain,
+                                              bsr_step_plain)
+    from repro_torch.kernels.ops import DeviceBsr, bsr_spmv, bsr_step
     ragged = clustered_blocks(1000, 8000, block=128, p_in=0.9, seed=23)
     bcases = [("clustered", clustered, 128),
               ("clustered td256", clustered, 256),
-              ("ragged n=1000", ragged, 128), ("ragged td256", ragged, 256)]
+              ("ragged n=1000", ragged, 128), ("ragged td256", ragged, 256),
+              ("clustered td64", clustered, 64), ("ragged td32", ragged, 32)]
+    errs = report["max_abs_err"]
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).removeprefix("torch.")
         rtol, atol = BSR_TOL[dname]
         for cname, g, td in bcases:
             fmt_h, fmt, args = bsr_inputs(g, dtype, td=td)
+            check(fmt.tiles.dtype == torch.uint8,
+                  f"bsr {cname} {dname}: count tiles not kept in one byte")
             kw = dict(num_dst_tiles=fmt.num_dst_tiles)
             o1 = bsr_spmv_call(*args, **kw)
             o2 = bsr_spmv_call(*args, **kw)
+            wide = torch.as_tensor(fmt_h.tiles, device="cuda")
+            ow = bsr_spmv_call(args[0], wide, *args[2:], **kw)
             torch.cuda.synchronize()
             check(torch.equal(o1, o2), f"bsr_spmv {cname} {dname}: two runs "
                   "differ")
+            check(torch.equal(o1, ow), f"bsr_spmv {cname} {dname}: one-byte "
+                  f"and {dname} tiles differ")
             op = bsr_spmv_plain(*args[:4], **kw)
             err, share = _compare(f"bsr_spmv {cname} {dname}", o1, op, rtol,
                                   atol)
             say(f"bsr_spmv {cname:15s} {dname}: {fmt_h.num_blocks} tiles "
-                f"({fmt_h.tiles.nbytes / 1e6:.1f} MB, occupancy "
-                f"{fmt_h.occupancy:.3f}), max abs err {err:.3e} "
-                f"(rtol {rtol}, atol {atol}; worst element at {share:.3g} of "
-                f"its limit), bitwise repeatable")
+                f"({fmt.tiles.nbytes / 1e6:.1f} MB in one byte a cell, "
+                f"{fmt_h.tiles.nbytes / 1e6:.1f} MB in {dname}; occupancy "
+                f"{fmt_h.occupancy:.3f}), max abs err {err:.3e} (rtol {rtol},"
+                f" atol {atol}; worst element at {share:.3g} of its limit), "
+                f"bitwise repeatable and equal on both storages")
             if cname == "clustered" and dname == "float32":
                 errs["bsr_spmv"] = err
                 report["bsr_spmv_share"] = share
-            del fmt, args, o1, o2, op
+            # the fused step on the same format
+            ops = build_operators(g, heterogeneous(g.n, seed=1), dtype=dtype,
+                                  device="cuda")
+            s = args[0][0, :g.n].contiguous()
+            step = (ops.inv_w, ops.mu, ops.c)
+            s1, gap1 = bsr_step(s, *step, fmt)
+            s2, gap2 = bsr_step(s, *step, fmt)
+            fmt_w = DeviceBsr(**{**vars(fmt), "tiles": wide})
+            s3, gap3 = bsr_step(s, *step, fmt_w)
+            s_ref = ops.mu * bsr_spmv(s * ops.inv_w, fmt) + ops.c
+            gap_ref = float(torch.sum(torch.abs(s_ref - s)))
+            torch.cuda.synchronize()
+            tag = f"bsr_step {cname} {dname}"
+            check(torch.equal(s1, s2) and torch.equal(gap1, gap2),
+                  f"{tag}: two runs differ")
+            check(torch.equal(s1, s3) and torch.equal(gap1, gap3),
+                  f"{tag}: one-byte and {dname} tiles differ")
+            check(torch.equal(s1, s_ref), f"{tag}: s_new differs from mu * "
+                  "bsr_spmv(s * inv_w) + c")
+            gap_rel = abs(float(gap1) - gap_ref) / gap_ref
+            check(gap_rel <= GAP_RTOL[dname], f"{tag}: gap rel err "
+                  f"{gap_rel:.3e} against the composition's > "
+                  f"{GAP_RTOL[dname]}")
+            sp, _ = bsr_step_plain(s, *step, wide, args[2], args[3],
+                                   n_src_pad=fmt.n_src_pad, **kw)
+            err, share = _compare(tag, s1, sp, rtol, atol)
+            say(f"{tag}: s_new bitwise equal to the unfused composition, "
+                f"gap rel err {gap_rel:.3e} (tol {GAP_RTOL[dname]}), max abs "
+                f"err {err:.3e} against the plain step (worst element at "
+                f"{share:.3g} of its limit), bitwise repeatable")
+            if cname == "clustered" and dname == "float32":
+                errs["bsr_step"] = err
+            del fmt, fmt_w, args, wide, o1, o2, ow, op, ops, s1, s2, s3, sp
         torch.cuda.empty_cache()
-    edge_spmv_cases(report, twitter)
-    seg_mm_cases(report)
 
 
 def _check_power_step(name, fmt, args, rtol, atol, gtol):
@@ -586,11 +690,15 @@ def _seg_mm_args(layout, d, dtype, gen):
 
 
 def seg_mm_cases(report: dict) -> None:
-    """seg_mm against its plain version on CPU copies of the inputs (both add
-    every slot in slot order: held bitwise), twice on the same inputs
-    (bitwise), at f32 and f64 and d = 8, 128, 602, on every layout of
-    :func:`_seg_mm_variants`; then the backward against the plain gather."""
+    """seg_mm against its plain version on CPU copies of the inputs (the
+    plain version adds every slot in slot order, the kernel a row's slots in
+    slot order and no padding past the tile span: held bitwise, since a sum
+    from +0.0 is unchanged by a zero row), twice on the same inputs with the
+    layout's tile span and once without it (all bitwise), at f32 and f64
+    and d = 8, 128, 602, on every layout of :func:`_seg_mm_variants`; then
+    the backward against the plain gather."""
     import torch
+    from repro_torch.kernels.formats import tile_spans
     from repro_torch.kernels.seg_mm import SegMM, seg_mm_call, seg_mm_plain
     from repro_torch.models.gnn.common import DEFAULT_TILES
     tile = DEFAULT_TILES[0]
@@ -599,15 +707,21 @@ def seg_mm_cases(report: dict) -> None:
     errs = report["max_abs_err"]
     n_cases = 0
     for name, layout in layouts.items():
+        src, _, bt, num_tiles, n = layout
+        span = torch.as_tensor(tile_spans(src, n, bt, num_tiles),
+                               device="cuda")
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
             for d in (8, 128, 602):
                 args = _seg_mm_args(layout, d, dtype, gen)
-                o1 = seg_mm_call(*args, tile=tile)
-                o2 = seg_mm_call(*args, tile=tile)
+                o1 = seg_mm_call(*args, tile=tile, tile_span=span)
+                o2 = seg_mm_call(*args, tile=tile, tile_span=span)
+                o3 = seg_mm_call(*args, tile=tile)
                 torch.cuda.synchronize()
                 tag = f"seg_mm {name} d={d} {dname}"
                 check(torch.equal(o1, o2), f"{tag}: two runs differ")
+                check(torch.equal(o1, o3), f"{tag}: differs without the "
+                      f"tile span")
                 host = [a.cpu() for a in args]
                 op = seg_mm_plain(host[0], host[1], host[2], tile=tile,
                                   num_tiles=layout[3])
@@ -621,10 +735,11 @@ def seg_mm_cases(report: dict) -> None:
                 if name == "minibatch" and dname == "float32" and d > 8:
                     errs["seg_mm" if d == 602 else "seg_mm_d128"] = err
                 n_cases += 1
-                del args, o1, o2, host, op
+                del args, o1, o2, o3, host, op
         say(f"seg_mm {name:18s}: {layout[0].shape[0]} blocks, {layout[3]} "
-            f"tiles; f32/f64 x d 8/128/602 bitwise equal to the plain "
-            f"version and run to run")
+            f"tiles, {int(span.sum())} slots in the tile spans of "
+            f"{src.size}; f32/f64 x d 8/128/602 bitwise equal to the plain "
+            f"version, with and without the span, and run to run")
     # the backward: dM = dY at each slot's row, against the plain gather
     args = _seg_mm_args(layouts["minibatch+pad"], 128, torch.float32, gen)
     msgs = args[0].clone().requires_grad_()
@@ -738,14 +853,47 @@ def phase_edge_tile(report: dict) -> None:
 
 
 def phase_bsr(report: dict) -> None:
+    import torch
     from repro_torch.core import heterogeneous
-    from repro_torch.kernels.bsr_spmv import bsr_spmv_call
+    from repro_torch.kernels.bsr_spmv import bsr_step_call
     g = report["clustered"]
     rng = np.random.default_rng(2)
     src = rng.integers(0, g.n, 64)
     dst = (src // 128) * 128 + rng.integers(0, 128, 64)  # same dense tile
-    _drive_service("bsr", g, heterogeneous(g.n, seed=6), bsr_spmv_call,
+    _drive_service("bsr", g, heterogeneous(g.n, seed=6), bsr_step_call,
                    report, {"regime": "bsr"}, (src, dst))
+    tiles = report["bsr_service"].engine.fmt.tiles
+    check(tiles.dtype == torch.uint8, f"bsr service: tiles kept as "
+          f"{tiles.dtype} after the edge patch, not one byte a cell")
+
+
+def microbench_stability(report: dict, g, runs: int = 3) -> None:
+    """Plan the clustered graph with the microbench ``runs`` times (no plan
+    cache, no calibration) and print every candidate's µs each time. The
+    pick must be the same each time, unless the candidates it moves between
+    are within 3% of each other in every run (a tie, reported as such)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.obs import explain
+    picks, tables = [], []
+    for k in range(runs):
+        plan = autotune.plan_regime(g, microbench=True, device="cuda",
+                                    cache=None, calibration=None)
+        rec = explain.get_log().last(kind="regime_plan")
+        table = {c.name: c.measured_us for c in rec.candidates}
+        picks.append(plan.label())
+        tables.append(table)
+        say(f"microbench stability, clustered, planning {k + 1}: pick "
+            f"{plan.label()}; us " + ", ".join(
+                f"{name} {us:.2f}" for name, us in table.items()))
+    stable = len(set(picks)) == 1
+    tie = all(max(t[p] for p in set(picks)) <= 1.03 * min(
+        t[p] for p in set(picks)) for t in tables)
+    check(stable or tie, f"microbench picks {picks} differ and do not tie: "
+          f"{tables}")
+    say(f"microbench stability, clustered: {runs} plannings picked "
+        f"{picks[0] if stable else picks} "
+        f"({'stable' if stable else 'a tie within 3%'})")
+    report["microbench_stability"] = (picks, tables)
 
 
 def phase_auto(report: dict, microbench: bool) -> None:
@@ -757,10 +905,12 @@ def phase_auto(report: dict, microbench: bool) -> None:
     import torch
     from repro_torch.core import PsiService, heterogeneous
     from repro_torch.kernels import autotune
-    from repro_torch.kernels.bsr_spmv import bsr_spmv_call
+    from repro_torch.kernels.bsr_spmv import bsr_step_call
     from repro_torch.kernels.power_step import power_step_call
     from repro_torch.obs import explain
     mode = "microbench" if microbench else "model"
+    if microbench:
+        microbench_stability(report, report["clustered"])
     for gname in ("twitter", "clustered"):
         g = report[gname]
         act = heterogeneous(g.n, seed=6)
@@ -797,7 +947,7 @@ def phase_auto(report: dict, microbench: bool) -> None:
         ref = PsiService(g, act, tol=1e-12, backend="reference",
                          dtype=torch.float64, device="cuda")
         counter = (power_step_call if svc.engine.regime == "edge_tile"
-                   else bsr_spmv_call)
+                   else bsr_step_call)
         before = counter.launches
         svc.scores()
         ref.scores()
@@ -1033,53 +1183,109 @@ def phase_times(report: dict) -> list[dict]:
         f"{dev_ms - dealt_ms:.4f} ms")
     del args_d
 
-    # bsr_spmv at the bsr service's shapes: clustered graph, float32
+    # bsr_spmv and bsr_step at the bsr service's shapes: clustered graph,
+    # float32, one-byte tiles (33.5 MB: they fit the 50 MB L2, so back-to-
+    # back launches run warm; cold_ms times one launch after an L2 flush)
+    from repro_torch.kernels.bsr_spmv import bsr_step_call, bsr_step_plain
     eng = report["bsr_service"].engine
     fmt = eng.fmt
     s = report["bsr_service"].last_result.s
-    s_pad = torch.nn.functional.pad(s * eng.ops.inv_w,
-                                    (0, fmt.n_src_pad - fmt.n))[None, :]
+    s_pad = fmt.pad_source(s * eng.ops.inv_w)
     args = (s_pad, fmt.tiles, fmt.src_tile, fmt.dst_tile,
             fmt.dst_first_block, fmt.dst_num_blocks)
     kw = dict(num_dst_tiles=fmt.num_dst_tiles)
-    ms, dev_ms = both_ms(lambda: bsr_spmv_call(*args, **kw), 100)
+    ms, dev_ms = both_ms(lambda: bsr_spmv_call(*args, **kw), 200)
+    cold = cold_ms(lambda: bsr_spmv_call(*args, **kw))
     plain_ms = time_ms(lambda: bsr_spmv_plain(*args[:4], **kw), 20)
     csr = push_csr(eng.graph, torch.float32)
     x = s_pad[0, :fmt.n, None].contiguous()
-    lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, x), 100)
+    lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, x), 200)
     elt = s.element_size()
-    nbytes = (fmt.tiles.nbytes + fmt.src_tile.nbytes
-              + fmt.dst_first_block.nbytes + fmt.dst_num_blocks.nbytes
-              + elt * (fmt.n_src_pad + fmt.num_dst_tiles * fmt.td))
-    flops = 2 * int(fmt.tiles.numel())
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-    # the bound above is the floor of this dense-tile format; a format that
-    # keeps only the nonzeros of the 0/1 matrix moves their int32 source ids,
-    # n + 1 row offsets, s_pre in and t out
+    cells = int(fmt.tiles.numel())
+    tables = (fmt.src_tile.nbytes + fmt.dst_first_block.nbytes
+              + fmt.dst_num_blocks.nbytes)
+    vecs = elt * (fmt.n_src_pad + fmt.num_dst_tiles * fmt.td)
+
+    def floor_ms(nbytes, flops):
+        return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+
+    # the floor of the storage this run used (each tile cell read once in
+    # one byte), beside the floor of f32 dense tiles and the floor
+    # of a format that keeps only the nonzeros of the 0/1 matrix (their
+    # int32 source ids, n + 1 row offsets, s_pre in and t out)
+    nbytes = fmt.tiles.nbytes + tables + vecs
+    bound = floor_ms(nbytes, 2 * cells)
+    f32_bound = floor_ms(4 * cells + tables + vecs, 2 * cells)
     m = eng.graph.m
     nz_bytes = 4 * m + 4 * (fmt.n + 1) + 2 * elt * fmt.n
     nz_bound = nz_bytes / HBM_BYTES_PER_S * 1e3
-    report["bsr_nonzero_bound_ms"] = nz_bound
+    report["bsr_bounds_ms"] = dict(storage=bound, f32_tiles=f32_bound,
+                                   nonzero=nz_bound)
+    report["bsr_spmv_ms"] = dict(events=ms, device=dev_ms, cold=cold[0],
+                                 library_device=lib_dev_ms)
     rows.append(dict(
         name="bsr_spmv", route="cuda",
         source="src/repro_torch/kernels/csrc/bsr_spmv.cu",
         replaces="src/repro/kernels/bsr_spmv.py:39",
-        launches=report["launches"]["bsr"]["bsr_spmv"],
+        launches=report["launches"]["auto_microbench"]["bsr_spmv"],
         max_abs_err=report["max_abs_err"]["bsr_spmv"], ms=ms,
         plain_ms=plain_ms, bound_ms=bound,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= flops / F32_FLOP_PER_S else "operations"),
-        library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms))
-    say(f"bsr_spmv (clustered, f32): {ms:.4f} ms/launch ({dev_ms:.4f} ms of "
-        f"device time), "
-        f"{report['bsr_cold_launches']} launches per cold resolve, "
-        f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB a step at 3.35 TB/s; "
-        f"the tiles exceed the 50 MB L2, so every step streams them; the "
-        f"floor of this dense-tile format), nonzero floor {nz_bound:.4f} ms "
-        f"({nz_bytes / 1e6:.1f} MB: {m} int32 source ids, row offsets, "
-        f"s_pre, t), plain {plain_ms:.4f} ms, torch.sparse.mm CSR push "
-        f"{lib_ms:.4f} ms")
+                  >= 2 * cells / F32_FLOP_PER_S else "operations"),
+        library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+        cold_device_ms=cold[0]))
+    say(f"bsr_spmv (clustered, f32, {fmt.tiles.dtype} tiles): {ms:.4f} "
+        f"ms/launch by CUDA events ({dev_ms:.4f} ms of device time, warm: "
+        f"the {fmt.tiles.nbytes / 1e6:.1f} MB of tiles fit the 50 MB L2), "
+        f"one launch after an L2 flush min {cold[0]:.4f} / median "
+        f"{cold[1]:.4f} ms; {rows[-1]['launches']} launches on the auto "
+        f"--microbench path; bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"3.35 TB/s, one byte a cell), f32 dense-tile floor {f32_bound:.4f} "
+        f"ms, nonzero floor {nz_bound:.4f} ms ({nz_bytes / 1e6:.1f} MB); "
+        f"plain {plain_ms:.4f} ms, torch.sparse.mm CSR push {lib_ms:.4f} ms "
+        f"({lib_dev_ms:.4f} ms of device time)")
     del csr, x
+    # the fused step, and the six-launch composition it replaced
+    step = (s, eng.ops.inv_w, eng.ops.mu, eng.ops.c)
+    skw = dict(n_src_pad=fmt.n_src_pad, **kw)
+    tbl = (fmt.src_tile, fmt.dst_tile, fmt.dst_first_block,
+           fmt.dst_num_blocks)
+    ms_s, dev_s = both_ms(lambda: bsr_step_call(*step, fmt.tiles, *tbl,
+                                                **skw), 200)
+    plain_s = time_ms(lambda: bsr_step_plain(*step, fmt.tiles, *tbl[:2],
+                                             **skw), 20)
+
+    def unfused():
+        t = bsr_spmv_call(fmt.pad_source(s * eng.ops.inv_w), fmt.tiles,
+                          *tbl, **kw)[0, :fmt.n]
+        s_new = eng.ops.mu * t + eng.ops.c
+        return s_new, torch.sum(torch.abs(s_new - s))
+    ms_u, dev_u = both_ms(unfused, 200)
+    # the tiles and tables; s, 1/w, mu, c read and s_new written once (the
+    # step stages s * 1/w itself and writes no padded t); the partials
+    step_bytes = (fmt.tiles.nbytes + tables
+                  + elt * (5 * fmt.n + fmt.num_dst_tiles))
+    step_flops = 2 * cells + 5 * fmt.n
+    bound_s = floor_ms(step_bytes, step_flops)
+    report["bsr_step_ms"] = dict(events=ms_s, device=dev_s,
+                                 unfused_events=ms_u, unfused_device=dev_u)
+    rows.append(dict(
+        name="bsr_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/bsr_spmv.cu",
+        replaces="src/repro/kernels/bsr_spmv.py:39",
+        launches=report["launches"]["bsr"]["bsr_step"],
+        max_abs_err=report["max_abs_err"]["bsr_step"], ms=ms_s,
+        plain_ms=plain_s, bound_ms=bound_s,
+        bound_by=("bytes" if step_bytes / HBM_BYTES_PER_S
+                  >= step_flops / F32_FLOP_PER_S else "operations"),
+        library_ms=None, device_ms=dev_s, library_device_ms=None))
+    say(f"bsr_step (clustered, f32): {ms_s:.4f} ms/launch by CUDA events "
+        f"({dev_s:.4f} ms of device time), {report['bsr_cold_launches']} "
+        f"launches per cold resolve, bound {bound_s:.4f} ms "
+        f"({step_bytes / 1e6:.1f} MB: tiles, tables, s, 1/w, mu, c, "
+        f"s_new, partials); the unfused composition (x 1/w, pad, push, mu *, + c, "
+        f"gap) {ms_u:.4f} ms by events ({dev_u:.4f} ms of device time); "
+        f"plain {plain_s:.4f} ms; no single library call")
 
     # edge_spmv at every autotuner tile, unweighted, f32, on the twitter
     # stand-in (the shapes the auto --microbench path times); its row is
@@ -1160,7 +1366,7 @@ def phase_times(report: dict) -> list[dict]:
         say(f"{tag} cold resolve: {iters} iterations, "
             f"{sorted(walls)} ms (min {min(walls):.3f} ms)")
         report[f"{tag}_resolve"] = (iters, min(walls))
-        kernel = "power_step" if tag == "edge_tile" else "bsr_spmv"
+        kernel = "power_step" if tag == "edge_tile" else "bsr_kernel"
         report[f"{tag}_busy"], report[f"{tag}_kernel_share"] = profile_run(
             f"{tag} resolve", lambda: float(eng.run(tol=1e-8).psi.sum()),
             kernel)
@@ -1195,20 +1401,25 @@ def seg_mm_times(report: dict) -> list[dict]:
             fmt.src_idx.shape[0], -1, d)
         args = (msgs, fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
                 fmt.tile_num_blocks)
-        ms, dev_ms = both_ms(lambda: seg_mm_call(*args, tile=fmt.tile), 50)
+        skw = dict(tile=fmt.tile, tile_span=agg.tile_span)
+        ms, dev_ms = both_ms(lambda: seg_mm_call(*args, **skw), 50)
         plain_ms = time_ms(lambda: seg_mm_plain(
             msgs, fmt.dst_local, fmt.block_tile, tile=fmt.tile,
             num_tiles=fmt.num_tiles), 20)
         real = msgs.reshape(-1, d).index_select(0, agg.slots)
         lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, real), 50)
         elt = msgs.element_size()
-        # every slot's message row (padding included) and dst_local, the
-        # block ranges, the output once; one add per real edge and column
-        nbytes = (msgs.nbytes + fmt.dst_local.nbytes
-                  + fmt.tile_first_block.nbytes + fmt.tile_num_blocks.nbytes
-                  + elt * fmt.num_tiles * fmt.tile * d)
+        # the real message rows and their dst_local (the kernel reads no
+        # padding past the tile spans), the block ranges and spans, the
+        # output once; one add per real edge and column. The padded count
+        # (every slot's row, as read without spans) is printed beside it.
+        out_bytes = elt * fmt.num_tiles * fmt.tile * d
+        ranges = 3 * fmt.tile_first_block.nbytes
+        nbytes = elt * e_real * d + 4 * e_real + ranges + out_bytes
+        padded = msgs.nbytes + fmt.dst_local.nbytes + ranges + out_bytes
         flops = e_real * d
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+        padded_bound = padded / HBM_BYTES_PER_S * 1e3
         name = "seg_mm" if d == 602 else "seg_mm_d128"
         rows.append(dict(
             name="seg_mm", d=d, route="cuda",
@@ -1220,16 +1431,45 @@ def seg_mm_times(report: dict) -> list[dict]:
             bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                       >= flops / F32_FLOP_PER_S else "operations"),
             library_ms=lib_ms, device_ms=dev_ms,
-            library_device_ms=lib_dev_ms))
+            library_device_ms=lib_dev_ms, padded_bound_ms=padded_bound))
         say(f"seg_mm (minibatch_lg, d={d}, f32): {ms:.4f} ms/launch "
             f"({dev_ms:.4f} ms of device time), "
             f"{report['gnn']['per_step']:g} launches a train step, bound "
-            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s: "
-            f"{fmt.src_idx.numel()} slots for {e_real} real edges), plain "
-            f"{plain_ms:.4f} ms, torch.sparse.mm CSR sum {lib_ms:.4f} ms "
-            f"({lib_dev_ms:.4f} ms of device time)")
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s: {e_real} "
+            f"real message rows and the output), with every padded slot's "
+            f"row {padded_bound:.4f} ms ({padded / 1e6:.1f} MB, "
+            f"{fmt.src_idx.numel()} slots), plain {plain_ms:.4f} ms, "
+            f"torch.sparse.mm CSR sum {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms "
+            f"of device time)")
         del x, msgs, args, real
+    # the new kernel at the trainer's other aggregation tiles (d = 602,
+    # device time): the tile moves no bit, only the padding and the grid
+    from repro_torch.models.gnn.common import edge_agg
+    src_h, dst_h = batch.src.cpu().numpy(), batch.dst.cpu().numpy()
+    x = torch.randn(batch.n + 1, 602, generator=gen, device="cuda")
+    x[batch.n] = 0.0
+    cases = {}
+    for tile in (256, 512, 1024):
+        a = edge_agg(src_h, dst_h, batch.n, tiles=(tile, 2, 128),
+                     device="cuda")
+        m = x.index_select(0, a.fmt.src_idx.reshape(-1)).reshape(
+            a.fmt.src_idx.shape[0], -1, 602)
+        cases[tile] = (m, a.fmt, a.tile_span)
+    by_tile = {t: [] for t in cases}
+    for tile in (256, 512, 1024, 1024, 512, 256):    # in turns, twice
+        m, f, span = cases[tile]
+        by_tile[tile].append(device_ms(lambda: seg_mm_call(
+            m, f.dst_local, f.block_tile, f.tile_first_block,
+            f.tile_num_blocks, tile=f.tile, tile_span=span), 50))
+    report["seg_mm_device_ms_by_tile"] = {t: min(v)
+                                          for t, v in by_tile.items()}
+    say("seg_mm (minibatch_lg, d=602, f32) device ms by aggregation tile "
+        "(e1 2, e2 128; two readings each, in turns): " + ", ".join(
+            f"{t}: {v[0]:.4f} / {v[1]:.4f}" for t, v in by_tile.items()))
+    del cases, m, f, span
+    del x
     report["seg_mm_ms"] = {r["d"]: r["ms"] for r in rows}
+    report["seg_mm_device_ms"] = {r["d"]: r["device_ms"] for r in rows}
     # the train step (fixed minibatch, full width) under the profiler
     torch.cuda.synchronize()
     walls = []
@@ -1281,15 +1521,17 @@ def summary(report: dict) -> str:
     iterations and rel L1 error of each fixed point (edge_tile, bsr, then
     the auto runs), the worst kernel element's share of its limit, min cold
     resolve ms and the profiled busy share of each regime, bsr_spmv's
-    nonzero floor, edge_spmv's worst error against its plain version (0:
-    bitwise), the auto plans, the plain and accelerated f64 mat-vecs,
+    floors (one-byte storage, f32 dense tiles, nonzeros) and its and
+    bsr_step's ms, edge_spmv's worst error against its plain version (0:
+    bitwise), the auto plans and the microbench's picks on the clustered
+    graph in its stability check, the plain and accelerated f64 mat-vecs,
     power_step's and edge_spmv's ms (CUDA events) and device ms at each edge
     tile and the in-degree skew's tail in their device time; for
     the GraphSAGE cell the first and last loss of the trainer's run and of
     the fixed minibatch, seg_mm
     launches a step, slots per real edge, the median step split, the f32
     step's error against f64, the step's ms and busy share and seg_mm's ms
-    at d = 602 and 128."""
+    (events and device) at d = 602 and 128 and device ms by tile."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -1302,9 +1544,11 @@ def summary(report: dict) -> str:
         "busy": {k: g(report[f"{k}_busy"]) for k in ("edge_tile", "bsr")},
         "kernel_share": {k: g(report[f"{k}_kernel_share"])
                          for k in ("edge_tile", "bsr")},
-        "bsr_nonzero_bound_ms": g(report["bsr_nonzero_bound_ms"]),
+        **{key: {k: g(v) for k, v in report[key].items()} for key in (
+            "bsr_bounds_ms", "bsr_spmv_ms", "bsr_step_ms")},
         "edge_spmv_max_abs_err": g(report["edge_spmv_worst_err"]),
         "auto_plans": report["auto_plans"],
+        "microbench_picks": report["microbench_stability"][0],
         "accelerate_matvecs": report["accelerate_matvecs"],
         **{key: {k: g(v) for k, v in report[key].items()} for key in (
             "power_step_ms_by_tile", "power_step_device_ms_by_tile",
@@ -1321,8 +1565,9 @@ def summary(report: dict) -> str:
                 "f64_grad_rel_l2": g(report["gnn"]["grad_rel"]),
                 "step_ms": g(report["gnn_step_ms"]),
                 "busy": g(report["gnn_busy"]),
-                "seg_mm_ms": {k: g(v) for k, v in
-                              report["seg_mm_ms"].items()}}})
+                **{key: {k: g(v) for k, v in report[key].items()}
+                   for key in ("seg_mm_ms", "seg_mm_device_ms",
+                               "seg_mm_device_ms_by_tile")}}})
 
 
 def main() -> int:
@@ -1331,7 +1576,7 @@ def main() -> int:
         print("[smoke] FAIL: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels.bsr_spmv import bsr_spmv_call
+    from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_step_call
     from repro_torch.kernels.edge_spmv import edge_spmv_call
     from repro_torch.kernels.power_step import power_step_call
     from repro_torch.kernels.seg_mm import seg_mm_call
@@ -1341,17 +1586,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     report: dict = {}
     counters = {"power_step": power_step_call, "bsr_spmv": bsr_spmv_call,
-                "edge_spmv": edge_spmv_call, "seg_mm": seg_mm_call}
+                "bsr_step": bsr_step_call, "edge_spmv": edge_spmv_call,
+                "seg_mm": seg_mm_call}
     # each main path and the kernels it must launch; the microbench path
-    # times every candidate's push (edge_spmv, bsr_spmv on the clustered
-    # graph) and then solves with the step of each plan it picks
+    # times every candidate's bare push (edge_spmv, bsr_spmv on the
+    # clustered graph) and then solves with the step of each plan it picks
     def picked(report):
         return tuple("power_step" if label.startswith("edge_tile")
-                     else "bsr_spmv" for key, label in
+                     else "bsr_step" for key, label in
                      report["auto_plans"].items()
                      if key.startswith("microbench/"))
     paths = [("edge_tile", phase_edge_tile, ("power_step",)),
-             ("bsr", phase_bsr, ("bsr_spmv",)),
+             ("bsr", phase_bsr, ("bsr_step",)),
              ("auto_model", lambda r: phase_auto(r, False), ("power_step",)),
              ("auto_microbench", lambda r: phase_auto(r, True),
               lambda r: ("edge_spmv", "bsr_spmv") + picked(r)),
@@ -1371,6 +1617,9 @@ def main() -> int:
             for k in (needs(report) if callable(needs) else needs):
                 check(got[k] > 0, f"kernel {k} never launched on the main "
                       f"path {path}")
+        iters = [i for i, _ in report["fixed_points"]]
+        check(iters == FIXED_POINT_ITERS, f"fixed-point iterations {iters} "
+              f"!= {FIXED_POINT_ITERS}")
         rows = phase_times(report)
     except SmokeFailure as exc:
         print(f"[smoke] FAIL: {exc}", file=sys.stderr)

@@ -13,8 +13,8 @@ Backends are registered by name and constructed through :func:`make_engine`:
     :mod:`repro_torch.core.power_psi` (any device, float64-capable).
   * ``cuda`` (alias ``pallas``) — the hand-written CUDA kernels in one of
     two execution regimes: the fused edge-tile ``power_step`` kernel
-    (hyper-sparse graphs) or the dense-tile ``bsr_spmv`` kernel (clustered
-    graphs); pick with ``regime=`` or hand over a
+    (hyper-sparse graphs) or the fused dense-tile ``bsr_step`` kernel
+    (clustered graphs); pick with ``regime=`` or hand over a
     :class:`~repro_torch.kernels.autotune.RegimePlan`. On ``device="cpu"``
     the same engine runs each kernel's plain PyTorch version.
   * ``auto`` — a ``cuda`` engine whose regime and tile parameters are
@@ -56,7 +56,7 @@ import torch
 from ..device import numpy_dtype, resolve_device
 from ..graphs.structure import Graph
 from ..kernels.formats import build_bsr, build_edge_tiles
-from ..kernels.ops import (DeviceBsr, DeviceEdgeTiles, _i32, bsr_spmv,
+from ..kernels.ops import (DeviceBsr, DeviceEdgeTiles, _i32, bsr_step,
                            power_step)
 from ..obs import calibrate as obs_calibrate
 from .activity import Activity
@@ -441,17 +441,18 @@ class CudaEngine(PsiEngine):
     * ``edge_tile`` — the fused ``power_step`` kernel: dst-sorted edge
       blocks scatter into node tiles and the gap is summed in the kernel.
       Native state layout is the padded ``[1, n_pad]`` node vector.
-    * ``bsr``       — the ``bsr_spmv`` dense-tile kernel with the μ/c
-      epilogue and L1 gap composed around it in plain PyTorch. Native
-      layout is the node-order ``f[n]`` vector.
+    * ``bsr``       — the fused ``bsr_step`` dense-tile kernel (the
+      ``bsr_spmv`` push with the μ/c epilogue and the L1 gap in the same
+      launch). Native layout is the node-order ``f[n]`` vector.
 
     Both regimes compute the gap in ``l1`` (the paper's choice), so the
     criterion's norm must be ``l1``. Activity patches refresh only node
     vectors; edge patches go into free sentinel slots (edge-tile, via an
     O(Δ) per-tile free-slot cursor) or existing dense tiles (BSR), written
     into the device tensors in place, and fall back to a rebuild of the
-    regime's format — never of the operators — when a tile overflows or a
-    new BSR block appears. ``format_builds`` counts the format builds.
+    regime's format — never of the operators — when a tile overflows, a
+    new BSR block appears or a one-byte BSR cell would pass 255.
+    ``format_builds`` counts the format builds.
     """
 
     def __init__(self, *, regime: str = "edge_tile", tile: int = 256,
@@ -486,8 +487,7 @@ class CudaEngine(PsiEngine):
         elif regime == "bsr":
             def one_step(args, s):
                 fmt, inv_w, mu, c = args
-                s_new = mu * bsr_spmv(s * inv_w, fmt) + c
-                return s_new, torch.sum(torch.abs(s_new - s))
+                return bsr_step(s, inv_w, mu, c, fmt)
         else:
             raise ValueError(f"unknown cuda regime {regime!r}; "
                              "choose edge_tile or bsr")
@@ -648,11 +648,20 @@ class CudaEngine(PsiEngine):
         r = np.asarray(src, np.int64) % f.ts
         c = np.asarray(dst, np.int64) % f.td
         np.add.at(f.tiles, (b, r, c), 1.0)
+        cells = f.tiles[b, r, c]
+        if self.fmt.tiles.dtype == torch.uint8 and cells.max() > 255:
+            # a one-byte cell would pass 255 (the host drops duplicate edges,
+            # so only a count patched in past it gets here): upload the
+            # patched host format again, which then keeps the working dtype
+            self.fmt = DeviceBsr.from_format(f, self.device)
+            self.format_builds += 1
+            return
+        # the touched cells' new counts, copied from the host format: exact
+        # in either storage
         idx = tuple(torch.as_tensor(x, dtype=torch.int64, device=self.device)
                     for x in (b, r, c))
-        self.fmt.tiles.index_put_(
-            idx, torch.ones(b.size, dtype=self.dtype, device=self.device),
-            accumulate=True)
+        self.fmt.tiles.index_put_(idx, torch.as_tensor(cells).to(
+            device=self.device, dtype=self.fmt.tiles.dtype))
 
 
 # --------------------------------------------------------------------- #

@@ -24,10 +24,17 @@ planner makes the choice per graph:
    table.
 
 2. **One-shot micro-benchmark** (``microbench=True``). Builds *every*
-   candidate of both regimes, launches its push kernel once to warm up
-   (``edge_spmv`` for an edge-tile candidate, ``bsr_spmv`` for a BSR one),
-   times three launches — CUDA events on the card, ``perf_counter`` around
-   the plain versions on the CPU — and picks the measured winner.
+   candidate of both regimes, times its bare push kernel (``edge_spmv_call``
+   for an edge-tile candidate, ``bsr_spmv_call`` for a BSR one) and picks
+   the measured winner. On the card: three launches to warm up, then three
+   runs of 50 back-to-back launches, each run between one pair of CUDA
+   events queued behind a spin kernel (``torch.cuda._sleep``) long enough
+   for the host to queue the whole run first, so the events time the
+   kernels and not Python's issue of them; the least time a launch over
+   the runs. A run the host did not queue in time is not used; its spin is
+   doubled, and planning raises when eight runs bring no covered one. On
+   the CPU: ``perf_counter`` around three calls of the plain
+   versions, the median.
 
 Plans are memoized in a process-level cache keyed by a *structural*
 fingerprint of the graph (node/edge counts plus a strided edge sample), the
@@ -221,12 +228,80 @@ PLAN_CACHE = PlanCache()
 # --------------------------------------------------------------------- #
 # The planner
 # --------------------------------------------------------------------- #
+# The microbench on the card (see the module docstring). A kernel of these
+# sizes runs 0.01-0.05 ms, less than Python takes to issue its launch, so
+# launches timed one by one, or back to back with the card waiting on the
+# host, time the issue. The spin kernel in front of each run lasts at least
+# twice the run's issue time (from the warm-up's host clock) plus 1 ms,
+# counted at 2e6 cycles a ms, above an H100's top SM clock. A run whose
+# start event had already passed when its last launch was queued timed the
+# host: it is not used, and the spin is doubled for the next run. The
+# microbench takes the least of _MB_RUNS covered runs, makes at most
+# _MB_MAX_RUNS runs, and raises when none of them was covered.
+_MB_WARMUP = 3
+_MB_LAUNCHES = 50
+_MB_RUNS = 3
+_MB_MAX_RUNS = 8
+_SPIN_CYCLES_PER_MS = 2_000_000
+
+
+def _least_covered(run, spin_ms: float) -> float:
+    """The least time of up to ``_MB_RUNS`` covered runs. ``run(spin_ms)``
+    makes one run behind a spin of ``spin_ms`` and returns ``(covered,
+    µs per launch)``; an exposed run doubles the spin. Raises
+    ``RuntimeError`` when ``_MB_MAX_RUNS`` runs bring no covered one."""
+    covered = []
+    for _ in range(_MB_MAX_RUNS):
+        queued, us = run(spin_ms)
+        if queued:
+            covered.append(us)
+            if len(covered) == _MB_RUNS:
+                break
+        else:
+            spin_ms *= 2
+    if not covered:
+        raise RuntimeError(
+            f"microbench: the host could not queue {_MB_LAUNCHES} launches "
+            f"ahead of the card in {_MB_MAX_RUNS} runs (last spin "
+            f"{spin_ms / 2:.1f} ms); every time measured the host's issue")
+    return min(covered)
+
+
+def _device_us_per_launch(step, device: torch.device) -> float:
+    """Least device time of one ``step()`` in µs (the card's protocol of
+    the module docstring)."""
+    for i in range(_MB_WARMUP):
+        if i == 1:
+            t0 = time.perf_counter()
+        step()
+    spin_ms = 2e3 * _MB_LAUNCHES * (time.perf_counter() - t0) / (
+        _MB_WARMUP - 1) + 1.0
+
+    def run(spin_ms: float) -> tuple[bool, float]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(spin_ms * _SPIN_CYCLES_PER_MS))
+        start.record()
+        for _ in range(_MB_LAUNCHES):
+            step()
+        end.record()
+        queued = not start.query()           # the card still spinning
+        end.synchronize()
+        return queued, start.elapsed_time(end) * 1e3 / _MB_LAUNCHES
+
+    with torch.cuda.device(device):
+        return _least_covered(run, spin_ms)
+
+
 def _microbench_step(graph: Graph, plan: RegimePlan, dtype: torch.dtype,
                      device: torch.device) -> float:
-    """Median time (µs) of one push launch under ``plan``: one launch to
-    warm up, then three timed ones (CUDA events on the card; the host clock
-    around the plain version on the CPU)."""
-    from .ops import DeviceBsr, DeviceEdgeTiles, bsr_spmv, edge_spmv
+    """Time (µs) of one bare push launch under ``plan``: on the card the
+    least device time a launch (:func:`_device_us_per_launch`), on the CPU
+    the median host time of three plain calls after one to warm up."""
+    from .bsr_spmv import bsr_spmv_call
+    from .edge_spmv import edge_spmv_call
+    from .ops import DeviceBsr, DeviceEdgeTiles
 
     s = torch.as_tensor(np.random.default_rng(0).random(graph.n),
                         dtype=dtype, device=device)
@@ -234,31 +309,32 @@ def _microbench_step(graph: Graph, plan: RegimePlan, dtype: torch.dtype,
         fmt = DeviceEdgeTiles.from_format(
             build_edge_tiles(graph, tile=plan.tile, e1=plan.e1, e2=plan.e2),
             device)
+        s_pre = fmt.pad_gather_source(s)
 
         def step():
-            return edge_spmv(s, fmt)
+            return edge_spmv_call(s_pre, fmt.src_idx, fmt.dst_local,
+                                  fmt.block_tile, fmt.tile_first_block,
+                                  fmt.tile_num_blocks, n=fmt.n,
+                                  tile=fmt.tile, tile_order=fmt.tile_order)
     else:
         fmt = DeviceBsr.from_format(
             build_bsr(graph, ts=plan.ts, td=plan.td,
                       dtype=numpy_dtype(dtype)), device)
+        s_pre = fmt.pad_source(s)
 
         def step():
-            return bsr_spmv(s, fmt)
+            return bsr_spmv_call(s_pre, fmt.tiles, fmt.src_tile,
+                                 fmt.dst_tile, fmt.dst_first_block,
+                                 fmt.dst_num_blocks,
+                                 num_dst_tiles=fmt.num_dst_tiles)
+    if device.type == "cuda":
+        return _device_us_per_launch(step, device)
     step()                                             # warm-up
     times = []
     for _ in range(3):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            step()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) * 1e3)
-        else:
-            t0 = time.perf_counter()
-            step()
-            times.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e6)
     return float(np.median(times))
 
 
@@ -382,7 +458,7 @@ def plan_regime(graph: Graph, *, microbench: bool = False,
     calibrated_us: dict[int, float] = {}
 
     if microbench:
-        # measured ground truth: one timed launch per candidate — the model
+        # measured ground truth: each candidate's push timed — the model
         # only breaks exact ties
         candidates = [dataclasses.replace(
             p, measured_us=_microbench_step(graph, p, dtype, dev),

@@ -44,59 +44,9 @@
 #include <stdint.h>
 
 #include "edge_tile_scan.cuh"
+#include "gap_sum.cuh"
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Fixed-order sum over the CTA (blockDim.x a multiple of 32, at most 1024):
-// a shuffle tree inside each warp, then warp 0 folds the warp sums in warp
-// order. The result is valid in thread 0. `scratch` holds >= 32 values.
-template <typename T>
-__device__ T block_sum(T v, T* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? scratch[lane] : T(0);
-    v = warp_sum(v);
-  }
-  return v;
-}
-
-// The sum of partial[0, count) in the order of a CTA of kGapWidth threads:
-// virtual thread k adds partial[k], partial[k + kGapWidth], ... in turn,
-// each virtual warp folds its lanes with warp_sum, then lane 0 of warp 0
-// folds the virtual warps' sums with warp_sum. Any blockDim (a multiple of
-// 32) gives the same bits; the result is valid in thread 0. The partials
-// are read through L2 (__ldcg): other CTAs wrote them.
-template <typename T>
-__device__ T gap_sum(const T* partial, int count, T* scratch) {
-  constexpr int kGapWidth = 256;
-  constexpr int kGapWarps = kGapWidth / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int vw = warp; vw < kGapWarps; vw += nwarps) {
-    T v = T(0);
-    for (int i = vw * 32 + lane; i < count; i += kGapWidth) v += __ldcg(partial + i);
-    v = warp_sum(v);
-    if (lane == 0) scratch[vw] = v;
-  }
-  __syncthreads();
-  T v = T(0);
-  if (warp == 0) {
-    v = lane < kGapWarps ? scratch[lane] : T(0);
-    v = warp_sum(v);
-  }
-  return v;
-}
 
 template <typename T>
 __global__ void power_step_kernel(const T* __restrict__ s_pre, int n,
@@ -124,7 +74,7 @@ __global__ void power_step_kernel(const T* __restrict__ s_pre, int n,
   const T sn = mu[node] * acc + c[node];
   s_new[node] = sn;
   const T d = sn - s_old[node];
-  const T total = block_sum(d < T(0) ? -d : d, sm.scratch);
+  const T total = repro::block_sum(d < T(0) ? -d : d, sm.scratch);
   bool last = false;
   if (r == 0) {
     gap_partial[t] = total;
@@ -133,7 +83,7 @@ __global__ void power_step_kernel(const T* __restrict__ s_pre, int n,
   }
   if (!__syncthreads_or(last)) return;
   __threadfence();                         // every partial is visible now
-  const T g = gap_sum(gap_partial, gridDim.x, sm.scratch);
+  const T g = repro::gap_sum(gap_partial, gridDim.x, sm.scratch);
   if (r == 0) {
     *gap = g;
     *ticket = 0u;                          // ready for the next launch

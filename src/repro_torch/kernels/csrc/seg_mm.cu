@@ -11,98 +11,201 @@
 //   blocked edge-tile order, messages[num_blocks, eblk, d] with zero rows in
 //   padding slots; every block scatters into one node tile of `tile` rows
 //   through dst_local (row within the tile), and the blocks of a tile form
-//   one contiguous range (tile_first_block / tile_num_blocks).
+//   one contiguous range (tile_first_block / tile_num_blocks). tile_span
+//   (optional, derived on the host from the sentinel sources) counts the
+//   slots of a tile's range up to its last real slot; the rest are padding.
 //
-// What bounds it on this card: bytes. Each message element is read once and
-//   added once (one flop a 4- or 8-byte load), and each output element is
-//   written once; at the trainer's shape (d = 602) that is ~0.55 GB of
-//   messages and ~0.4 GB of output a launch, far past the 50 MB L2.
+// What bounds it on this card: bytes. Each real message element is read
+//   once and added once, and each output element is written once; at the
+//   trainer's shape (d = 602) that is ~0.41 GB of real messages and ~0.41 GB
+//   of output a launch, far past the 50 MB L2.
 //
-// What the design does about it: one CTA per (node tile, chunk of dc
-//   columns), one thread per column. A warp reads one message row's chunk
-//   per slot as one coalesced 128-byte line (f32), so the messages stream
-//   from device memory once in all; dst_local is a broadcast read. Thread c
-//   owns column c of a [tile, dc] accumulator in shared memory, so no two
-//   threads ever touch one word: no atomics and no barrier. The thread walks
-//   its tile's block range in slot order, loading kUnroll slots ahead into
-//   registers to keep loads in flight, and carries the running sum of the
-//   current row in a register, spilling it to shared memory only when the
-//   row changes; every addition happens in slot order, as the plain
-//   version's index_add_ on the CPU does, so the two agree to the last bit
-//   and the kernel is a deterministic map. Slots need not be sorted by row
-//   within a tile. Padding slots (zero rows) are added like any other, as
-//   the plain version adds them; a dst_local outside [0, tile) is skipped. A
-//   tile with no blocks writes zeros. The ragged column edge (d = 602 is no
-//   multiple of 32) is masked by returning early: no thread waits on
-//   another. Simple and right first; the shared accumulator caps residency
-//   at a few warps an SM (tensor cores, TMA and a layout without padding
-//   are later work).
+// What the design does about it:
+//   * No shared accumulator, so residency is bounded by registers: a CTA of
+//     8 warps owns 64 rows of one tile, and each warp takes whole rows. A
+//     row's sum is a left fold, from +0.0, of its slots' rows in slot order,
+//     one lane per column group, held in registers; the output row is
+//     written once (zeros for a row without slots), with 16-, 8- or 4-byte
+//     vectors as d and the pointer's alignment allow (the wrapper picks).
+//     A lane sums up to 4 column vectors at once and issues 8 loads before
+//     it adds them, so a row of 10-15 slots costs a few round trips.
+//   * Sorted tiles (every slot of the span's rows in [0, tile), non-
+//     decreasing: the trainer's dst-sorted build): a row's slots are one
+//     run. The CTA checks that, then finds the first slot of each of its
+//     rows from the run boundaries in one pass over dst_local (row_start in
+//     shared memory), and a warp streams its row's run.
+//   * Any other tile (slots in any order): a warp finds its row's slots 32 at
+//     a time with a ballot over dst_local and adds them in ascending slot
+//     order; a dst_local outside [0, tile) is skipped.
+//   * Padding past tile_span is not read. Skipping a padding row can change
+//     no bit: it is zero, and a sum that starts from +0.0 is never -0.0, so
+//     adding +-0.0 to it is exact. So every path equals the plain version's
+//     index_add_ on the CPU (every slot, slot order) to the last bit, and
+//     the kernel is a deterministic map: no atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kUnroll = 16;
+constexpr int kWarps = 8;                  // warps a CTA
+constexpr int kRowsPerCta = 64;            // rows of one tile a CTA owns
 
-template <typename T>
-__global__ void seg_mm_kernel(const T* __restrict__ messages,
-                              const int32_t* __restrict__ dst_local,
-                              const int32_t* __restrict__ tile_first_block,
-                              const int32_t* __restrict__ tile_num_blocks,
-                              T* __restrict__ out, int d, int tile, int eblk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);                  // [tile, dc]
-  const int dc = blockDim.x;
-  const int c = threadIdx.x;
-  const int col = blockIdx.y * dc + c;
-  if (col >= d) return;                                     // ragged edge
-  for (int r = 0; r < tile; ++r) acc[r * dc + c] = T(0);
-  const int64_t s0 = (int64_t)tile_first_block[blockIdx.x] * eblk;
-  const int64_t s1 = s0 + (int64_t)tile_num_blocks[blockIdx.x] * eblk;
-  int cur = 0;        // the row whose running sum `run` holds
-  T run = T(0);       // acc[cur] is stale while the row is current
-  for (int64_t s = s0; s < s1; s += kUnroll) {
-    int rows[kUnroll];
-    T vals[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const bool in = s + u < s1;
-      rows[u] = in ? dst_local[s + u] : -1;
-      vals[u] = in ? messages[(s + u) * d + col] : T(0);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = rows[u];
-      if ((unsigned)r >= (unsigned)tile) continue;
-      if (r != cur) {
-        acc[cur * dc + c] = run;
-        cur = r;
-        run = acc[r * dc + c];
-      }
-      run += vals[u];
-    }
-  }
-  acc[cur * dc + c] = run;
-  T* o = out + (int64_t)blockIdx.x * tile * d + col;
-  for (int r = 0; r < tile; ++r) o[(int64_t)r * d] = acc[r * dc + c];
+// Streaming loads (read once), exact adds, zero, by vector type.
+__device__ __forceinline__ float ld(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float2 ld(const float2* p) { return __ldcs(p); }
+__device__ __forceinline__ float4 ld(const float4* p) { return __ldcs(p); }
+__device__ __forceinline__ double ld(const double* p) { return __ldcs(p); }
+__device__ __forceinline__ double2 ld(const double2* p) { return __ldcs(p); }
+
+__device__ __forceinline__ void add(float& a, float b) { a = __fadd_rn(a, b); }
+__device__ __forceinline__ void add(float2& a, float2 b) {
+  a.x = __fadd_rn(a.x, b.x);
+  a.y = __fadd_rn(a.y, b.y);
+}
+__device__ __forceinline__ void add(float4& a, float4 b) {
+  a.x = __fadd_rn(a.x, b.x);
+  a.y = __fadd_rn(a.y, b.y);
+  a.z = __fadd_rn(a.z, b.z);
+  a.w = __fadd_rn(a.w, b.w);
+}
+__device__ __forceinline__ void add(double& a, double b) { a = __dadd_rn(a, b); }
+__device__ __forceinline__ void add(double2& a, double2 b) {
+  a.x = __dadd_rn(a.x, b.x);
+  a.y = __dadd_rn(a.y, b.y);
 }
 
-template <typename T>
+template <typename W>
+__device__ __forceinline__ W zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ float2 zero<float2>() { return make_float2(0.0f, 0.0f); }
+template <>
+__device__ __forceinline__ float4 zero<float4>() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+template <>
+__device__ __forceinline__ double zero<double>() { return 0.0; }
+template <>
+__device__ __forceinline__ double2 zero<double2>() { return make_double2(0.0, 0.0); }
+
+// W: the vector of V elements a lane loads (float, float2, float4, double
+// or double2); nvec = d / V; K: column vectors a lane sums at once on the
+// sorted path (1, 2 or 4).
+template <typename W, int K>
+__global__ void __launch_bounds__(kWarps * 32)
+seg_mm_kernel(const W* __restrict__ messages, const int32_t* __restrict__ dst_local,
+              const int32_t* __restrict__ tile_first_block,
+              const int32_t* __restrict__ tile_num_blocks,
+              const int32_t* __restrict__ tile_span, W* __restrict__ out,
+              int nvec, int tile, int eblk) {
+  __shared__ int row_start[kRowsPerCta + 1];
+  const int t = blockIdx.x;
+  const int r0 = blockIdx.y * kRowsPerCta;
+  const int r1 = min(r0 + kRowsPerCta, tile);              // rows [r0, r1)
+  const int64_t s0 = (int64_t)tile_first_block[t] * eblk;
+  const int cap = tile_num_blocks[t] * eblk;
+  const int span = tile_span ? min(tile_span[t], cap) : cap;
+  const int32_t* __restrict__ dl = dst_local + s0;
+  const W* __restrict__ msg = messages + s0 * nvec;
+
+  bool ok = true;
+  for (int i = threadIdx.x; i < span; i += blockDim.x) {
+    const int v = dl[i];
+    ok = ok && (unsigned)v < (unsigned)tile && (i == 0 || dl[i - 1] <= v);
+  }
+  const bool sorted = __syncthreads_and(ok);
+  if (sorted) {
+    // slot i opens rows dl[i-1]+1 .. dl[i]; the span's end opens the rest
+    for (int i = threadIdx.x; i <= span; i += blockDim.x) {
+      const int lo = max(i == 0 ? 0 : dl[i - 1] + 1, r0);
+      const int hi = min(i == span ? tile : dl[i], r1);
+      for (int r = lo; r <= hi; ++r) row_start[r - r0] = i;
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = r0 + warp; r < r1; r += kWarps) {
+    W* __restrict__ o = out + ((int64_t)t * tile + r) * nvec;
+    if (sorted) {
+      // lane holds K column vectors (v0 + 32k) and loads kSlots slots of
+      // each before adding them in slot order: 8 loads in flight a lane
+      constexpr int kSlots = 8 / K;
+      const int cnt = row_start[r - r0 + 1] - row_start[r - r0];
+      const W* __restrict__ m = msg + (int64_t)row_start[r - r0] * nvec;
+      for (int v0 = lane; v0 < nvec; v0 += 32 * K) {
+        W acc[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc[k] = zero<W>();
+        for (int s = 0; s < cnt; s += kSlots) {
+          W x[kSlots][K];
+#pragma unroll
+          for (int u = 0; u < kSlots; ++u)
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              if (s + u < cnt && v0 + 32 * k < nvec)
+                x[u][k] = ld(m + (int64_t)(s + u) * nvec + v0 + 32 * k);
+#pragma unroll
+          for (int u = 0; u < kSlots; ++u)
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              if (s + u < cnt && v0 + 32 * k < nvec) add(acc[k], x[u][k]);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (v0 + 32 * k < nvec) o[v0 + 32 * k] = acc[k];
+      }
+    } else {
+      for (int v0 = 0; v0 < nvec; v0 += 32) {
+        const int v = v0 + lane;
+        W acc = zero<W>();
+        for (int c0 = 0; c0 < span; c0 += 32) {
+          const int i = c0 + lane;
+          unsigned hit = __ballot_sync(0xffffffffu, i < span && dl[i] == r);
+          while (hit) {
+            const int j = c0 + __ffs(hit) - 1;
+            hit &= hit - 1;
+            if (v < nvec) add(acc, ld(msg + (int64_t)j * nvec + v));
+          }
+        }
+        if (v < nvec) o[v] = acc;
+      }
+    }
+  }
+}
+
+template <typename W, int K>
+void launch_k(const void* messages, const void* dst_local,
+              const void* tile_first_block, const void* tile_num_blocks,
+              const void* tile_span, void* out, int num_tiles, int tile,
+              int eblk, int nvec, cudaStream_t stream) {
+  const dim3 grid(num_tiles, (tile + kRowsPerCta - 1) / kRowsPerCta);
+  seg_mm_kernel<W, K><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const W*>(messages), static_cast<const int32_t*>(dst_local),
+      static_cast<const int32_t*>(tile_first_block),
+      static_cast<const int32_t*>(tile_num_blocks),
+      static_cast<const int32_t*>(tile_span), static_cast<W*>(out), nvec, tile,
+      eblk);
+}
+
+// K from the row's width: 4 column vectors a lane past 64 vectors a row,
+// 2 past 32, else 1.
+template <typename T, typename W>
 int launch(const void* messages, const void* dst_local,
            const void* tile_first_block, const void* tile_num_blocks,
-           void* out, int num_tiles, int tile, int eblk, int d, int dc,
-           void* stream) {
-  const size_t smem = (size_t)tile * dc * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      seg_mm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_tiles, (d + dc - 1) / dc);
-  seg_mm_kernel<T><<<grid, dc, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(messages), static_cast<const int32_t*>(dst_local),
-      static_cast<const int32_t*>(tile_first_block),
-      static_cast<const int32_t*>(tile_num_blocks), static_cast<T*>(out), d,
-      tile, eblk);
+           const void* tile_span, void* out, int num_tiles, int tile, int eblk,
+           int d, void* stream) {
+  const int nvec = d / (int)(sizeof(W) / sizeof(T));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nvec > 64)
+    launch_k<W, 4>(messages, dst_local, tile_first_block, tile_num_blocks,
+                   tile_span, out, num_tiles, tile, eblk, nvec, st);
+  else if (nvec > 32)
+    launch_k<W, 2>(messages, dst_local, tile_first_block, tile_num_blocks,
+                   tile_span, out, num_tiles, tile, eblk, nvec, st);
+  else
+    launch_k<W, 1>(messages, dst_local, tile_first_block, tile_num_blocks,
+                   tile_span, out, num_tiles, tile, eblk, nvec, st);
   return (int)cudaGetLastError();
 }
 
@@ -110,20 +213,36 @@ int launch(const void* messages, const void* dst_local,
 
 extern "C" {
 
+// vec: elements a lane loads at once (1, 2 or 4; the wrapper checks that d
+// and the pointers allow it). tile_span may be null: every slot is read.
 int repro_seg_mm_f32(const void* messages, const void* dst_local,
                      const void* tile_first_block, const void* tile_num_blocks,
-                     void* out, int num_tiles, int tile, int eblk, int d, int dc,
-                     void* stream) {
-  return launch<float>(messages, dst_local, tile_first_block, tile_num_blocks,
-                       out, num_tiles, tile, eblk, d, dc, stream);
+                     const void* tile_span, void* out, int num_tiles, int tile,
+                     int eblk, int d, int vec, void* stream) {
+  if (vec == 4)
+    return launch<float, float4>(messages, dst_local, tile_first_block,
+                                 tile_num_blocks, tile_span, out, num_tiles,
+                                 tile, eblk, d, stream);
+  if (vec == 2)
+    return launch<float, float2>(messages, dst_local, tile_first_block,
+                                 tile_num_blocks, tile_span, out, num_tiles,
+                                 tile, eblk, d, stream);
+  return launch<float, float>(messages, dst_local, tile_first_block,
+                              tile_num_blocks, tile_span, out, num_tiles, tile,
+                              eblk, d, stream);
 }
 
 int repro_seg_mm_f64(const void* messages, const void* dst_local,
                      const void* tile_first_block, const void* tile_num_blocks,
-                     void* out, int num_tiles, int tile, int eblk, int d, int dc,
-                     void* stream) {
-  return launch<double>(messages, dst_local, tile_first_block, tile_num_blocks,
-                        out, num_tiles, tile, eblk, d, dc, stream);
+                     const void* tile_span, void* out, int num_tiles, int tile,
+                     int eblk, int d, int vec, void* stream) {
+  if (vec == 2)
+    return launch<double, double2>(messages, dst_local, tile_first_block,
+                                   tile_num_blocks, tile_span, out, num_tiles,
+                                   tile, eblk, d, stream);
+  return launch<double, double>(messages, dst_local, tile_first_block,
+                                tile_num_blocks, tile_span, out, num_tiles,
+                                tile, eblk, d, stream);
 }
 
 const char* repro_error_string(int err) {

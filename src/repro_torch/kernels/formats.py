@@ -24,7 +24,7 @@ import numpy as np
 from ..graphs.structure import Graph
 
 __all__ = ["EdgeTileFormat", "BsrFormat", "build_edge_tiles", "build_bsr",
-           "pad_edge_tile_blocks", "block_ranges"]
+           "pad_edge_tile_blocks", "block_ranges", "tile_spans"]
 
 
 def block_ranges(block_tile: np.ndarray,
@@ -42,6 +42,27 @@ def block_ranges(block_tile: np.ndarray,
     first = np.searchsorted(block_tile, np.arange(num_tiles)).astype(np.int32)
     count = np.bincount(block_tile, minlength=num_tiles).astype(np.int32)
     return first, count
+
+
+def tile_spans(src_idx: np.ndarray, n: int, block_tile: np.ndarray,
+               num_tiles: int) -> np.ndarray:
+    """i32[num_tiles]: the slots of each tile's block range up to and
+    including its last real slot (source other than the sentinel ``n``);
+    0 for a tile without one. The slots past it are padding, which a kernel
+    that sums slots (``seg_mm``) need not read. A fresh build keeps a
+    tile's real slots in front, so there the span is the tile's count of
+    real edges (what the GNN's ``edge_agg`` counts); this derivation holds
+    for any slot order."""
+    block_tile = np.asarray(block_tile)
+    span = np.zeros(num_tiles, np.int64)
+    if block_tile.size:
+        real = np.asarray(src_idx).reshape(block_tile.size, -1) != n
+        eblk = real.shape[1]
+        first, _ = block_ranges(block_tile, num_tiles)
+        last = eblk - np.argmax(real[:, ::-1], axis=1)
+        pos = (np.arange(block_tile.size) - first[block_tile]) * eblk + last
+        np.maximum.at(span, block_tile, np.where(real.any(axis=1), pos, 0))
+    return span.astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,8 +5,9 @@ kernels and the engine read (the per-tile block ranges the CUDA kernels walk
 among them) as tensors on an explicit device. The host formats' first/last
 block flags stay on the host.
 :func:`power_step`, :func:`edge_spmv`, :func:`bsr_spmv` and :func:`seg_mm`
-keep the signatures of the JAX package's wrappers; each launches its CUDA
-kernel on a CUDA tensor and runs the plain PyTorch version on a CPU tensor.
+keep the signatures of the JAX package's wrappers; :func:`bsr_step` is the
+BSR regime's fused step. Each launches its CUDA kernel on a CUDA tensor and
+runs the plain PyTorch version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -17,14 +18,14 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .bsr_spmv import bsr_spmv_call
+from .bsr_spmv import bsr_spmv_call, bsr_step_call
 from .edge_spmv import edge_spmv_call, heavy_first
 from .formats import BsrFormat, EdgeTileFormat
 from .power_step import power_step_call
 from .seg_mm import SegMM
 
 __all__ = ["DeviceEdgeTiles", "DeviceBsr", "power_step", "edge_spmv",
-           "bsr_spmv", "seg_mm"]
+           "bsr_spmv", "bsr_step", "seg_mm"]
 
 
 def _i32(x, device) -> torch.Tensor:
@@ -82,17 +83,27 @@ class DeviceEdgeTiles:
         return F.pad(v, (0, self.n_pad - v.shape[0]))[None, :]
 
 
+def narrow_tiles(tiles: np.ndarray) -> np.ndarray:
+    """``tiles`` as ``uint8`` where every cell is an integer in [0, 255]
+    (edge counts: the ψ regime builds its tiles so), else ``tiles``. The
+    kernels convert a cell to the working type exactly, so both storages
+    give the same bits."""
+    small = tiles.astype(np.uint8)
+    return small if np.array_equal(small, tiles) else tiles
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceBsr:
-    """A :class:`BsrFormat` on a device; BSR edge patches add into
-    ``tiles`` in place."""
+    """A :class:`BsrFormat` on a device. ``tiles`` is stored as
+    :func:`narrow_tiles` chooses (one byte a cell for edge counts); BSR edge
+    patches write into it in place."""
 
     n: int
     n_src_pad: int
     ts: int
     td: int
     num_dst_tiles: int
-    tiles: torch.Tensor             # f[num_blocks, ts, td]
+    tiles: torch.Tensor             # u8 or f[num_blocks, ts, td]
     src_tile: torch.Tensor          # i32[num_blocks]
     dst_tile: torch.Tensor          # i32[num_blocks]
     dst_first_block: torch.Tensor   # i32[num_dst_tiles]
@@ -104,7 +115,7 @@ class DeviceBsr:
         dev = resolve_device(device)
         return cls(n=fmt.n, n_src_pad=fmt.n_src_pad, ts=fmt.ts, td=fmt.td,
                    num_dst_tiles=fmt.num_dst_tiles,
-                   tiles=torch.tensor(fmt.tiles, device=dev),
+                   tiles=torch.tensor(narrow_tiles(fmt.tiles), device=dev),
                    src_tile=_i32(fmt.src_tile, dev),
                    dst_tile=_i32(fmt.dst_tile, dev),
                    dst_first_block=_i32(fmt.dst_first_block, dev),
@@ -113,6 +124,10 @@ class DeviceBsr:
     @property
     def device(self) -> torch.device:
         return self.tiles.device
+
+    def pad_source(self, v: torch.Tensor) -> torch.Tensor:
+        """f[n] → f[1, n_src_pad] with zeros beyond n."""
+        return F.pad(v, (0, self.n_src_pad - v.shape[0]))[None, :]
 
 
 def power_step(s: torch.Tensor, inv_w_gather: torch.Tensor,
@@ -147,17 +162,32 @@ def edge_spmv(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,
 
 def bsr_spmv(s_pre: torch.Tensor, fmt: DeviceBsr) -> torch.Tensor:
     """t = s_preᵀ A over the dense tiles. Returns f[n]."""
-    s_pad = F.pad(s_pre, (0, fmt.n_src_pad - s_pre.shape[0]))[None, :]
-    out = bsr_spmv_call(s_pad, fmt.tiles, fmt.src_tile, fmt.dst_tile,
-                        fmt.dst_first_block, fmt.dst_num_blocks,
-                        num_dst_tiles=fmt.num_dst_tiles)
+    out = bsr_spmv_call(fmt.pad_source(s_pre), fmt.tiles, fmt.src_tile,
+                        fmt.dst_tile, fmt.dst_first_block,
+                        fmt.dst_num_blocks, num_dst_tiles=fmt.num_dst_tiles)
     return out[0, :fmt.n]
 
 
-def seg_mm(messages: torch.Tensor, fmt: DeviceEdgeTiles) -> torch.Tensor:
+def bsr_step(s: torch.Tensor, inv_w: torch.Tensor, mu: torch.Tensor,
+             c: torch.Tensor,
+             fmt: DeviceBsr) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fused Alg. 2 step over the dense tiles on f[n] node vectors:
+    (s_new = μ ⊙ ((s ⊙ 1/w)ᵀ A) + c, gap ‖s_new − s‖₁)."""
+    return bsr_step_call(s, inv_w, mu, c, fmt.tiles, fmt.src_tile,
+                         fmt.dst_tile, fmt.dst_first_block,
+                         fmt.dst_num_blocks, n_src_pad=fmt.n_src_pad,
+                         num_dst_tiles=fmt.num_dst_tiles)
+
+
+def seg_mm(messages: torch.Tensor, fmt: DeviceEdgeTiles, *,
+           tile_span: torch.Tensor | None = None) -> torch.Tensor:
     """Blocked segment-sum of rows, differentiable in ``messages``.
     messages: f[num_blocks, e1*e2, d] in the fmt's padded edge order
-    (padding rows zero). Returns f[n, d]."""
+    (padding rows zero). ``tile_span`` (optional, i32[num_tiles]): each
+    tile's slots up to its last real one, past which the kernel reads no
+    padding (see :func:`~repro_torch.kernels.seg_mm.seg_mm_call`). Returns
+    f[n, d]."""
     out = SegMM.apply(messages, fmt.dst_local, fmt.block_tile,
-                      fmt.tile_first_block, fmt.tile_num_blocks, fmt.tile)
+                      fmt.tile_first_block, fmt.tile_num_blocks, fmt.tile,
+                      tile_span)
     return out[:fmt.n]

@@ -21,10 +21,7 @@ from . import _build
 
 __all__ = ["seg_mm_call", "seg_mm_plain", "SegMM"]
 
-SMEM_BYTES = 232_448        # shared memory a block may use on sm_90
-_COLUMNS = 32               # columns a CTA owns: one warp, one thread each
-
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _rows(dst_local: torch.Tensor, block_tile: torch.Tensor, tile: int,
@@ -49,15 +46,8 @@ def seg_mm_plain(messages: torch.Tensor, dst_local: torch.Tensor,
     return out
 
 
-def _columns(tile: int, dtype: torch.dtype) -> int:
-    """Columns a CTA owns: 32, or 16 where a [tile, 32] accumulator would
-    not fit in shared memory (f64 at tile 1024)."""
-    elt = 8 if dtype == torch.float64 else 4
-    return _COLUMNS if tile * _COLUMNS * elt <= SMEM_BYTES else _COLUMNS // 2
-
-
 def _check_inputs(messages, dst_local, tile_first_block, tile_num_blocks,
-                  tile) -> None:
+                  tile_span, tile) -> None:
     dev, dtype = messages.device, messages.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"seg_mm takes float32 or float64; got {dtype}")
@@ -65,6 +55,8 @@ def _check_inputs(messages, dst_local, tile_first_block, tile_num_blocks,
                                              torch.int32),
              ("tile_first_block", tile_first_block, torch.int32),
              ("tile_num_blocks", tile_num_blocks, torch.int32)]
+    if tile_span is not None:
+        named.append(("tile_span", tile_span, torch.int32))
     for name, x, want in named:
         if x.device != dev or x.dtype != want or not x.is_contiguous():
             raise ValueError(f"seg_mm: {name} must be a contiguous {want} "
@@ -78,28 +70,43 @@ def _check_inputs(messages, dst_local, tile_first_block, tile_num_blocks,
         raise ValueError(f"seg_mm: dst_local must hold [{num_blocks}, "
                          f"{eblk}] slots; got {tuple(dst_local.shape)}")
     if tile_num_blocks.shape != tile_first_block.shape or \
-            tile_first_block.dim() != 1:
-        raise ValueError("seg_mm: tile_first_block / tile_num_blocks must "
-                         "be matching [num_tiles] vectors")
-    if tile < 1 or tile * _columns(tile, dtype) * messages.element_size() \
-            > SMEM_BYTES:
-        raise ValueError(f"seg_mm: a tile of {tile} rows does not fit the "
-                         f"kernel's {SMEM_BYTES} bytes of shared memory")
+            tile_first_block.dim() != 1 or (
+                tile_span is not None
+                and tile_span.shape != tile_first_block.shape):
+        raise ValueError("seg_mm: tile_first_block / tile_num_blocks / "
+                         "tile_span must be matching [num_tiles] vectors")
+    if tile < 1:
+        raise ValueError(f"seg_mm: tile must be positive; got {tile}")
+
+
+def _vector_width(messages: torch.Tensor) -> int:
+    """Elements a lane loads at once: the most of 16 / 8 / 4 bytes (f32)
+    or 16 / 8 (f64) that divides a row and the pointer's alignment."""
+    elt, d = messages.element_size(), messages.shape[-1]
+    for vec in (16 // elt, 8 // elt):
+        if d % vec == 0 and messages.data_ptr() % (vec * elt) == 0:
+            return vec
+    return 1
 
 
 def seg_mm_call(messages: torch.Tensor, dst_local: torch.Tensor,
                 block_tile: torch.Tensor, tile_first_block: torch.Tensor,
-                tile_num_blocks: torch.Tensor, *, tile: int) -> torch.Tensor:
+                tile_num_blocks: torch.Tensor, *, tile: int,
+                tile_span: torch.Tensor | None = None) -> torch.Tensor:
     """Blocked segment-sum of message rows over a device edge-tile format.
 
     Args:
       messages: f[num_blocks, eblk, d], f32 or f64, in the format's slot
-        order (padding rows zero).
+        order (padding rows zero). Any slot order within a tile is taken.
       dst_local: i32[num_blocks, eblk] (or [num_blocks, e1, e2]): each
         slot's row within its block's node tile.
       block_tile: i32[num_blocks]; tile_first_block / tile_num_blocks:
         i32[num_tiles], each tile's contiguous block range (the kernel reads
         the ranges, the plain version ``block_tile``).
+      tile_span: optional i32[num_tiles], the slots of each tile's range up
+        to its last real slot (:func:`~repro_torch.kernels.formats.
+        tile_spans`); the kernel does not read the padding past it. Without
+        it every slot is read. It moves no bit of the result.
 
     Returns:
       f[num_tiles * tile, d]; zeros for a tile without blocks.
@@ -111,7 +118,7 @@ def seg_mm_call(messages: torch.Tensor, dst_local: torch.Tensor,
     if messages.device.type != "cuda":
         raise ValueError(f"seg_mm runs on cuda or cpu; got {messages.device}")
     _check_inputs(messages, dst_local, tile_first_block, tile_num_blocks,
-                  tile)
+                  tile_span, tile)
     _, eblk, d = messages.shape
     out = torch.empty(num_tiles * tile, d, dtype=messages.dtype,
                       device=messages.device)
@@ -124,8 +131,9 @@ def seg_mm_call(messages: torch.Tensor, dst_local: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(messages.data_ptr(), dst_local.data_ptr(),
                     tile_first_block.data_ptr(), tile_num_blocks.data_ptr(),
+                    None if tile_span is None else tile_span.data_ptr(),
                     out.data_ptr(), num_tiles, tile, eblk, d,
-                    _columns(tile, messages.dtype), stream)
+                    _vector_width(messages), stream)
     _build.check("seg_mm", status)
     seg_mm_call.launches += 1
     return out
@@ -140,18 +148,18 @@ class SegMM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, messages, dst_local, block_tile, tile_first_block,
-                tile_num_blocks, tile):
+                tile_num_blocks, tile, tile_span=None):
         ctx.save_for_backward(dst_local, block_tile)
         ctx.tile = tile
         ctx.shape = messages.shape
         return seg_mm_call(messages, dst_local, block_tile, tile_first_block,
-                           tile_num_blocks, tile=tile)
+                           tile_num_blocks, tile=tile, tile_span=tile_span)
 
     @staticmethod
     def backward(ctx, grad_out):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 6
+            return (None,) * 7
         dst_local, block_tile = ctx.saved_tensors
         rows = _rows(dst_local, block_tile, ctx.tile, ctx.shape[1])
         grad = grad_out.index_select(0, rows).reshape(ctx.shape)
-        return (grad,) + (None,) * 5
+        return (grad,) + (None,) * 6

@@ -31,7 +31,10 @@ __all__ = ["GraphBatch", "EdgeAgg", "edge_agg", "segment_agg",
 # (tile, e1, e2) of the aggregation format. At the minibatch_lg shape
 # (1,024 seeds, fanout (15, 10)) it pads the 168,960 real edges to ~1.34x
 # their count in slots, where the JAX kernel test's (128, 8, 128) pads them
-# 8x; a 512-row tile keeps seg_mm's f32 accumulator at 64 KB a CTA.
+# 8x. seg_mm skips the padding past each tile's last real slot, and on an
+# H100 its time at d = 602 moves by under 2% between tiles 256, 512 and
+# 1024 (chip_smoke.py phase 8); a row's sum, and so every bit, does not
+# depend on the tile.
 DEFAULT_TILES = (512, 2, 128)
 
 
@@ -42,12 +45,16 @@ class EdgeAgg:
     ``fmt.src_idx`` holds the senders (sentinel ``n`` in padding slots), so
     messages gather straight into the blocked layout. ``edge_ids`` lists,
     in slot order, the position of each real edge in the edge arrays the
-    format was built from, and ``slots`` the flat slot it occupies."""
+    format was built from, and ``slots`` the flat slot it occupies. The
+    real slots of a tile come first, so ``tile_span``, each tile's count of
+    real edges, is where its padding starts: ``seg_mm`` reads no slot past
+    it."""
 
     fmt: DeviceEdgeTiles
     edge_ids: torch.Tensor       # i64[e_real]
     slots: torch.Tensor          # i64[e_real]
     in_degree: torch.Tensor      # i64[n]: real edges into each node
+    tile_span: torch.Tensor      # i32[num_tiles]: real slots of each tile
 
     @property
     def num_slots(self) -> int:
@@ -74,11 +81,14 @@ def edge_agg(src, dst, n: int, *, tiles: tuple[int, int, int] = DEFAULT_TILES,
                              e2=e2)
     # build_edge_tiles places the k-th edge (dst order) in the k-th real slot
     slots = np.flatnonzero(fmt_h.src_idx.reshape(-1) != n)
+    span = np.bincount(dst[real] // tile, minlength=fmt_h.num_tiles)
     return EdgeAgg(fmt=DeviceEdgeTiles.from_format(fmt_h, dev),
                    edge_ids=torch.as_tensor(ids, device=dev),
                    slots=torch.as_tensor(slots, device=dev),
                    in_degree=torch.as_tensor(
-                       np.bincount(dst[real], minlength=n), device=dev))
+                       np.bincount(dst[real], minlength=n), device=dev),
+                   tile_span=torch.as_tensor(span.astype(np.int32),
+                                             device=dev))
 
 
 def _scatter_extreme(values: torch.Tensor, dst: torch.Tensor, n: int,
@@ -89,10 +99,11 @@ def _scatter_extreme(values: torch.Tensor, dst: torch.Tensor, n: int,
         0, idx.expand_as(values), values, reduce, include_self=False)
 
 
-def _seg_sum(msgs: torch.Tensor, fmt: DeviceEdgeTiles) -> torch.Tensor:
+def _seg_sum(msgs: torch.Tensor, agg: EdgeAgg) -> torch.Tensor:
     """f[num_slots, d] in slot order → f[n, d] through ``seg_mm``."""
+    fmt = agg.fmt
     return ops.seg_mm(msgs.reshape(fmt.src_idx.shape[0], -1, msgs.shape[-1]),
-                      fmt)
+                      fmt, tile_span=agg.tile_span)
 
 
 def _per_node(cnt: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -114,7 +125,7 @@ def segment_agg(values: torch.Tensor, dst: torch.Tensor, n: int, kind: str,
         flat = values.reshape(values.shape[0], -1)
         msgs = flat.new_zeros(agg.num_slots, flat.shape[1]).index_copy(
             0, agg.slots, flat.index_select(0, agg.edge_ids))
-        s = _seg_sum(msgs, agg.fmt).reshape((n,) + values.shape[1:])
+        s = _seg_sum(msgs, agg).reshape((n,) + values.shape[1:])
         if kind == "sum":
             return s
         return s / torch.clamp(_per_node(agg.in_degree, s), min=1)
@@ -138,10 +149,9 @@ def neighbor_agg(h: torch.Tensor, batch: "GraphBatch",
     if kind not in ("sum", "mean"):
         src = torch.clamp(batch.src.long(), max=batch.n - 1)
         return segment_agg(h.index_select(0, src), batch.dst, batch.n, kind)
-    fmt = batch.agg.fmt
     h_pad = F.pad(h, (0, 0, 0, 1))
-    msgs = h_pad.index_select(0, fmt.src_idx.reshape(-1))
-    s = _seg_sum(msgs, fmt)
+    msgs = h_pad.index_select(0, batch.agg.fmt.src_idx.reshape(-1))
+    s = _seg_sum(msgs, batch.agg)
     if kind == "sum":
         return s
     return s / torch.clamp(_per_node(batch.agg.in_degree, s), min=1)

@@ -152,6 +152,59 @@ def test_microbench_on_cpu_times_only_kept_candidates(monkeypatch):
         autotune.BSR_CANDIDATES)
 
 
+@pytest.mark.parametrize("gname", ["sparse", "clustered"])
+def test_microbench_cpu_path_returns_one_plan(gname):
+    """On the CPU the microbench times the plain push of each candidate on
+    the host clock (the card's many-launch protocol needs CUDA events):
+    every candidate gets a positive time and the pick is one of them."""
+    g = GRAPHS[gname](tg)
+    plan = autotune.plan_regime(g, microbench=True, device="cpu",
+                                cache=None, calibration=None)
+    assert isinstance(plan, autotune.RegimePlan)
+    assert plan.source == "microbench" and plan.measured_us > 0
+    labels = [f"edge_tile(tile={t},e1={a},e2={b})"
+              for t, a, b in autotune.EDGE_TILE_CANDIDATES] + [
+        f"bsr(ts={ts},td={td})" for ts, td in autotune.BSR_CANDIDATES]
+    assert plan.label() in labels
+    us = autotune._microbench_step(g, plan, torch.float32,
+                                   torch.device("cpu"))
+    assert isinstance(us, float) and us > 0
+
+
+def _scripted_runs(outcomes):
+    """A microbench ``run`` that plays ``outcomes`` ((covered, µs), ...) in
+    turn and records the spin it was given each time."""
+    spins, it = [], iter(outcomes)
+
+    def run(spin_ms):
+        spins.append(spin_ms)
+        return next(it)
+    return run, spins
+
+
+@pytest.mark.parametrize("outcomes,want,want_spins", [
+    # three covered runs: the least of them, the spin never doubled
+    ([(True, 12.0), (True, 10.5), (True, 11.0)], 10.5, [1.0, 1.0, 1.0]),
+    # an exposed run (a host time, small) is never taken; its spin doubles
+    ([(False, 3.0), (True, 12.0), (False, 2.0), (True, 11.0), (True, 13.0)],
+     11.0, [1.0, 2.0, 2.0, 4.0, 4.0]),
+    # fewer than three covered runs in eight: the least covered one
+    ([(False, 1.0)] * 7 + [(True, 20.0)], 20.0,
+     [1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0]),
+])
+def test_microbench_uses_only_covered_runs(outcomes, want, want_spins):
+    run, spins = _scripted_runs(outcomes)
+    assert autotune._least_covered(run, 1.0) == want
+    assert spins == want_spins
+
+
+def test_microbench_raises_when_no_run_is_covered():
+    run, spins = _scripted_runs([(False, 1.0)] * autotune._MB_MAX_RUNS)
+    with pytest.raises(RuntimeError, match="host's issue"):
+        autotune._least_covered(run, 1.0)
+    assert len(spins) == autotune._MB_MAX_RUNS
+
+
 def _bench_bsr_wins(graph, plan, dtype, device):
     return 100.0 if plan.regime == "bsr" else 5_000.0
 

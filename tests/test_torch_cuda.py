@@ -13,12 +13,13 @@ import torch
 import repro_torch.core as tc
 import repro_torch.graphs as tg
 from repro_torch.kernels import autotune
-from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
+from repro_torch.kernels.bsr_spmv import (bsr_spmv_call, bsr_spmv_plain,
+                                          bsr_step_call)
 from repro_torch.kernels.edge_spmv import edge_spmv_call, edge_spmv_plain
 from repro_torch.kernels.formats import (build_bsr, build_edge_tiles,
-                                         pad_edge_tile_blocks)
+                                         pad_edge_tile_blocks, tile_spans)
 from repro_torch.kernels.ops import (DeviceBsr, DeviceEdgeTiles, bsr_spmv,
-                                     edge_spmv)
+                                     bsr_step, edge_spmv)
 from repro_torch.kernels.power_step import power_step_call, power_step_plain
 from test_torch_edge_layouts import KINDS, edge_tile_layout, slot_weights
 
@@ -214,7 +215,7 @@ def test_edge_tile_kernels_take_any_tile_order_and_two_streams(card):
         assert torch.equal(s, s0) and torch.equal(gap, gap0)
 
 
-@pytest.mark.parametrize("td", [128, 256])
+@pytest.mark.parametrize("td", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-6),
                                              (torch.float64, 1e-12, 1e-14)])
 def test_bsr_spmv_kernel_matches_plain_on_card(card, dtype, rtol, atol, td):
@@ -232,6 +233,56 @@ def test_bsr_spmv_kernel_matches_plain_on_card(card, dtype, rtol, atol, td):
                         num_dst_tiles=fmt.num_dst_tiles)[0, :g.n]
     assert torch.equal(o1, o2)
     torch.testing.assert_close(o1, op, rtol=rtol, atol=atol)
+
+
+def _bsr_case(card, dtype, td):
+    """A clustered graph's operators and BSR format (one-byte tiles) on the
+    card, the same format with its tiles in ``dtype``, and a random s."""
+    g = tg.clustered_blocks(3000, 30000, block=128, p_in=0.9, seed=3)
+    ops = tc.build_operators(g, tc.heterogeneous(g.n, seed=4), dtype=dtype,
+                             device=card)
+    fmt_h = build_bsr(g, td=td, dtype=np.float32 if dtype == torch.float32
+                      else np.float64)
+    fmt = DeviceBsr.from_format(fmt_h, card)
+    wide = DeviceBsr(**{**vars(fmt), "tiles": torch.as_tensor(
+        fmt_h.tiles, device=card)})
+    s = torch.as_tensor(np.random.default_rng(1).uniform(size=g.n),
+                        dtype=dtype, device=card)
+    return ops, fmt, wide, s
+
+
+# The fused step against the composition it replaces, on the card: s_new
+# bitwise (the push is the same kernel, and the epilogue rounds mu * t and
+# + c as PyTorch does), the gap within GAP_RTOL (summed in another order).
+GAP_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+@pytest.mark.parametrize("td", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsr_step_kernel_matches_unfused_composition_on_card(card, dtype,
+                                                             td):
+    ops, fmt, wide, s = _bsr_case(card, dtype, td)
+    assert fmt.tiles.dtype == torch.uint8 and wide.tiles.dtype == dtype
+    before = bsr_step_call.launches
+    s1, gap1 = bsr_step(s, ops.inv_w, ops.mu, ops.c, fmt)
+    s2, gap2 = bsr_step(s, ops.inv_w, ops.mu, ops.c, fmt)
+    s3, gap3 = bsr_step(s, ops.inv_w, ops.mu, ops.c, wide)
+    torch.cuda.synchronize()
+    assert bsr_step_call.launches == before + 3
+    assert torch.equal(s1, s2) and torch.equal(gap1, gap2)
+    assert torch.equal(s1, s3) and torch.equal(gap1, gap3)
+    s_ref = ops.mu * bsr_spmv(s * ops.inv_w, fmt) + ops.c
+    gap_ref = float(torch.sum(torch.abs(s_ref - s)))
+    assert torch.equal(s1, s_ref)
+    assert abs(float(gap1) - gap_ref) <= GAP_RTOL[dtype] * gap_ref
+
+
+@pytest.mark.parametrize("td", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsr_spmv_one_byte_and_wide_tiles_agree_bitwise_on_card(card, dtype,
+                                                                td):
+    _, fmt, wide, s = _bsr_case(card, dtype, td)
+    assert torch.equal(bsr_spmv(s, fmt), bsr_spmv(s, wide))
 
 
 def test_kernel_wrappers_reject_bad_inputs_on_card(card):
@@ -269,7 +320,7 @@ def test_cuda_backend_solves_on_card(card, regime):
                          dtype=torch.float64, device=card).run(tol=1e-12)
     eng = tc.make_engine("cuda", graph=g, activity=act, device=card,
                          regime=regime)
-    counter = power_step_call if regime == "edge_tile" else bsr_spmv_call
+    counter = power_step_call if regime == "edge_tile" else bsr_step_call
     before = counter.launches
     res1 = eng.run(tol=1e-8)
     assert counter.launches - before == res1.iterations
@@ -292,7 +343,9 @@ def test_auto_backend_solves_on_card(card, microbench):
                          plan_cache=autotune.PlanCache())
     assert eng.plan.source == ("microbench" if microbench else "model")
     launched = edge_spmv_call.launches - before
-    assert launched == (4 * len(autotune.EDGE_TILE_CANDIDATES)
+    per_candidate = autotune._MB_WARMUP + autotune._MB_RUNS * \
+        autotune._MB_LAUNCHES
+    assert launched == (per_candidate * len(autotune.EDGE_TILE_CANDIDATES)
                         if microbench else 0)
     res = eng.run(tol=1e-8)
     assert res.converged and res.gap == 0.0
@@ -379,6 +432,29 @@ def test_seg_mm_kernel_matches_plain_on_card(card, kind, d, dtype):
     assert torch.equal(o1.cpu(), op)
     if kind == "empty tile":
         assert bool((o1[tile:2 * tile] == 0).all())
+
+
+# With the tile span the kernel skips each tile's trailing padding; a sum
+# starts from +0.0, so skipping zero rows changes no bit.
+@pytest.mark.parametrize("kind", ["plain", "padded", "shuffled", "idle tile",
+                                  "empty tile"])
+@pytest.mark.parametrize("d", [8, 128, 602])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_mm_kernel_with_tile_span_matches_plain_on_card(card, kind, d,
+                                                            dtype):
+    from repro_torch.kernels.seg_mm import seg_mm_call, seg_mm_plain
+    n, tile, src, _, block_tile, _, count = _seg_mm_format(kind)
+    span = torch.as_tensor(tile_spans(src, n, block_tile, count.shape[0]),
+                           device=card)
+    args, tile, n = _seg_mm_args(kind, d, dtype, card)
+    o1 = seg_mm_call(*args, tile=tile, tile_span=span)
+    o2 = seg_mm_call(*args, tile=tile, tile_span=span)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    host = [a.cpu() for a in args]
+    op = seg_mm_plain(host[0], host[1], host[2], tile=tile,
+                      num_tiles=host[3].shape[0])
+    assert torch.equal(o1.cpu(), op)
 
 
 def test_seg_mm_backward_on_card(card):

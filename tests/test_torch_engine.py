@@ -69,6 +69,30 @@ def test_reference_iterations_match_jax_at_f32(tol):
     assert res_t.gap == pytest.approx(float(res_j.gap), rel=1e-2)
 
 
+@pytest.mark.parametrize("tol", [1e-1, 1e-2, 1e-3])
+def test_bsr_iterations_match_jax_pallas_at_f32(tol):
+    """The ``cuda`` bsr regime (the fused step's plain version on the CPU)
+    takes the JAX ``pallas`` bsr regime's iteration count (its Pallas
+    kernel in interpret mode) at tols that no gap of the trajectory lies
+    within 1% of, as the reference backends do above; the fixed points
+    agree to f32 rounding."""
+    g_t, g_j = _graphs()
+    ops_j = jc.build_operators(g_j, jc.heterogeneous(g_j.n, seed=4))
+    _, _, gaps = jc.power_psi_fixed(ops_j, 40)
+    traj = np.asarray(gaps) * float(ops_j.b_norm)
+    assert not np.any(np.abs(traj - tol) <= 0.01 * tol)
+    res_j = jc.make_engine("pallas", graph=g_j, regime="bsr",
+                           activity=jc.heterogeneous(g_j.n, seed=4),
+                           interpret=True).run(tol=tol)
+    res_t = tc.make_engine("cuda", graph=g_t, regime="bsr",
+                           activity=tc.heterogeneous(g_t.n, seed=4),
+                           device="cpu").run(tol=tol)
+    assert res_t.iterations == int(res_j.iterations)
+    assert res_t.matvecs == int(res_j.matvecs)
+    np.testing.assert_allclose(res_t.s.numpy(), np.asarray(res_j.s),
+                               rtol=2e-5, atol=2e-6)
+
+
 def test_power_psi_matches_jax():
     g_t, g_j = _graphs()
     ops_t = tc.build_operators(g_t, tc.heterogeneous(g_t.n, seed=4),
@@ -223,6 +247,26 @@ def test_bsr_new_block_rebuilds_and_matches_fresh_prepare():
     _, psi_fresh = _fresh_psi(eng, regime="bsr")
     np.testing.assert_allclose(eng.run(tol=1e-13).psi.numpy(),
                                psi_fresh.numpy(), rtol=1e-12, atol=1e-16)
+
+
+def test_bsr_patch_past_255_rebuilds_in_working_dtype():
+    """One-byte tiles hold counts up to 255. The host drops duplicate
+    edges, so ``patch_edges`` only turns a 0 cell into 1; a count patched
+    in past 255 (here through the regime's own patch hook) uploads the
+    patched host format again in the working dtype."""
+    g = tg.clustered_blocks(600, 3000, block=128, p_in=1.0, seed=2)
+    g = tg.Graph(g.n, np.concatenate([g.src, np.full(255, 3)]),
+                 np.concatenate([g.dst, np.full(255, 5)]))
+    eng = _engine("bsr", g)
+    assert eng.fmt.tiles.dtype == torch.uint8
+    assert eng.patch_edges(np.asarray([4]), np.asarray([6]))   # 0 -> 1
+    assert eng.fmt.tiles.dtype == torch.uint8 and eng.format_builds == 1
+    eng._patch_edges_bsr(np.asarray([3]), np.asarray([5]))     # 255 -> 256
+    assert eng.format_builds == 2
+    assert eng.fmt.tiles.dtype == torch.float64
+    np.testing.assert_array_equal(eng.fmt.tiles.numpy(), eng.fmt_host.tiles)
+    b = eng._bsr_blocks[(0, 0)]
+    assert eng.fmt.tiles[b, 3, 5] == 256.0
 
 
 @pytest.mark.parametrize("regime", ["edge_tile", "bsr"])

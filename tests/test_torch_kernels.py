@@ -23,11 +23,12 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.bsr_spmv import bsr_spmv_call
 from repro_torch.kernels.edge_spmv import edge_spmv_call
 from repro_torch.kernels.formats import (build_bsr, build_edge_tiles,
-                                         pad_edge_tile_blocks)
+                                         pad_edge_tile_blocks, tile_spans)
 from repro_torch.kernels.ops import (DeviceBsr, DeviceEdgeTiles, bsr_spmv,
-                                     edge_spmv, power_step, seg_mm)
+                                     bsr_step, edge_spmv, power_step, seg_mm)
 from repro_torch.kernels.power_step import power_step_call
 from repro_torch.kernels.seg_mm import SegMM, seg_mm_call, seg_mm_plain
+from repro_torch.models.gnn.common import edge_agg
 
 GRAPHS = [
     ("er-small", lambda m: m.erdos_renyi(100, 500, seed=1)),
@@ -194,6 +195,57 @@ def test_bsr_spmv_plain_matches_pallas(gname, gfn, ts, td):
         jk.build_bsr(g_j, ts=ts, td=td)), interpret=True)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("gname,gfn", GRAPHS[:3])
+@pytest.mark.parametrize("td", [128, 256])
+def test_bsr_step_plain_matches_pallas_bsr_step(gname, gfn, td):
+    """The fused BSR step's plain version against the JAX package's
+    ``pallas`` bsr step (``mu * bsr_spmv(s * inv_w) + c`` and the L1 gap,
+    the Pallas kernel in interpret mode) on the same seeded inputs: s_new
+    at rtol 2e-5 / atol 2e-6, the gap at relative 1e-3 (f32 sums in
+    another order)."""
+    import jax.numpy as jnp
+    g_t, g_j = gfn(tg), gfn(jg)
+    ops = tc.build_operators(g_t, tc.heterogeneous(g_t.n, seed=7),
+                             device="cpu")
+    s = np.random.default_rng(2).uniform(size=g_t.n).astype(np.float32)
+    fmt = DeviceBsr.from_format(build_bsr(g_t, td=td), "cpu")
+    assert fmt.tiles.dtype == torch.uint8
+    s_new, gap = bsr_step(torch.as_tensor(s), ops.inv_w, ops.mu, ops.c, fmt)
+    inv_w, mu, c = (jnp.asarray(x.numpy()) for x in (ops.inv_w, ops.mu,
+                                                     ops.c))
+    s_j = jnp.asarray(s)
+    s_new_j = mu * jk.bsr_spmv(s_j * inv_w, jk.DeviceBsr.from_format(
+        jk.build_bsr(g_j, td=td)), interpret=True) + c
+    gap_j = float(jnp.sum(jnp.abs(s_new_j - s_j)))
+    np.testing.assert_allclose(s_new.numpy(), np.asarray(s_new_j),
+                               rtol=2e-5, atol=2e-6)
+    assert abs(float(gap) - gap_j) <= 1e-3 * gap_j
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["counts", "weights", "counts past 255"])
+def test_device_bsr_keeps_count_tiles_in_one_byte(kind, dtype):
+    """Edge counts in [0, 255] are stored as uint8; non-integer edge values
+    or a count past 255 keep the working dtype. The push gives the same
+    bits in either storage (the plain version takes uint8 in T)."""
+    g = tg.clustered_blocks(600, 5000, block=128, p_in=0.95, seed=2)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    if kind == "counts past 255":           # one edge 300 times over
+        g = tg.Graph(g.n, np.concatenate([g.src, np.full(300, 3)]),
+                     np.concatenate([g.dst, np.full(300, 5)]))
+    vals = (np.random.default_rng(3).uniform(0.5, 2.0, g.m)
+            if kind == "weights" else None)
+    fmt_h = build_bsr(g, edge_values=vals, dtype=np_dtype)
+    fmt = DeviceBsr.from_format(fmt_h, "cpu")
+    want = torch.uint8 if kind == "counts" else dtype
+    assert fmt.tiles.dtype == want
+    np.testing.assert_array_equal(fmt.tiles.numpy(), fmt_h.tiles)
+    s = torch.as_tensor(np.random.default_rng(4).uniform(size=g.n),
+                        dtype=dtype)
+    wide = DeviceBsr(**{**vars(fmt), "tiles": torch.as_tensor(fmt_h.tiles)})
+    assert torch.equal(bsr_spmv(s, fmt), bsr_spmv(s, wide))
 
 
 def test_bsr_spmv_matches_oracle_with_uncovered_dst_tiles():
@@ -372,6 +424,62 @@ def test_seg_mm_plain_writes_zeros_for_tiles_without_blocks():
     empty = seg_mm_plain(msgs[:0], fmt.dst_local[:0], fmt.block_tile[:0],
                          tile=64, num_tiles=2)
     assert empty.shape == (128, 5) and bool((empty == 0).all())
+
+
+def test_tile_spans_end_at_each_tiles_last_real_slot():
+    """tile_spans counts a tile's slots up to its last real one: the real
+    edge count on a fresh build (pad blocks add nothing), the slot of the
+    last real edge when slots are shuffled, 0 for a tile without one; the
+    GNN's edge_agg counts the same spans for its format."""
+    g = tg.erdos_renyi(2000, 9000, seed=1)
+    keep = (g.dst < 512) | (g.dst >= 1024)          # tile 1 gets no edge
+    g = tg.Graph(g.n, g.src[keep], g.dst[keep])
+    fmt_h = pad_edge_tile_blocks(build_edge_tiles(g, tile=512, e1=2, e2=128),
+                                 build_edge_tiles(g, tile=512, e1=2,
+                                                  e2=128).num_blocks + 3)
+    want = np.bincount(g.dst // 512, minlength=fmt_h.num_tiles)
+    spans = tile_spans(fmt_h.src_idx, g.n, fmt_h.block_tile, fmt_h.num_tiles)
+    np.testing.assert_array_equal(spans, want)
+    assert spans[1] == 0
+    agg = edge_agg(g.src, g.dst, g.n, tiles=(512, 2, 128), device="cpu")
+    np.testing.assert_array_equal(agg.tile_span.numpy(), want)
+    np.testing.assert_array_equal(
+        agg.tile_span.numpy(),
+        tile_spans(agg.fmt.src_idx.numpy(), g.n, agg.fmt.block_tile.numpy(),
+                   agg.fmt.num_tiles))
+    src = fmt_h.src_idx.reshape(fmt_h.num_blocks, -1).copy()
+    first, count = fmt_h.tile_first_block, fmt_h.tile_num_blocks
+    rng = np.random.default_rng(2)
+    last = np.zeros(fmt_h.num_tiles, np.int64)
+    for t, (a, c) in enumerate(zip(first, count)):
+        flat = src[a:a + c].reshape(-1)
+        flat[:] = flat[rng.permutation(flat.size)]
+        real = np.flatnonzero(flat != g.n)
+        last[t] = real[-1] + 1 if real.size else 0
+    np.testing.assert_array_equal(
+        tile_spans(src, g.n, fmt_h.block_tile, fmt_h.num_tiles), last)
+
+
+def test_seg_mm_plain_ignores_the_tile_span():
+    """The plain version adds every slot; the span only lets the kernel
+    skip trailing padding, so the call's result does not depend on it."""
+    g = tg.erdos_renyi(300, 1500, seed=9)
+    fmt_h = pad_edge_tile_blocks(build_edge_tiles(g, tile=128, e1=2, e2=64),
+                                 build_edge_tiles(g, tile=128, e1=2,
+                                                  e2=64).num_blocks + 2)
+    fmt = DeviceEdgeTiles.from_format(fmt_h, "cpu")
+    x = np.random.default_rng(6).normal(size=(g.n + 1, 7))
+    x[g.n] = 0.0
+    msgs = torch.as_tensor(x[fmt_h.src_idx.reshape(fmt_h.num_blocks, -1)])
+    args = (msgs, fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
+            fmt.tile_num_blocks)
+    span = torch.as_tensor(tile_spans(fmt_h.src_idx, g.n, fmt_h.block_tile,
+                                      fmt_h.num_tiles))
+    assert torch.equal(seg_mm_call(*args, tile=128),
+                       seg_mm_call(*args, tile=128, tile_span=span))
+    assert torch.equal(seg_mm(msgs, fmt, tile_span=span),
+                       seg_mm(msgs, fmt))
+    assert torch.equal(seg_mm(msgs, fmt), seg_mm_call(*args, tile=128)[:g.n])
 
 
 def test_seg_mm_refuses_devices_other_than_cuda_and_cpu():

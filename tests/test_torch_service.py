@@ -121,7 +121,9 @@ def test_jax_formats_convert_to_port_formats():
     bfields = {f.name: np.asarray(getattr(jbsr, f.name))
                for f in dataclasses.fields(jbsr)}
     bsr = bsr_from_numpy(bfields, device="cpu")
-    assert bsr.tiles.dtype == torch.float32
+    # the JAX tiles hold edge counts: kept in one byte a cell, same values
+    assert bsr.tiles.dtype == torch.uint8
+    np.testing.assert_array_equal(bsr.tiles.numpy(), bfields["tiles"])
     assert int(bsr.dst_num_blocks.sum()) == bsr.tiles.shape[0]
 
 
