@@ -48,7 +48,20 @@ on the first check that does not hold:
    full-width step (loss and every gradient) on the card at float32 through
    ``seg_mm`` held against the same step at float64 on CPU copies through
    the plain version;
-8. times: CUDA events around back-to-back calls, warm, for each kernel,
+8. ``fleet``: the ``serve --tenants`` path, ``TenantFleet(backend="auto")``
+   on the card with 14 tenants — four seeds each of the paper's Table II
+   stand-ins dblp, hepph and facebook at their published sizes, and the
+   launcher's two small tenants — in five buckets (four in the kernel
+   regime, one dense). A cold f32 solve at tol 1e-8; every kernel lane held
+   bitwise (s, ψ, count) against the single-lane kernel loop on its own
+   tensors, against the solo ``cuda`` engine (inputs compared bit for bit
+   first) and against the f64 reference (top-10, rel L1 ≤ 1e-5); ranked
+   requests through the frontier; an activity patch (warm, co-tenants
+   bitwise); an edge patch that grows a facebook tenant past its bucket's
+   block capacity (restack, warm, then the bucket cold and every lane held
+   again). ``power_step_lanes`` must launch once a step per kernel bucket,
+   ``edge_spmv_lanes`` once per kernel bucket solved;
+9. times: CUDA events around back-to-back calls, warm, for each kernel,
    its plain version and one PyTorch sparse call for the same push or sum,
    beside the kernel's bound, and the device time (``torch.profiler``) of
    the kernel and the library call; ``bsr_spmv`` also once after an L2
@@ -59,7 +72,11 @@ on the first check that does not hold:
    aggregation tiles; the edge-tile kernels at every
    autotuner tile and, in device time, with every tile's slots dealt in
    order over its rows (the tail of the in-degree skew); the cold resolves
-   and the GraphSAGE step under the profiler.
+   and the GraphSAGE step under the profiler; the lane-batched kernels
+   against their plain versions at every kernel bucket (f32, f64), each
+   bucket's cold solve, and the lane-batched kernels at the facebook bucket
+   beside as many single-lane launches, their bound, the plain version and
+   a block-diagonal ``torch.sparse.mm``.
 
 Phase 2 holds ``seg_mm`` against its plain version on CPU copies, bitwise,
 at float32 and float64, d = 8, 128 and 602, with and without the layout's
@@ -68,7 +85,7 @@ built, with padding blocks, with its slots shuffled within each tile), on
 a tile with only padding blocks and a tile with none; its backward against
 the plain gather.
 
-Phases 3 to 7 are the main paths (the auto phase is two: model-only and
+Phases 3 to 8 are the main paths (the auto phase is two: model-only and
 microbench): every launch counter is set to 0 just before each path and
 read just after, and each kernel of a path must have launched there. The
 last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -116,6 +133,12 @@ AUTO_MODEL_LABEL = "edge_tile(tile=512,e1=8,e2=128)"
 # bsr(128,128) on the clustered graph, so that pair is the bsr regime's.
 FIXED_POINT_ITERS = [33, 13, 23, 25, 44, 24, 23, 22,
                      33, 12, 42, 24, 33, 12, 44, 23]
+# then the fleet's lanes (phase_fleet), in order: the cold solve of the 14
+# tenants in admission order (dblp 1-4, hepph 1-4, facebook 1-4, powerlaw2000,
+# clustered1024), the warm re-solve after the activity patch, the warm
+# re-solve after the edge patch, and the restacked facebook bucket cold
+FLEET_ITERS = [35, 35, 33, 36, 35, 35, 36, 36, 35, 34, 35, 40, 33, 34,
+               23, 25, 35, 34, 35, 35]
 
 
 class SmokeFailure(Exception):
@@ -1103,6 +1126,375 @@ def phase_gnn_train(report: dict) -> None:
     del run, data, params, p64, loss64
 
 
+# --------------------------------------------------------------------- #
+# The multi-tenant fleet (serve --tenants): lane-batched kernels
+# --------------------------------------------------------------------- #
+FLEET_SEEDS = (1, 2, 3, 4)
+# every bucket of the fleet phase under the default BucketPolicy, and its
+# regime (dense_max_n 1024)
+FLEET_BUCKETS = {(16_384, 65_536): "cuda", (65_536, 524_288): "cuda",
+                 (65_536, 1_048_576): "cuda", (4_096, 16_384): "cuda",
+                 (1_024, 16_384): "dense"}
+
+
+def fleet_tenants() -> list:
+    """``(tenant id, graph, activity)``: four seeds each of the paper's
+    Table II stand-ins dblp, hepph and facebook at their published sizes,
+    then ``serve --tenants``' two small tenants."""
+    from repro_torch.core import heterogeneous
+    from repro_torch.graphs import (clustered_blocks, load_dataset,
+                                    powerlaw_configuration)
+    graphs = [(f"{name}-{s}", load_dataset(name, seed=s))
+              for name in ("dblp", "hepph", "facebook") for s in FLEET_SEEDS]
+    graphs += [("powerlaw2000", powerlaw_configuration(2_000, 12_000,
+                                                       seed=100)),
+               ("clustered1024", clustered_blocks(1_024, 10_000, block=128,
+                                                  p_in=0.9, seed=101))]
+    return [(tid, g, heterogeneous(g.n, seed=200 + k))
+            for k, (tid, g) in enumerate(graphs)]
+
+
+def _lane(fleet, tid):
+    """(bucket, lane, the lane's own single-lane format and f[1, ·] step
+    vectors) of tenant ``tid`` in a cuda-regime bucket."""
+    import dataclasses
+    rec = fleet._rec(tid)
+    bucket = fleet._buckets[rec.spec]
+    lane = bucket.order.index(tid)
+    fmt, inv_w_g, mu_pad, c_pad = bucket.args
+    one = dataclasses.replace(fmt, **{
+        k: getattr(fmt, k)[lane] for k in (
+            "src_idx", "dst_local", "block_tile", "tile_first_block",
+            "tile_num_blocks", "tile_order")})
+    return bucket, lane, one, inv_w_g[lane], mu_pad[lane], c_pad[lane]
+
+
+def single_lane_solve(fleet, tid, s0):
+    """The solo loop's rule (stop at the first gap ≤ tol) with the
+    single-lane ``power_step`` on ``tid``'s lane's own tensors — its format
+    at the bucket's plan, μ, c, 1/w, ‖B‖ — from ``s0`` (f[1, n_pad]), then
+    the fleet's epilogue with the single-lane ``edge_spmv``. Returns
+    (s, gap, iterations, ψ f[n])."""
+    import torch
+    from repro_torch.kernels.ops import edge_spmv, power_step
+    bucket, lane, fmt, inv_w_g, mu, c = _lane(fleet, tid)
+    scale = bucket.scale[lane]
+    tol = torch.tensor(fleet.tol, dtype=fleet.dtype)
+    s, gap, t = s0, torch.tensor(float("inf"), dtype=fleet.dtype), 0
+    while bool(gap > tol) and t < fleet.max_iter:
+        s, raw = power_step(s, inv_w_g, mu, c, fmt)
+        gap = (scale * raw).cpu()
+        t += 1
+    push = edge_spmv(s[0, :fmt.n] * inv_w_g[0, :fmt.n], fmt)
+    psi = (bucket.lam[lane] * push + bucket.d[lane]) * bucket.inv_n[lane]
+    return s, float(gap), t, psi[:fleet._rec(tid).n]
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in units in the last place between two float
+    tensors of one dtype."""
+    import torch
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return int((a.contiguous().view(ints).long()
+                - b.contiguous().view(ints).long()).abs().max())
+
+
+def check_fleet_lane(fleet, tid, graph, act, s0_node, tag, report) -> None:
+    """Hold ``tid``'s lane, just solved from ``s0_node`` (node order; None:
+    cold), three ways:
+
+    1. against :func:`single_lane_solve` on its own tensors from the same
+       start: s, ψ and the count bitwise equal;
+    2. against a solo ``cuda`` engine on ``graph`` at the bucket's plan:
+       its inputs (μ, c, 1/w, ‖B‖) compared bit for bit first. Where they
+       are equal, the count, the gap and s must be too; the engine's ψ
+       epilogue pushes with ``torch.segment_reduce``, whose sum on the card
+       is not a slot-order fold, so the lane's ψ is held bitwise against
+       the fleet's epilogue on the engine's s, and within rel L1 1e-6 of
+       the engine's own ψ. Where an input differs, its ulps are printed;
+       the count must be equal and ψ within rel L1 1e-6;
+    3. against the f64 ``reference`` on the card: top-10 identical and rel
+       L1 ≤ 1e-5.
+    """
+    import torch
+    from repro_torch.core import make_engine
+    from repro_torch.core.incremental import RankingCache
+    from repro_torch.kernels.ops import edge_spmv
+    rec = fleet._rec(tid)
+    n = rec.n
+    bucket, lane, fmt, inv_w_g, mu, c = _lane(fleet, tid)
+    psi_lane = torch.as_tensor(rec.psi, device="cuda")
+    s_lane = bucket.s[lane]
+    s0 = (c.clone() if s0_node is None
+          else fmt.pad_node_vector(torch.as_tensor(
+              s0_node, dtype=fleet.dtype, device="cuda")))
+    s1, gap1, t1, psi1 = single_lane_solve(fleet, tid, s0)
+    check(t1 == rec.iterations and torch.equal(s1, s_lane)
+          and torch.equal(psi1, psi_lane) and gap1 == rec.gap,
+          f"{tag}: lane differs from the single-lane loop on its own "
+          f"tensors (iterations {rec.iterations} vs {t1}, s equal "
+          f"{torch.equal(s1, s_lane)}, ψ equal {torch.equal(psi1, psi_lane)}"
+          f", gap {rec.gap} vs {gap1})")
+    plan = bucket.plan
+    eng = make_engine("cuda", graph=graph, activity=act, device="cuda",
+                      dtype=fleet.dtype, tile=plan.tile, e1=plan.e1,
+                      e2=plan.e2)
+    ops = eng.ops
+    ins = {"mu": (ops.mu, mu[0, :n]), "c": (ops.c, c[0, :n]),
+           "1/w": (ops.inv_w, inv_w_g[0, :n]),
+           "|B|": (ops.b_norm.reshape(1), bucket.scale[lane].reshape(1))}
+    differ = {k: _ulps(a, b) for k, (a, b) in ins.items()
+              if not torch.equal(a, b)}
+    res = eng.run(tol=fleet.tol, s0=None if s0_node is None else torch.as_tensor(
+        s0_node, dtype=fleet.dtype, device="cuda"))
+    rel_solo = float((res.psi.double() - psi_lane.double()).abs().sum()
+                     / res.psi.double().abs().sum())
+    check(res.iterations == rec.iterations, f"{tag}: {rec.iterations} "
+          f"iterations, the solo cuda engine {res.iterations}")
+    check(rel_solo <= 1e-6, f"{tag}: ψ rel L1 {rel_solo:.3e} from the solo "
+          f"cuda engine's (limit 1e-6)")
+    if not differ:
+        psi_k = (ops.lam * edge_spmv(res.s * ops.inv_w, eng.fmt) + ops.d) \
+            * (torch.ones((), dtype=fleet.dtype, device="cuda") / n)
+        check(res.gap == rec.gap and torch.equal(res.s, s_lane[0, :n])
+              and torch.equal(psi_k, psi_lane),
+              f"{tag}: inputs bitwise equal to the solo cuda engine's, but "
+              f"gap {rec.gap} vs {res.gap}, s equal "
+              f"{torch.equal(res.s, s_lane[0, :n])}, ψ through the kernel "
+              f"epilogue equal {torch.equal(psi_k, psi_lane)}")
+        solo = (f"inputs bitwise equal; count, gap, s bitwise; ψ bitwise "
+                f"through the kernel epilogue, {int((res.psi != psi_lane).sum())}"
+                f" of {n} entries off the engine's segment_reduce epilogue, "
+                f"rel L1 {rel_solo:.3e}")
+    else:
+        solo = (f"inputs differ (ulps: " + ", ".join(
+            f"{k} {v}" for k, v in differ.items()) + f"); count equal, ψ "
+            f"rel L1 {rel_solo:.3e}")
+    ref = make_engine("reference", graph=graph, activity=act,
+                      dtype=torch.float64, device="cuda").run(tol=1e-12)
+    rel = float((psi_lane.double() - ref.psi).abs().sum()
+                / ref.psi.abs().sum())
+    top = RankingCache(psi_lane).top_k(10)[0]
+    ref_top = RankingCache(ref.psi).top_k(10)[0]
+    check(ref.converged and rel <= 1e-5, f"{tag}: ψ rel L1 {rel:.3e} from "
+          f"the f64 reference (limit 1e-5)")
+    check(np.array_equal(top, ref_top), f"{tag}: top-10 {top.tolist()} != "
+          f"f64 reference {ref_top.tolist()}")
+    say(f"{tag}: {rec.iterations} iterations, gap {rec.gap:.3e}; bitwise the "
+        f"single-lane loop (s, ψ, count); solo cuda engine: {solo}; f64 "
+        f"reference rel L1 {rel:.3e}, top-10 identical")
+    report.setdefault("fixed_points", []).append((rec.iterations, rel))
+    report.setdefault("fleet_rel_solo", []).append(rel_solo)
+    del eng, ref
+
+
+def _cold_bucket(fleet, spec) -> None:
+    """Make one bucket's lanes cold (s₀ = c) and stale, so the next
+    ``solve`` runs that bucket alone from scratch."""
+    bucket = fleet._buckets[spec]
+    bucket.s = fleet._cold_state(bucket)
+    for tid in bucket.order:
+        rec = fleet._tenants[tid]
+        rec.s_host = None
+        rec.solved_epoch = -1
+
+
+def fleet_solve(fleet, tag, report) -> None:
+    """``fleet.solve()``, checking that ``power_step_lanes`` launched once a
+    step for each cuda bucket solved (its longest active lane's count), not
+    once a lane, and ``edge_spmv_lanes`` once a cuda bucket solved."""
+    from repro_torch.kernels.edge_spmv import edge_spmv_lanes_call
+    from repro_torch.kernels.power_step import power_step_lanes_call
+    stale = {t for t in fleet.tenant_ids if fleet.stats(t)["staleness"]}
+    cuda = [b for b in fleet._buckets.values()
+            if (b.regime or fleet._regime_for(b.spec)) == "cuda"
+            and stale & set(b.order)]
+    before = (power_step_lanes_call.launches, edge_spmv_lanes_call.launches)
+    t0 = time.perf_counter()
+    ran = fleet.solve()
+    wall = time.perf_counter() - t0
+    steps = sum(max(fleet.stats(t)["iterations"] for t in b.order
+                    if t in stale) for b in cuda)
+    got = (power_step_lanes_call.launches - before[0],
+           edge_spmv_lanes_call.launches - before[1])
+    check(ran == len(stale), f"{tag}: {ran} lanes ran, {len(stale)} stale")
+    check(got == (steps, len(cuda)), f"{tag}: power_step_lanes / "
+          f"edge_spmv_lanes launched {got}, expected {steps} (one a step "
+          f"of each of {len(cuda)} cuda buckets) / {len(cuda)}")
+    say(f"{tag}: {ran} lanes in {wall:.3f} s; power_step_lanes {got[0]} "
+        f"launches (one a step a bucket), edge_spmv_lanes {got[1]}")
+
+
+def phase_fleet(report: dict) -> None:
+    """``TenantFleet`` (the ``serve --tenants`` path) with the kernel regime
+    on the card: 14 tenants (:func:`fleet_tenants`) in the default bucket
+    policy's five buckets (:data:`FLEET_BUCKETS`), a cold f32 solve at tol
+    1e-8 with every lane held three ways (:func:`check_fleet_lane`), ranked
+    requests through the frontier, an activity patch (warm re-solve,
+    co-tenants bitwise), and an edge patch that grows a facebook tenant past
+    its bucket's block capacity (restack; the lanes held again)."""
+    import torch
+    from repro_torch.core import Activity, RankingCache
+    from repro_torch.graphs import Graph
+    from repro_torch.serving import TenantFleet
+    t0 = time.perf_counter()
+    tenants = fleet_tenants()
+    report["fleet_data_s"] = time.perf_counter() - t0
+    fleet = TenantFleet(backend="auto", tol=1e-8, device="cuda")
+    t0 = time.perf_counter()
+    for tid, g, act in tenants:
+        fleet.admit(tid, g, act)
+    say(f"fleet: {len(tenants)} tenants made in {report['fleet_data_s']:.2f} "
+        f"s, admitted in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{tid} n={g.n} m={g.m}" for tid, g, _ in tenants))
+    graphs = {tid: (g.dedup(), act) for tid, g, act in tenants}
+    fleet_solve(fleet, "fleet cold", report)
+    occ = fleet.occupancy()
+    got = {(s.n_pad, s.e_pad): a["regime"] for s, a in occ.items()}
+    check(got == FLEET_BUCKETS, f"fleet buckets {got} != {FLEET_BUCKETS}")
+    for spec, acct in occ.items():
+        say(f"fleet {spec}: {acct['tenants']} lanes, regime "
+            f"{acct['regime']}, plan {acct.get('plan')}, node occupancy "
+            f"{acct['node_occupancy']:.3f}, edge occupancy "
+            f"{acct['edge_occupancy']:.3f}")
+    cold = {}
+    for tid, _, _ in tenants:
+        g, act = graphs[tid]
+        cold[tid] = fleet.stats(tid)["iterations"]
+        if fleet.occupancy()[fleet.spec_of(tid)]["regime"] == "cuda":
+            check_fleet_lane(fleet, tid, g, act, None, f"fleet cold {tid}",
+                             report)
+        else:
+            _check_fleet_psi_only(fleet, tid, g, act, f"fleet cold {tid}",
+                                  report)
+    # ranked requests through the frontier
+    fr = fleet.frontier
+    rng = np.random.default_rng(5)
+    for r in range(3):
+        ids = [tenants[int(k)][0] for k in rng.integers(0, len(tenants), 8)]
+        users = np.asarray([int(rng.integers(0, fleet.stats(t)["n"]))
+                            for t in ids])
+        got = fr.scores_batch(ids, users)
+        want = [fleet.psi(t)[u] for t, u in zip(ids, users)]
+        check(np.array_equal(got, np.asarray(want, got.dtype)),
+              f"fleet request {r}: scores_batch != the lanes' ψ")
+        for t in set(ids):
+            idx, vals = fr.top_k(t, 10)
+            ridx, _ = RankingCache(torch.from_numpy(fleet.psi(t))).top_k(10)
+            check(np.array_equal(idx, ridx), f"fleet request {r}: top-10 "
+                  f"of {t}")
+            check(np.array_equal(fr.rank_of(t, idx), np.arange(10)),
+                  f"fleet request {r}: rank_of({t})")
+    top = fr.global_top_k(10)
+    best = max((float(fleet.psi(t).max()), t) for t in fleet.tenant_ids)
+    check(top[0][0] == best[1] and top[0][2] == best[0]
+          and [s for *_, s in top] == sorted((s for *_, s in top),
+                                             reverse=True),
+          f"fleet global_top_k {top[:3]} (best {best})")
+    say(f"fleet frontier: 3 batches of 8 (tenant, user) reads equal the "
+        f"lanes' ψ; top-10 and rank_of per tenant; global top-3 "
+        + ", ".join(f"{t}/{u}@{s:.3e}" for t, u, s in top[:3]))
+    # an activity patch on one tenant: it re-solves warm, co-tenants bitwise
+    tid = "hepph-1"
+    before = {t: fleet.psi(t).copy() for t in fleet.tenant_ids}
+    s0 = fleet.series(tid).copy()
+    u = int(rng.integers(0, fleet.stats(tid)["n"]))
+    g, act = graphs[tid]
+    lam = act.lam.copy()
+    lam[u] *= 20
+    fleet.patch_activity(tid, np.asarray([u]), lam=np.asarray([lam[u]]))
+    fleet_solve(fleet, f"fleet patch_activity {tid}", report)
+    graphs[tid] = (g, Activity(lam, act.mu.copy()))
+    warm = fleet.stats(tid)["iterations"]
+    check(warm < cold[tid], f"fleet patch_activity {tid}: {warm} warm "
+          f"iterations, not fewer than cold {cold[tid]}")
+    for t, psi in before.items():
+        if t != tid:
+            check(np.array_equal(psi, fleet.psi(t)), f"fleet patch_activity "
+                  f"{tid}: co-tenant {t}'s ψ moved")
+    check_fleet_lane(fleet, tid, *graphs[tid], s0,
+                     f"fleet patch_activity {tid} (warm, from {cold[tid]} "
+                     f"cold)", report)
+    # an edge patch that grows a facebook tenant past its bucket's blocks
+    spec = fleet.spec_of("facebook-1")
+    bucket = fleet._buckets[spec]
+    nb = bucket.nb
+    tile, eblk = bucket.plan.tile, bucket.plan.e1 * bucket.plan.e2
+    need = {}
+    for t in bucket.order:
+        counts = np.bincount(fleet._rec(t).host.dst_by_dst // tile,
+                             minlength=spec.n_pad // tile)
+        need[t] = int(np.maximum(1, -(-counts // eblk)).sum())
+    tid = max(need, key=need.get)
+    k = nb - need[tid] + 2              # blocks to add: past nb by 2
+    g, act = graphs[tid]
+    have = set((g.src.astype(np.int64) * g.n + g.dst).tolist())
+    src, dst = [], []
+    while len(src) < k * eblk:          # k blocks' worth into node tile 0
+        s_, d_ = int(rng.integers(0, g.n)), int(rng.integers(0, tile))
+        key = s_ * g.n + d_
+        if s_ != d_ and key not in have:
+            have.add(key)
+            src.append(s_)
+            dst.append(d_)
+    before = {t: fleet.psi(t).copy() for t in fleet.tenant_ids}
+    s0 = fleet.series(tid).copy()
+    fleet.patch_edges(tid, np.asarray(src, np.int32),
+                      np.asarray(dst, np.int32))
+    check(fleet.stats(tid)["rebuckets"] == 0 and fleet.spec_of(tid) == spec,
+          f"fleet patch_edges {tid}: rebucketed")
+    fleet_solve(fleet, f"fleet patch_edges {tid} (+{len(src)} edges)",
+                report)
+    check(bucket.nb > nb and bucket is fleet._buckets[spec],
+          f"fleet patch_edges {tid}: block capacity {nb} -> {bucket.nb}, "
+          f"no restack")
+    warm = fleet.stats(tid)["iterations"]
+    check(warm < cold[tid], f"fleet patch_edges {tid}: {warm} warm "
+          f"iterations, not fewer than cold {cold[tid]}")
+    for t, psi in before.items():
+        if t != tid:
+            check(np.array_equal(psi, fleet.psi(t)), f"fleet patch_edges "
+                  f"{tid}: co-tenant {t}'s ψ moved")
+    host = fleet._rec(tid).host
+    graphs[tid] = (Graph(host.n, host.src_by_dst.copy(),
+                         host.dst_by_dst.copy()), host.activity())
+    say(f"fleet patch_edges {tid}: {len(src)} edges into node tile 0 "
+        f"({k} blocks), block capacity {nb} -> {bucket.nb}, bucket "
+        f"restacked")
+    check_fleet_lane(fleet, tid, *graphs[tid], s0,
+                     f"fleet patch_edges {tid} (warm, from {cold[tid]} "
+                     f"cold)", report)
+    # the restacked bucket, cold: every lane held again
+    _cold_bucket(fleet, spec)
+    fleet_solve(fleet, f"fleet restacked {spec} cold", report)
+    for t in bucket.order:
+        check_fleet_lane(fleet, t, *graphs[t], None,
+                         f"fleet restacked cold {t}", report)
+    report["fleet"] = fleet
+    report["fleet_cold_iters"] = cold
+
+
+def _check_fleet_psi_only(fleet, tid, graph, act, tag, report) -> None:
+    """A dense-regime lane: ψ against the f64 reference on the card (top-10
+    identical, rel L1 ≤ 1e-5)."""
+    import torch
+    from repro_torch.core import make_engine
+    from repro_torch.core.incremental import RankingCache
+    rec = fleet._rec(tid)
+    psi = torch.as_tensor(rec.psi, device="cuda")
+    ref = make_engine("reference", graph=graph, activity=act,
+                      dtype=torch.float64, device="cuda").run(tol=1e-12)
+    rel = float((psi.double() - ref.psi).abs().sum() / ref.psi.abs().sum())
+    top = RankingCache(psi).top_k(10)[0]
+    ref_top = RankingCache(ref.psi).top_k(10)[0]
+    check(rec.converged and rel <= 1e-5 and np.array_equal(top, ref_top),
+          f"{tag}: converged {rec.converged}, rel L1 {rel:.3e} (limit "
+          f"1e-5), top-10 {top.tolist()} vs {ref_top.tolist()}")
+    say(f"{tag}: {rec.iterations} iterations (dense regime), gap "
+        f"{rec.gap:.3e}; f64 reference rel L1 {rel:.3e}, top-10 identical")
+    report.setdefault("fixed_points", []).append((rec.iterations, rel))
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -1371,6 +1763,7 @@ def phase_times(report: dict) -> list[dict]:
             f"{tag} resolve", lambda: float(eng.run(tol=1e-8).psi.sum()),
             kernel)
     rows += seg_mm_times(report)
+    rows += fleet_times(report)
     return rows
 
 
@@ -1485,6 +1878,180 @@ def seg_mm_times(report: dict) -> list[dict]:
     return rows
 
 
+def fleet_times(report: dict) -> list[dict]:
+    """The fleet's lane-batched kernels: first held against their plain
+    versions at every cuda bucket's shapes (f32 and f64, from each bucket's
+    cold state s = c: ``power_step_lanes`` at POWER_TOL, its gap per lane
+    within GAP_RTOL, ``edge_spmv_lanes`` bitwise, both bitwise run to run);
+    then each bucket's cold solve (host clock, min of 3, and the busy share
+    of one more under the profiler); then, at the facebook bucket, both
+    kernels by CUDA events and device time beside L single-lane launches,
+    their bound (the bytes of all lanes at 3.35 TB/s), the plain version and
+    one ``torch.sparse.mm`` over the block-diagonal CSR of all lanes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.graphs import Graph
+    from repro_torch.kernels.edge_spmv import (edge_spmv_call,
+                                               edge_spmv_lanes_call,
+                                               edge_spmv_lanes_plain)
+    from repro_torch.kernels.power_step import (power_step_call,
+                                                power_step_lanes_call,
+                                                power_step_lanes_plain)
+    fleet = report["fleet"]
+    cuda = {spec: b for spec, b in sorted(fleet._buckets.items())
+            if b.regime == "cuda"}
+    errs = {}
+    for spec, bucket in cuda.items():
+        fmt, inv_w_g, mu, c = bucket.args
+        kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).removeprefix("torch.")
+            rtol, atol = POWER_TOL[dname]
+            s = c.to(dtype)
+            s_pre = F.pad(s, (0, fmt.n_gather - fmt.n_pad)) * inv_w_g.to(dtype)
+            args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+                    fmt.tile_first_block, fmt.tile_num_blocks, mu.to(dtype),
+                    c.to(dtype), s)
+            tag = f"fleet {spec} {dname}"
+            s1, gap1 = power_step_lanes_call(*args, **kw)
+            s2, gap2 = power_step_lanes_call(*args, **kw)
+            t1 = edge_spmv_lanes_call(*args[:6], **kw)
+            t2 = edge_spmv_lanes_call(*args[:6], **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(s1, s2) and torch.equal(gap1, gap2)
+                  and torch.equal(t1, t2), f"{tag}: two runs differ")
+            host = [a.cpu() for a in args]
+            sp, gapp = power_step_lanes_plain(*host[:4], *host[6:],
+                                              tile=fmt.tile)
+            err, share = _compare(f"power_step_lanes {tag}", s1.cpu(), sp,
+                                  rtol, atol)
+            gap_rel = float(((gap1.cpu() - gapp).abs()
+                             / gapp.abs().clamp_min(1e-30)).max())
+            check(gap_rel <= GAP_RTOL[dname], f"power_step_lanes {tag}: gap "
+                  f"rel err {gap_rel:.3e} > {GAP_RTOL[dname]}")
+            tp = edge_spmv_lanes_plain(*host[:4], tile=fmt.tile,
+                                       num_tiles=fmt.num_tiles)
+            check(torch.equal(t1.cpu(), tp), f"edge_spmv_lanes {tag}: differs "
+                  f"from the plain version (max abs err "
+                  f"{float((t1.cpu() - tp).abs().max()):.3e})")
+            say(f"lane kernels {tag}: {fmt.src_idx.shape[0]} lanes x "
+                f"{fmt.src_idx.shape[1]} blocks, tile {fmt.tile}; "
+                f"power_step_lanes max abs err {err:.3e} (worst element at "
+                f"{share:.3g} of its limit), gap rel err {gap_rel:.3e}; "
+                f"edge_spmv_lanes bitwise the plain version; both bitwise "
+                f"run to run")
+            if dname == "float32" and spec.e_pad == 1_048_576:
+                errs = dict(power_step_lanes=err, edge_spmv_lanes=0.0)
+            del args, host, sp, tp
+    # each bucket's cold solve
+    resolve = {}
+    for spec, bucket in sorted(fleet._buckets.items()):
+        walls = []
+        for _ in range(3):
+            _cold_bucket(fleet, spec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.solve()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        _cold_bucket(fleet, spec)
+        busy, share = profile_run(f"fleet {spec} cold solve", fleet.solve,
+                                  "power_step" if bucket.regime == "cuda"
+                                  else None)
+        iters = max(fleet.stats(t)["iterations"] for t in bucket.order)
+        resolve[str(spec)] = dict(regime=bucket.regime,
+                                  lanes=len(bucket.order), steps=iters,
+                                  ms=min(walls), busy=busy,
+                                  kernel_share=share)
+        say(f"fleet {spec} ({bucket.regime}, {len(bucket.order)} lanes) cold "
+            f"solve: {iters} steps, {sorted(walls)} ms (min "
+            f"{min(walls):.3f}), busy {busy if busy is None else f'{busy:.1%}'}")
+    report["fleet_resolve"] = resolve
+    # the lane-batched kernels at the facebook bucket, f32
+    spec = next(s for s in cuda if s.e_pad == 1_048_576)
+    bucket = cuda[spec]
+    fmt, inv_w_g, mu, c = bucket.args
+    lanes = fmt.src_idx.shape[0]
+    s = bucket.s
+    s_pre = F.pad(s, (0, fmt.n_gather - fmt.n_pad)) * inv_w_g
+    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+            fmt.tile_first_block, fmt.tile_num_blocks, mu, c, s)
+    kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+    one = [dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order[i])
+           for i in range(lanes)]
+    elt = s.element_size()
+    real = int((fmt.src_idx < fmt.n).sum())
+    tables = fmt.tile_first_block.nbytes + fmt.tile_num_blocks.nbytes
+    # every lane: every slot's src_idx, dst_local of the real slots, its
+    # block ranges, s_pre's n entries, then mu, c, s_old in and s_new out
+    # (power_step) or the output once (edge_spmv), and the gaps
+    step_bytes = (fmt.src_idx.nbytes + 4 * real + tables
+                  + elt * lanes * (fmt.n + 4 * fmt.n_pad + 1))
+    step_flops = 2 * real + 4 * lanes * fmt.n_pad
+    push_bytes = (fmt.src_idx.nbytes + 4 * real + tables
+                  + elt * lanes * (fmt.n + fmt.n_pad))
+    cases = {
+        "power_step_lanes": (
+            lambda: power_step_lanes_call(*args, **kw),
+            lambda: [power_step_call(*(a[i] for a in args), **one[i])
+                     for i in range(lanes)],
+            lambda: power_step_lanes_plain(*args[:4], *args[6:],
+                                           tile=fmt.tile),
+            step_bytes, step_flops, "power_step.cu",
+            "src/repro/kernels/power_step.py:66"),
+        "edge_spmv_lanes": (
+            lambda: edge_spmv_lanes_call(*args[:6], **kw),
+            lambda: [edge_spmv_call(*(a[i] for a in args[:6]), **one[i])
+                     for i in range(lanes)],
+            lambda: edge_spmv_lanes_plain(*args[:4], tile=fmt.tile,
+                                          num_tiles=fmt.num_tiles),
+            push_bytes, real, "edge_spmv.cu",
+            "src/repro/kernels/edge_spmv.py:64")}
+    # the library call: one CSR product over the block-diagonal matrix of
+    # every lane's edges
+    hosts = [fleet._rec(t).host for t in bucket.order]
+    block = Graph(lanes * fmt.n,
+                  np.concatenate([h.src_by_dst + i * fmt.n
+                                  for i, h in enumerate(hosts)]),
+                  np.concatenate([h.dst_by_dst + i * fmt.n
+                                  for i, h in enumerate(hosts)]))
+    csr = push_csr(block, s.dtype)
+    x = s_pre[:, 0, :fmt.n].reshape(-1, 1).contiguous()
+    lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, x), 200)
+    rows, times = [], {}
+    for name, (lane_fn, single_fn, plain_fn, nbytes, flops, src,
+               replaces) in cases.items():
+        ms, dev_ms = both_ms(lane_fn, 200)
+        one_ms, one_dev_ms = both_ms(single_fn, 50)
+        plain_ms = time_ms(plain_fn, 20)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+        times[name] = dict(events=ms, device=dev_ms, single_events=one_ms,
+                           single_device=one_dev_ms, bound=bound,
+                           plain=plain_ms, library=lib_ms,
+                           library_device=lib_dev_ms)
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
+            launches=report["launches"]["fleet"][name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound,
+            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / F32_FLOP_PER_S else "operations"),
+            library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms))
+        say(f"{name} (fleet {spec}, {lanes} facebook lanes, tile "
+            f"{fmt.tile}, f32): {ms:.4f} ms/launch by CUDA events "
+            f"({dev_ms:.4f} ms of device time); {lanes} single-lane launches "
+            f"{one_ms:.4f} ms ({one_dev_ms:.4f} ms of device time); "
+            f"{rows[-1]['launches']} launches on the fleet path; bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {real} real "
+            f"slots of {fmt.src_idx.numel()}); plain {plain_ms:.4f} ms; "
+            f"torch.sparse.mm over the block-diagonal CSR of all lanes "
+            f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms of device time)")
+    report["fleet_lane_ms"] = times
+    del csr, x, args
+    return rows
+
+
 def profile_run(tag, fn, kernel=None) -> tuple[float | None, float | None]:
     """One call of ``fn`` under ``torch.profiler``: device time by kernel.
     Returns the device's busy share of the call's wall time and the share
@@ -1531,7 +2098,10 @@ def summary(report: dict) -> str:
     the fixed minibatch, seg_mm
     launches a step, slots per real edge, the median step split, the f32
     step's error against f64, the step's ms and busy share and seg_mm's ms
-    (events and device) at d = 602 and 128 and device ms by tile."""
+    (events and device) at d = 602 and 128 and device ms by tile; for the
+    fleet its lanes' counts, the largest rel L1 of a lane's ψ from the solo
+    cuda engine's, each bucket's cold solve (steps, ms, busy share) and the
+    lane-batched kernels' times at the facebook bucket."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -1567,7 +2137,15 @@ def summary(report: dict) -> str:
                 "busy": g(report["gnn_busy"]),
                 **{key: {k: g(v) for k, v in report[key].items()}
                    for key in ("seg_mm_ms", "seg_mm_device_ms",
-                               "seg_mm_device_ms_by_tile")}}})
+                               "seg_mm_device_ms_by_tile")}},
+        "fleet": {"iters": [i for i, _ in report["fixed_points"]
+                            [len(FIXED_POINT_ITERS):]],
+                  "max_rel_solo": g(max(report["fleet_rel_solo"])),
+                  "resolve": {k: {kk: (g(vv) if isinstance(vv, float)
+                                       else vv) for kk, vv in v.items()}
+                              for k, v in report["fleet_resolve"].items()},
+                  "lane_ms": {k: {kk: g(vv) for kk, vv in v.items()}
+                              for k, v in report["fleet_lane_ms"].items()}}})
 
 
 def main() -> int:
@@ -1577,17 +2155,22 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_step_call
-    from repro_torch.kernels.edge_spmv import edge_spmv_call
-    from repro_torch.kernels.power_step import power_step_call
+    from repro_torch.kernels.edge_spmv import (edge_spmv_call,
+                                               edge_spmv_lanes_call)
+    from repro_torch.kernels.power_step import (power_step_call,
+                                                power_step_lanes_call)
     from repro_torch.kernels.seg_mm import seg_mm_call
     # float32 products and convolutions in full float32 on the card (the
     # references the checks compare with are float32 or float64)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     report: dict = {}
     counters = {"power_step": power_step_call, "bsr_spmv": bsr_spmv_call,
                 "bsr_step": bsr_step_call, "edge_spmv": edge_spmv_call,
-                "seg_mm": seg_mm_call}
+                "seg_mm": seg_mm_call,
+                "power_step_lanes": power_step_lanes_call,
+                "edge_spmv_lanes": edge_spmv_lanes_call}
     # each main path and the kernels it must launch; the microbench path
     # times every candidate's bare push (edge_spmv, bsr_spmv on the
     # clustered graph) and then solves with the step of each plan it picks
@@ -1602,7 +2185,8 @@ def main() -> int:
              ("auto_microbench", lambda r: phase_auto(r, True),
               lambda r: ("edge_spmv", "bsr_spmv") + picked(r)),
              ("accelerate", phase_accelerate, ("power_step",)),
-             ("gnn_train", phase_gnn_train, ("seg_mm",))]
+             ("gnn_train", phase_gnn_train, ("seg_mm",)),
+             ("fleet", phase_fleet, ("power_step_lanes", "edge_spmv_lanes"))]
     try:
         phase_device(report)
         phase_kernels(report)
@@ -1618,12 +2202,14 @@ def main() -> int:
                 check(got[k] > 0, f"kernel {k} never launched on the main "
                       f"path {path}")
         iters = [i for i, _ in report["fixed_points"]]
-        check(iters == FIXED_POINT_ITERS, f"fixed-point iterations {iters} "
-              f"!= {FIXED_POINT_ITERS}")
+        check(iters == FIXED_POINT_ITERS + FLEET_ITERS, f"fixed-point "
+              f"iterations {iters} != {FIXED_POINT_ITERS + FLEET_ITERS}")
         rows = phase_times(report)
     except SmokeFailure as exc:
         print(f"[smoke] FAIL: {exc}", file=sys.stderr)
         return 1
+    say(f"run took {time.perf_counter() - t_start:.1f} s (kernel build "
+        f"included)")
     say(f"summary: {summary(report)}")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

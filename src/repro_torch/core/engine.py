@@ -57,7 +57,7 @@ from ..device import numpy_dtype, resolve_device
 from ..graphs.structure import Graph
 from ..kernels.formats import build_bsr, build_edge_tiles
 from ..kernels.ops import (DeviceBsr, DeviceEdgeTiles, _i32, bsr_step,
-                           power_step)
+                           power_step, power_step_lanes)
 from ..obs import calibrate as obs_calibrate
 from .activity import Activity
 from .operators import HostOperators, PsiOperators
@@ -66,7 +66,9 @@ from .power_psi import _NORMS, PsiResult
 __all__ = ["ConvergenceCriterion", "EngineState", "PsiEngine",
            "ReferenceEngine", "AcceleratedEngine", "CudaEngine", "AutoEngine",
            "make_engine", "register_backend", "available_backends",
-           "make_reference_step"]
+           "make_reference_step", "make_batched_loop",
+           "make_lane_reference_step", "make_dense_step",
+           "make_edge_tile_step"]
 
 
 # --------------------------------------------------------------------- #
@@ -313,6 +315,136 @@ def make_reference_step(norm: str = "l1"):
     def one_step(ops, s):
         s_new = ops.mu * ops.push(s) + ops.c
         return s_new, nrm(s_new - s)
+
+    return one_step
+
+
+# --------------------------------------------------------------------- #
+# Lane-batched steps and the fleet's masked loop. PyTorch has no vmap over
+# a kernel launch, so each step below takes every lane at once: ``s`` and
+# every tensor of ``args`` carry a leading lane axis, and ``raw_gap`` is
+# one norm a lane.
+# --------------------------------------------------------------------- #
+_LANE_NORMS = {
+    "l1": lambda x: torch.sum(torch.abs(x), dim=-1),
+    "l2": lambda x: torch.sqrt(torch.sum(x * x, dim=-1)),
+    "linf": lambda x: torch.amax(torch.abs(x), dim=-1),
+}
+
+
+def make_batched_loop(step_with_gap, *, check_every: int = 1):
+    """The convergence-masked fleet loop over independent lanes.
+
+    ``step_with_gap(args, s) -> (s_new, raw_gap)`` is a lane-batched step
+    (:func:`make_lane_reference_step`, :func:`make_dense_step`,
+    :func:`make_edge_tile_step`): ``s`` is ``[L, ...]`` and ``raw_gap``
+    ``[L]``. Returns
+
+        loop(args, s0, scale, tol, max_iter, active0) -> (s, gap, t)
+
+    with per-lane ``scale`` / ``gap`` / ``t`` (``tol`` in the working
+    dtype, ``active0`` a bool ``[L]``). Each lane runs the solo termination
+    rule on its own: a lane whose gap reaches ``tol`` (or whose ``t``
+    reaches ``max_iter``) *freezes* — ``torch.where`` keeps its series
+    vector bitwise while the other lanes keep stepping (a frozen lane is
+    still computed and its result dropped, as under ``jax.vmap``) — and the
+    loop ends when no lane is active, which the host reads once a body.
+    ``active0`` masks lanes out from the start, so a clean tenant sharing a
+    bucket with a dirty one never moves. ``t`` advances by
+    ``check_every = k`` a body for every active lane, as in the solo loop.
+    The JAX package's ``make_batched_loop`` semantics, body for body.
+    """
+    k = max(1, int(check_every))
+
+    def loop(args, s0, scale, tol, max_iter, active0):
+        lane_shape = (s0.shape[0],) + (1,) * (s0.dim() - 1)
+        dev = s0.device
+        s = s0
+        gap = torch.full((s0.shape[0],), float("inf"), dtype=s0.dtype,
+                         device=dev)
+        t = torch.zeros(s0.shape[0], dtype=torch.int32, device=dev)
+        active = torch.as_tensor(active0, dtype=torch.bool, device=dev)
+        tol = torch.as_tensor(tol, dtype=s0.dtype, device=dev)
+        while bool(active.any()):
+            s_k = s
+            for _ in range(k - 1):
+                s_k, _ = step_with_gap(args, s_k)
+            s_new, raw = step_with_gap(args, s_k)
+            gap_new = scale * raw
+            s = torch.where(active.reshape(lane_shape), s_new, s)
+            gap = torch.where(active, gap_new, gap)
+            t = torch.where(active, t + k, t)
+            active = active & (gap_new > tol) & (t < max_iter)
+        return s, gap, t
+
+    return loop
+
+
+def make_lane_reference_step(norm: str = "l1"):
+    """The fleet's ``reference`` step over a
+    :class:`~repro_torch.core.operators.LaneOperators`: every lane's
+    ``s_new = μ ⊙ push(s) + c`` through one fixed-order segment sum, and
+    each lane's gap norm. Pad lanes and pad nodes (zero rates) stay at 0;
+    sentinel slots fall into each lane's dropped segment."""
+    nrm = _LANE_NORMS[norm]
+
+    def one_step(ops, s):
+        s_new = ops.mu * ops.push(s) + ops.c
+        return s_new, nrm(s_new - s)
+
+    return one_step
+
+
+class _NoTF32:
+    """Float32 products in full float32 on the card for the duration (the
+    dense regime's product is a reference-grade mat-vec, not a TF32 one)."""
+
+    def __enter__(self):
+        self.prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.prev
+        return False
+
+
+def dense_push(x: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
+    """``x[L, n] @ E[L, n, n]`` per lane, one batched product (TF32 off)."""
+    with _NoTF32():
+        return torch.bmm(x.unsqueeze(1), E).squeeze(1)
+
+
+def make_dense_step(norm: str = "l1"):
+    """The fleet's dense step over ``(E, 1/w, μ, c)`` args, each ``[L, ...]``.
+
+    ``E`` is each lane's {0,1} follower→leader adjacency (``E[ℓ, j, i] = 1``
+    iff j follows i), so one batched product ``[L, 1, n] @ [L, n, n]``
+    computes every lane's push ``t = (s ⊙ 1/w) E`` and the step is
+    ``μ ⊙ t + c``: the edge form's arithmetic as one matrix product
+    (``torch.bmm``, as the JAX package leaves it to XLA), the fleet's regime
+    for buckets of *small* tenants. O(n²) memory a lane.
+    """
+    nrm = _LANE_NORMS[norm]
+
+    def one_step(args, s):
+        E, inv_w, mu, c = args
+        s_new = mu * dense_push(s * inv_w, E) + c
+        return s_new, nrm(s_new - s)
+
+    return one_step
+
+
+def make_edge_tile_step():
+    """The fleet's kernel step over ``(fmt, 1/w, μ, c)`` args: a
+    lane-stacked :class:`~repro_torch.kernels.ops.DeviceEdgeTiles` and
+    ``[L, 1, n_gather]`` / ``[L, 1, n_pad]`` vectors. One
+    ``power_step_lanes`` launch steps every lane (the JAX package's pallas
+    call under ``jax.vmap``, whose batch axis becomes a grid dimension) and
+    returns each lane's gap."""
+
+    def one_step(args, s):
+        fmt, inv_w_g, mu_pad, c_pad = args
+        return power_step_lanes(s, inv_w_g, mu_pad, c_pad, fmt)
 
     return one_step
 

@@ -134,6 +134,14 @@ class PsiService(RankedQueries):
         self._pending = False            # deferred patches awaiting resolve
         self._dirty = 0                  # patched rows/edges since last solve
 
+    @classmethod
+    def from_fleet(cls, fleet, tenant_id: str):
+        """A single-tenant serving view over a fleet lane: a
+        :class:`~repro_torch.serving.fleet.TenantView`, the same query and
+        mutation surface as a ``PsiService`` but solved inside the fleet's
+        lane-batched loop (so one device amortizes across tenants)."""
+        return fleet.view(tenant_id)
+
     # -- queries -------------------------------------------------------- #
     @property
     def backend(self) -> str:

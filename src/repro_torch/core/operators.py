@@ -32,8 +32,8 @@ from ..device import numpy_dtype, resolve_device
 from ..graphs.structure import Graph
 from .activity import Activity
 
-__all__ = ["PsiOperators", "build_operators", "HostOperators",
-           "dense_operators"]
+__all__ = ["PsiOperators", "LaneOperators", "build_operators",
+           "HostOperators", "dense_operators"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +76,45 @@ class PsiOperators:
     def psi_epilogue(self, s: torch.Tensor) -> torch.Tensor:
         """ψᵀ = (sᵀB + dᵀ)/N  (Eq. 12 epilogue)."""
         return (self.lam * self.push(s) + self.d) / self.n
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneOperators:
+    """The edge-form operators of ``L`` same-shape lanes (the fleet's
+    ``reference`` regime), stacked along a leading lane axis.
+
+    Every lane holds ``n`` nodes (its real ones, then zero-rate pad nodes)
+    and ``e`` edge slots, dst-sorted, whose unused tail points at the
+    sentinel ``dst == n`` (source 0). The push flattens the lanes into one
+    fixed-order segment sum: lane ℓ's node i is segment ℓ·(n+1) + i, and
+    segment ℓ·(n+1) + n collects the lane's sentinel slots and is dropped.
+    It holds what the step reads (1/w, μ, c); the ψ epilogue's λ and d
+    stay with the caller.
+    """
+
+    n: int
+    src: torch.Tensor         # i64[L, e] follower endpoint, dst-sorted
+    lengths: torch.Tensor     # i64[L·(n+1)] segment lengths (sentinel last)
+    inv_w: torch.Tensor       # f[L, n]
+    mu: torch.Tensor          # f[L, n]
+    c: torch.Tensor           # f[L, n]
+
+    @staticmethod
+    def segment_lengths(dst: np.ndarray, n: int) -> np.ndarray:
+        """i64[L·(n+1)]: the counts of each lane's dst ids 0..n (n is the
+        sentinel) from the stacked i32[L, e] dst-sorted dst view."""
+        dst = np.asarray(dst, np.int64)
+        lane = np.arange(dst.shape[0])[:, None] * (n + 1)
+        return np.bincount((dst + lane).reshape(-1),
+                           minlength=dst.shape[0] * (n + 1))
+
+    def push(self, s: torch.Tensor) -> torch.Tensor:
+        """t[ℓ, i] = Σ_{(j→i) in lane ℓ} s[ℓ, j] / w[ℓ, j], f[L, n]."""
+        lanes = s.shape[0]
+        contrib = torch.gather(s * self.inv_w, 1, self.src)
+        t = torch.segment_reduce(contrib.reshape(-1), "sum",
+                                 lengths=self.lengths, unsafe=True)
+        return t.reshape(lanes, self.n + 1)[:, :self.n]
 
 
 def _induced_l1T_norm(n, src, dst, lam, inv_w) -> np.ndarray:

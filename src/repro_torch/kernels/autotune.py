@@ -41,6 +41,12 @@ fingerprint of the graph (node/edge counts plus a strided edge sample), the
 candidate space and, when a device is involved (microbench or calibration),
 the device and dtype — activity patches never touch the key, so
 ``patch_activity`` / warm re-``prepare`` cycles never re-plan.
+
+:func:`plan_for_bucket` plans one *fleet bucket*: the edge-tile candidates
+only (the fleet stacks edge-tile formats along a lane axis), scored on the
+triggering member re-padded to the bucket's node capacity and memoized
+under the bucket's shape (:func:`bucket_fingerprint`), so every same-bucket
+tenant shares one plan.
 """
 from __future__ import annotations
 
@@ -59,8 +65,9 @@ from ..obs import metrics as obs_metrics
 from .formats import build_bsr, build_edge_tiles
 
 __all__ = ["RegimePlan", "PlanCache", "PLAN_CACHE", "graph_fingerprint",
-           "estimate_edge_tile_cost", "estimate_bsr_cost", "bsr_occupancy",
-           "plan_regime", "SolverChoice", "choose_solver"]
+           "bucket_fingerprint", "estimate_edge_tile_cost",
+           "estimate_bsr_cost", "bsr_occupancy", "plan_regime",
+           "plan_for_bucket", "SolverChoice", "choose_solver"]
 
 
 # Default candidate spaces (the JAX package's). Lane dims stay multiples of
@@ -176,6 +183,16 @@ def graph_fingerprint(graph: Graph, *, sample: int = 64) -> tuple:
     stride = max(1, graph.m // sample)
     return (graph.n, graph.m, tuple(np.asarray(src[::stride]).tolist()),
             tuple(np.asarray(dst[::stride]).tolist()))
+
+
+def bucket_fingerprint(n_pad: int, e_pad: int, *, extra: tuple = ()) -> tuple:
+    """Cache key for a fleet *bucket*: the padded shape, not any one graph.
+
+    Every tenant admitted into the same ``(n_pad, e_pad)`` bucket shares
+    one batched solver, so they share one plan too — the key deliberately
+    ignores which member graph happened to trigger planning.
+    """
+    return ("bucket", int(n_pad), int(e_pad)) + extra
 
 
 class PlanCache:
@@ -365,7 +382,8 @@ def plan_regime(graph: Graph, *, microbench: bool = False,
                 bsr_candidates=BSR_CANDIDATES,
                 cache: PlanCache | None = PLAN_CACHE,
                 calibration=_USE_GLOBAL,
-                slot_bytes: tuple | None = None) -> RegimePlan:
+                slot_bytes: tuple | None = None,
+                _ctx: dict | None = None) -> RegimePlan:
     """Choose edge-tile vs BSR (and their parameters) for ``graph``.
 
     The model pass scores every candidate of both regimes; with
@@ -386,10 +404,14 @@ def plan_regime(graph: Graph, *, microbench: bool = False,
 
     Every call records a :class:`repro_torch.obs.explain.DecisionRecord`
     with the full candidate table, the density-gate prunes and the cache
-    state.
+    state (``_ctx`` lets :func:`plan_for_bucket` record its own kind, site,
+    inputs and cache state).
     """
-    kind, site = "regime_plan", "plan_regime"
+    ctx = _ctx or {}
+    kind = ctx.get("kind", "regime_plan")
+    site = ctx.get("site", "plan_regime")
     inputs = dict(n=graph.n, m=graph.m, microbench=bool(microbench))
+    inputs.update(ctx.get("inputs", ()))
     cal = obs_calibrate.get_store() if calibration is _USE_GLOBAL \
         else calibration
     eb, bb, nb = slot_bytes or (_EDGE_SLOT_BYTES, _BSR_SLOT_BYTES,
@@ -490,7 +512,7 @@ def plan_regime(graph: Graph, *, microbench: bool = False,
 
     obs_explain.record_decision(
         kind, site, inputs=inputs,
-        cache="miss" if cache is not None else "bypass",
+        cache="miss" if cache is not None else ctx.get("cache", "bypass"),
         chosen=plan.label(), source=plan.source, calibration=cal_info,
         candidates=[obs_explain.Candidate(
             p.label(), est=p.est_bytes, measured_us=p.measured_us,
@@ -500,6 +522,60 @@ def plan_regime(graph: Graph, *, microbench: bool = False,
             for i, p in enumerate(candidates)],
         pruned=pruned)
 
+    if cache is not None:
+        cache.store(key, plan)
+    return plan
+
+
+def plan_for_bucket(graph: Graph, *, n_pad: int, e_pad: int,
+                    microbench: bool = False,
+                    dtype: torch.dtype = torch.float32,
+                    device: str | torch.device = "cuda",
+                    edge_tile_candidates=EDGE_TILE_CANDIDATES,
+                    cache: PlanCache | None = PLAN_CACHE,
+                    calibration=_USE_GLOBAL) -> RegimePlan:
+    """Plan the edge-tile parameters for one fleet bucket shape.
+
+    ``graph`` is the member that triggered planning; it is re-padded to the
+    bucket's node capacity so the plan reflects the shapes the batched
+    solver runs. The result is memoized under :func:`bucket_fingerprint`
+    (with the device and dtype when the microbench times it) — every
+    same-bucket tenant, current and future, reuses this one plan. Only
+    edge-tile candidates are scored: the fleet stacks edge-tile formats
+    along a lane axis, and BSR's per-graph block table does not stack. A
+    model-only plan is the JAX package's, bit for bit; ``microbench=True``
+    times each candidate's bare ``edge_spmv`` launch on ``device`` (one
+    lane), as :func:`plan_regime` does.
+    """
+    key = None
+    if cache is not None:
+        extra = (bool(microbench), tuple(edge_tile_candidates))
+        if microbench:
+            extra += (obs_calibrate.env_key(resolve_device(device), dtype),)
+        key = bucket_fingerprint(n_pad, e_pad, extra=extra)
+        hit = cache.lookup(key)
+        if hit is not None:
+            obs_explain.record_decision(
+                "bucket_plan", "plan_for_bucket",
+                inputs=dict(n=graph.n, m=graph.m, n_pad=int(n_pad),
+                            e_pad=int(e_pad)),
+                cache="hit", chosen=hit.label(), source=hit.source,
+                candidates=[obs_explain.Candidate(
+                    hit.label(), est=hit.est_bytes,
+                    measured_us=hit.measured_us, chosen=True)])
+            return hit
+    padded = Graph(int(n_pad), graph.src, graph.dst,
+                   name=f"{graph.name}@bucket{n_pad}")
+    plan = plan_regime(padded, microbench=microbench, dtype=dtype,
+                       device=device,
+                       edge_tile_candidates=edge_tile_candidates,
+                       bsr_candidates=(), cache=None,
+                       calibration=calibration,
+                       _ctx=dict(kind="bucket_plan", site="plan_for_bucket",
+                                 cache="miss" if cache is not None
+                                 else "bypass",
+                                 inputs=dict(n_pad=int(n_pad),
+                                             e_pad=int(e_pad))))
     if cache is not None:
         cache.store(key, plan)
     return plan

@@ -6,7 +6,10 @@ scatter of ``power_step`` without its μ/c epilogue and gap.
 :func:`edge_spmv_call` launches ``csrc/edge_spmv.cu`` on a CUDA tensor (and
 counts the launch in ``edge_spmv_call.launches``) and runs
 :func:`edge_spmv_plain`, the same function in plain PyTorch, on a CPU
-tensor.
+tensor. :func:`edge_spmv_lanes_call` is the push of ``L`` same-shape lanes
+in one launch of the same kernel (the multi-tenant fleet's ψ epilogue), with
+its own counter ``edge_spmv_lanes_call.launches`` and, for CPU tensors,
+:func:`edge_spmv_lanes_plain`.
 """
 from __future__ import annotations
 
@@ -16,8 +19,9 @@ import torch
 
 from . import _build
 
-__all__ = ["edge_spmv_call", "edge_spmv_plain", "edge_tile_smem_bytes",
-           "stage_blocks", "check_edge_tile_smem", "heavy_first",
+__all__ = ["edge_spmv_call", "edge_spmv_plain", "edge_spmv_lanes_call",
+           "edge_spmv_lanes_plain", "edge_tile_smem_bytes", "stage_blocks",
+           "check_edge_tile_smem", "check_lanes", "heavy_first",
            "SMEM_LIMIT_BYTES", "STAGE_BYTES"]
 
 # The most dynamic shared memory a CTA may opt in to on the H100 (227 KB),
@@ -26,7 +30,7 @@ SMEM_LIMIT_BYTES = 232_448
 STAGE_BYTES = 48 * 1024
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
-    ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 
 
 def edge_spmv_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
@@ -46,6 +50,19 @@ def edge_spmv_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
                       device=s_pre.device)
     out.index_add_(0, rows.reshape(-1), vals.reshape(-1))
     return out[None, :]
+
+
+def edge_spmv_lanes_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
+                          dst_local: torch.Tensor, block_tile: torch.Tensor,
+                          weights: torch.Tensor | None = None, *, tile: int,
+                          num_tiles: int) -> torch.Tensor:
+    """The plain version of the lane-batched push: :func:`edge_spmv_plain`
+    on each lane's tensors in turn. Returns f[L, 1, num_tiles * tile]."""
+    return torch.stack([
+        edge_spmv_plain(s_pre[i], src_idx[i], dst_local[i], block_tile[i],
+                        None if weights is None else weights[i], tile=tile,
+                        num_tiles=num_tiles)
+        for i in range(s_pre.shape[0])])
 
 
 def edge_tile_smem_bytes(tile: int, eblk: int, element_size: int,
@@ -85,13 +102,32 @@ def check_edge_tile_smem(kernel: str, tile: int, eblk: int,
     return sblk
 
 
+def check_lanes(kernel: str, lanes: int, **tensors) -> None:
+    """Raise unless every tensor is contiguous with a leading ``[lanes]``
+    axis and the lanes fit the lane kernels' indices: at most 65,535 (the
+    grid's y dimension) and fewer than 2^31 tiles and blocks in all."""
+    for name, x in tensors.items():
+        if x.dim() < 2 or x.shape[0] != lanes or not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous tensor "
+                             f"with a leading [{lanes}] lane axis; got "
+                             f"{tuple(x.shape)}")
+    tiles = tensors["tile_first_block"].shape[1]
+    blocks = tensors["src_idx"].shape[1]
+    if not 1 <= lanes <= 65_535 or lanes * max(tiles, blocks) >= 2 ** 31:
+        raise ValueError(f"{kernel}: 1 to 65535 lanes of under 2^31 tiles "
+                         f"and blocks in all; got {lanes} x {tiles} tiles, "
+                         f"{blocks} blocks")
+
+
 def heavy_first(tile_num_blocks: torch.Tensor) -> torch.Tensor:
     """The edge-tile kernels' launch order: tile ids with the most blocks
     first (ties in id order), so the CTAs with the longest chains start in
     the first wave. Any order gives the same bits; this one shortens the
     tail. :class:`~repro_torch.kernels.ops.DeviceEdgeTiles` computes it once
-    as ``tile_order``; a wrapper called without one computes it here."""
-    return torch.argsort(tile_num_blocks, descending=True,
+    as ``tile_order``; a wrapper called without one computes it here. For
+    lane-stacked tables ``[L, num_tiles]`` each lane's row is ordered on
+    its own."""
+    return torch.argsort(tile_num_blocks, dim=-1, descending=True,
                          stable=True).to(torch.int32)
 
 
@@ -134,6 +170,27 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                                 s_pre.element_size())
 
 
+def _launch(s_pre, src_idx, dst_local, weights, tile_first_block,
+            tile_num_blocks, tile_order, out, *, n, tile, sblk, lanes):
+    """One launch of ``csrc/edge_spmv.cu`` over ``lanes`` lanes (the
+    tensors' leading axis when ``lanes > 1``)."""
+    symbol = ("repro_edge_spmv_f32" if s_pre.dtype == torch.float32
+              else "repro_edge_spmv_f64")
+    fn = _build.entry("edge_spmv", symbol, _ARGTYPES)
+    eblk = src_idx.shape[-1] * src_idx.shape[-2]
+    with torch.cuda.device(s_pre.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(s_pre.data_ptr(), n, src_idx.data_ptr(),
+                    dst_local.data_ptr(),
+                    None if weights is None else weights.data_ptr(),
+                    tile_first_block.data_ptr(), tile_num_blocks.data_ptr(),
+                    tile_order.data_ptr(), out.data_ptr(),
+                    tile_first_block.shape[-1], tile, eblk, sblk, lanes,
+                    s_pre.shape[-1], src_idx.shape[1] if lanes > 1 else 0,
+                    stream)
+    _build.check("edge_spmv", status)
+
+
 def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                    dst_local: torch.Tensor, block_tile: torch.Tensor,
                    tile_first_block: torch.Tensor,
@@ -169,20 +226,61 @@ def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                          tile_num_blocks, tile_order, weights, n, tile)
     out = torch.empty(1, num_tiles * tile, dtype=s_pre.dtype,
                       device=s_pre.device)
-    symbol = ("repro_edge_spmv_f32" if s_pre.dtype == torch.float32
-              else "repro_edge_spmv_f64")
-    fn = _build.entry("edge_spmv", symbol, _ARGTYPES)
-    with torch.cuda.device(s_pre.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(s_pre.data_ptr(), n, src_idx.data_ptr(),
-                    dst_local.data_ptr(),
-                    None if weights is None else weights.data_ptr(),
-                    tile_first_block.data_ptr(), tile_num_blocks.data_ptr(),
-                    tile_order.data_ptr(), out.data_ptr(),
-                    num_tiles, tile, src_idx[0].numel(), sblk, stream)
-    _build.check("edge_spmv", status)
+    _launch(s_pre, src_idx, dst_local, weights, tile_first_block,
+            tile_num_blocks, tile_order, out, n=n, tile=tile, sblk=sblk,
+            lanes=1)
     edge_spmv_call.launches += 1
     return out
 
 
 edge_spmv_call.launches = 0
+
+
+def edge_spmv_lanes_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
+                         dst_local: torch.Tensor, block_tile: torch.Tensor,
+                         tile_first_block: torch.Tensor,
+                         tile_num_blocks: torch.Tensor,
+                         weights: torch.Tensor | None = None, *, n: int,
+                         tile: int, tile_order: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """The push of ``L`` lanes in one launch: :func:`edge_spmv_call`'s
+    arguments, each with a leading ``[L]`` lane axis (``s_pre``
+    f[L, 1, n_gather], the format i32[L, num_blocks, e1, e2], ``block_tile``
+    i32[L, num_blocks], the tile tables and ``tile_order`` i32[L,
+    num_tiles], ``weights`` f[L, num_blocks, e1, e2]); every lane shares
+    ``n`` (the sentinel) and the shape.
+
+    Returns:
+      f[L, 1, num_tiles * tile], lane ℓ bitwise what :func:`edge_spmv_call`
+      returns on lane ℓ's tensors.
+    """
+    num_tiles = tile_first_block.shape[-1]
+    if s_pre.device.type == "cpu":
+        return edge_spmv_lanes_plain(s_pre, src_idx, dst_local, block_tile,
+                                     weights, tile=tile, num_tiles=num_tiles)
+    if s_pre.device.type != "cuda":
+        raise ValueError(f"edge_spmv_lanes runs on cuda or cpu; got "
+                         f"{s_pre.device}")
+    lanes = s_pre.shape[0]
+    if tile_order is None:
+        tile_order = heavy_first(tile_num_blocks)
+    named = dict(s_pre=s_pre, src_idx=src_idx, dst_local=dst_local,
+                 tile_first_block=tile_first_block,
+                 tile_num_blocks=tile_num_blocks, tile_order=tile_order)
+    if weights is not None:
+        named["weights"] = weights
+    check_lanes("edge_spmv_lanes", lanes, **named)
+    sblk = _check_inputs(s_pre[0], src_idx[0], dst_local[0],
+                         tile_first_block[0], tile_num_blocks[0],
+                         tile_order[0], None if weights is None
+                         else weights[0], n, tile)
+    out = torch.empty(lanes, 1, num_tiles * tile, dtype=s_pre.dtype,
+                      device=s_pre.device)
+    _launch(s_pre, src_idx, dst_local, weights, tile_first_block,
+            tile_num_blocks, tile_order, out, n=n, tile=tile, sblk=sblk,
+            lanes=lanes)
+    edge_spmv_lanes_call.launches += 1
+    return out
+
+
+edge_spmv_lanes_call.launches = 0

@@ -8,6 +8,12 @@ block flags stay on the host.
 keep the signatures of the JAX package's wrappers; :func:`bsr_step` is the
 BSR regime's fused step. Each launches its CUDA kernel on a CUDA tensor and
 runs the plain PyTorch version on a CPU tensor.
+
+The multi-tenant fleet stacks same-shape edge-tile formats along a leading
+lane axis (:meth:`DeviceEdgeTiles.stack`); :func:`power_step_lanes` and
+:func:`edge_spmv_lanes` step or push every lane in one launch, which is
+what the JAX package's ``power_step`` / ``edge_spmv`` compute under
+``jax.vmap``.
 """
 from __future__ import annotations
 
@@ -19,13 +25,14 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .bsr_spmv import bsr_spmv_call, bsr_step_call
-from .edge_spmv import edge_spmv_call, heavy_first
+from .edge_spmv import edge_spmv_call, edge_spmv_lanes_call, heavy_first
 from .formats import BsrFormat, EdgeTileFormat
-from .power_step import power_step_call
+from .power_step import power_step_call, power_step_lanes_call
 from .seg_mm import SegMM
 
 __all__ = ["DeviceEdgeTiles", "DeviceBsr", "power_step", "edge_spmv",
-           "bsr_spmv", "bsr_step", "seg_mm"]
+           "power_step_lanes", "edge_spmv_lanes", "bsr_spmv", "bsr_step",
+           "seg_mm"]
 
 
 def _i32(x, device) -> torch.Tensor:
@@ -41,6 +48,11 @@ class DeviceEdgeTiles:
     sentinel source id ``n`` is a valid gather index even when
     ``n == n_pad`` (the plain version reads it; the kernel skips sentinel
     slots). Edge patches write into ``src_idx`` / ``dst_local`` in place.
+
+    Lane-stacked (:meth:`stack`): every tensor gains a leading ``[L]`` —
+    ``src_idx`` / ``dst_local`` i32[L, num_blocks, e1, e2], ``block_tile``
+    i32[L, num_blocks], the tile tables and ``tile_order`` i32[L,
+    num_tiles], each lane's own — and the sizes are shared by every lane.
     """
 
     n: int
@@ -71,16 +83,55 @@ class DeviceEdgeTiles:
             tile_first_block=_i32(fmt.tile_first_block, dev),
             tile_num_blocks=num_blocks, tile_order=heavy_first(num_blocks))
 
+    @classmethod
+    def stack(cls, fmts: list[EdgeTileFormat],
+              device: str | torch.device = "cuda") -> "DeviceEdgeTiles":
+        """Lane ℓ holds ``fmts[ℓ]``; every format must share ``n``, the
+        tile shape and the block count (``pad_edge_tile_blocks``)."""
+        dev = resolve_device(device)
+        ref = fmts[0]
+        shape = (ref.n, ref.tile, ref.e1, ref.e2, ref.num_tiles,
+                 ref.num_blocks)
+        for f in fmts:
+            if (f.n, f.tile, f.e1, f.e2, f.num_tiles, f.num_blocks) != shape:
+                raise ValueError("stacked edge-tile formats must share n, "
+                                 "tile, e1, e2, num_tiles and num_blocks")
+        n_pad = ref.num_tiles * ref.tile
+        num_blocks = _i32(np.stack([f.tile_num_blocks for f in fmts]), dev)
+        return cls(
+            n=ref.n, n_pad=n_pad, n_gather=n_pad + 1, tile=ref.tile,
+            e1=ref.e1, e2=ref.e2, num_tiles=ref.num_tiles,
+            src_idx=_i32(np.stack([f.src_idx for f in fmts]), dev),
+            dst_local=_i32(np.stack([f.dst_local for f in fmts]), dev),
+            block_tile=_i32(np.stack([f.block_tile for f in fmts]), dev),
+            tile_first_block=_i32(
+                np.stack([f.tile_first_block for f in fmts]), dev),
+            tile_num_blocks=num_blocks, tile_order=heavy_first(num_blocks))
+
+    def write_lane(self, lane: int, fmt: EdgeTileFormat) -> None:
+        """Overwrite lane ``lane`` of a stacked format in place with
+        ``fmt`` (same shape); the other lanes are not touched."""
+        one = DeviceEdgeTiles.stack([fmt], self.device)
+        if one.src_idx.shape[1:] != self.src_idx.shape[1:] \
+                or one.n != self.n:
+            raise ValueError("write_lane: the format's shape differs from "
+                             "the stack's")
+        for name in ("src_idx", "dst_local", "block_tile", "tile_first_block",
+                     "tile_num_blocks", "tile_order"):
+            getattr(self, name)[lane] = getattr(one, name)[0]
+
     @property
     def device(self) -> torch.device:
         return self.src_idx.device
 
     def pad_gather_source(self, v: torch.Tensor) -> torch.Tensor:
-        """f[n] → f[1, n_gather] with zeros beyond n (sentinel = n)."""
-        return F.pad(v, (0, self.n_gather - v.shape[0]))[None, :]
+        """f[n] → f[1, n_gather] with zeros beyond n (sentinel = n); a
+        stacked f[L, n] → f[L, 1, n_gather]."""
+        return F.pad(v, (0, self.n_gather - v.shape[-1])).unsqueeze(-2)
 
     def pad_node_vector(self, v: torch.Tensor) -> torch.Tensor:
-        return F.pad(v, (0, self.n_pad - v.shape[0]))[None, :]
+        """f[n] → f[1, n_pad]; a stacked f[L, n] → f[L, 1, n_pad]."""
+        return F.pad(v, (0, self.n_pad - v.shape[-1])).unsqueeze(-2)
 
 
 def narrow_tiles(tiles: np.ndarray) -> np.ndarray:
@@ -158,6 +209,36 @@ def edge_spmv(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,
                          fmt.tile_num_blocks, weights, n=fmt.n, tile=fmt.tile,
                          tile_order=fmt.tile_order)
     return out[0, :fmt.n]
+
+
+def power_step_lanes(s: torch.Tensor, inv_w_gather: torch.Tensor,
+                     mu_pad: torch.Tensor, c_pad: torch.Tensor,
+                     fmt: DeviceEdgeTiles
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`power_step` for every lane of a stacked format in one launch.
+
+    Args:
+      s: f[L, 1, n_pad]; inv_w_gather: f[L, 1, n_gather];
+      mu_pad / c_pad: f[L, 1, n_pad].
+    Returns:
+      (s_new f[L, 1, n_pad], gap f[L]).
+    """
+    s_pre = F.pad(s, (0, fmt.n_gather - fmt.n_pad)) * inv_w_gather
+    return power_step_lanes_call(
+        s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+        fmt.tile_first_block, fmt.tile_num_blocks, mu_pad, c_pad, s,
+        n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+
+
+def edge_spmv_lanes(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,
+                    weights: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`edge_spmv` for every lane of a stacked format in one launch:
+    ``s_pre`` f[L, n] → f[L, n]."""
+    out = edge_spmv_lanes_call(
+        fmt.pad_gather_source(s_pre), fmt.src_idx, fmt.dst_local,
+        fmt.block_tile, fmt.tile_first_block, fmt.tile_num_blocks, weights,
+        n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+    return out[:, 0, :fmt.n]
 
 
 def bsr_spmv(s_pre: torch.Tensor, fmt: DeviceBsr) -> torch.Tensor:

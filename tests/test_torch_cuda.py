@@ -15,12 +15,18 @@ import repro_torch.graphs as tg
 from repro_torch.kernels import autotune
 from repro_torch.kernels.bsr_spmv import (bsr_spmv_call, bsr_spmv_plain,
                                           bsr_step_call)
-from repro_torch.kernels.edge_spmv import edge_spmv_call, edge_spmv_plain
+from repro_torch.kernels.edge_spmv import (edge_spmv_call,
+                                           edge_spmv_lanes_call,
+                                           edge_spmv_lanes_plain,
+                                           edge_spmv_plain)
 from repro_torch.kernels.formats import (build_bsr, build_edge_tiles,
                                          pad_edge_tile_blocks, tile_spans)
 from repro_torch.kernels.ops import (DeviceBsr, DeviceEdgeTiles, bsr_spmv,
                                      bsr_step, edge_spmv)
-from repro_torch.kernels.power_step import power_step_call, power_step_plain
+from repro_torch.kernels.power_step import (power_step_call,
+                                            power_step_lanes_call,
+                                            power_step_lanes_plain,
+                                            power_step_plain)
 from test_torch_edge_layouts import KINDS, edge_tile_layout, slot_weights
 
 pytestmark = pytest.mark.cuda
@@ -360,6 +366,148 @@ def test_accelerated_cuda_backend_on_card(card):
     acc = tc.make_engine("cuda", accelerate=True, **kw).run(tol=1e-9)
     assert acc.converged and acc.matvecs < plain.matvecs
     assert float((acc.psi - plain.psi).abs().max()) <= 1e-9
+
+
+# --------------------------------------------------------------------- #
+# Lane-batched power_step / edge_spmv (the fleet's kernel regime)
+# --------------------------------------------------------------------- #
+LANE_N_PAD = 4096
+
+
+def _lane_formats(tile):
+    """Host formats of one bucket (n_pad 4096, (tile, 8, 128)), built as
+    the fleet builds them (on ``Graph(n_pad, ...)``, so the sentinel is
+    n_pad) and padded to one block count: three graphs of different block
+    counts and an all-padding lane (no edges, one block a tile)."""
+    graphs = [tg.powerlaw_configuration(3000, 30000, seed=31),
+              tg.erdos_renyi(4096, 40000, seed=32),
+              tg.powerlaw_configuration(1500, 4000, seed=33)]
+    empty = np.empty(0, np.int32)
+    fmts = [build_edge_tiles(tg.Graph(LANE_N_PAD, *g.edges_by_dst),
+                             tile=tile) for g in graphs]
+    fmts.append(build_edge_tiles(tg.Graph(LANE_N_PAD, empty, empty),
+                                 tile=tile))
+    counts = [f.num_blocks for f in fmts]
+    assert len(set(counts)) >= 3                  # lanes pad by unlike counts
+    nb = -(-max(counts) // 4) * 4
+    return [pad_edge_tile_blocks(f, nb) for f in fmts]
+
+
+def _lane_vectors(fmt, dtype, seed):
+    """s_pre [L, 1, n_gather] (zero from n_pad on), mu, c, s_old [L, 1,
+    n_pad]; the last lane (all padding) all zero."""
+    rng = np.random.default_rng(seed)
+    lanes = fmt.src_idx.shape[0]
+
+    def vec(width):
+        v = rng.uniform(size=(lanes, 1, width))
+        v[-1] = 0.0
+        v[:, :, LANE_N_PAD:] = 0.0
+        return torch.as_tensor(v, dtype=dtype, device=fmt.device)
+    return vec(fmt.n_gather), vec(fmt.n_pad), vec(fmt.n_pad), vec(fmt.n_pad)
+
+
+# Each lane of one lane-batched launch equals a single-lane launch on that
+# lane's own tensors to the last bit (s_new, gap; t), the all-padding lane
+# gives zeros and gap 0, two launches agree bitwise, and the lanes agree with
+# the plain version lane by lane (power_step at the tolerances above,
+# edge_spmv bitwise).
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-6, 1e-7),
+                                             (torch.float64, 1e-14, 1e-16)])
+def test_power_step_lanes_kernel_on_card(card, tile, dtype, rtol, atol):
+    fmt = DeviceEdgeTiles.stack(_lane_formats(tile), card)
+    s_pre, mu, c, s_old = _lane_vectors(fmt, dtype, tile)
+    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+            fmt.tile_first_block, fmt.tile_num_blocks, mu, c, s_old)
+    kw = dict(n=fmt.n, tile=tile, tile_order=fmt.tile_order)
+    before = (power_step_lanes_call.launches, power_step_call.launches)
+    s1, gap1 = power_step_lanes_call(*args, **kw)
+    s2, gap2 = power_step_lanes_call(*args, **kw)
+    assert (power_step_lanes_call.launches, power_step_call.launches) == (
+        before[0] + 2, before[1])
+    assert s1.shape == mu.shape and gap1.shape == (mu.shape[0],)
+    assert torch.equal(s1, s2) and torch.equal(gap1, gap2)
+    for lane in range(mu.shape[0]):
+        one = power_step_call(*(a[lane] for a in args), n=fmt.n, tile=tile,
+                              tile_order=fmt.tile_order[lane])
+        assert torch.equal(s1[lane], one[0]) and torch.equal(gap1[lane],
+                                                             one[1])
+    assert not s1[-1].any() and float(gap1[-1]) == 0.0
+    sp, gapp = power_step_lanes_plain(*(a.cpu() for a in args[:4]),
+                                      *(a.cpu() for a in args[6:]),
+                                      tile=tile)
+    torch.testing.assert_close(s1.cpu(), sp, rtol=rtol, atol=atol)
+    assert torch.all((gap1.cpu() - gapp).abs() <= 1e-3 * gapp)
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_spmv_lanes_kernel_on_card(card, tile, weighted, dtype):
+    fmts = _lane_formats(tile)
+    fmt = DeviceEdgeTiles.stack(fmts, card)
+    s_pre = _lane_vectors(fmt, dtype, tile + 1)[0]
+    w = (torch.stack([_slot_weights(f, dtype, 9 + i)
+                      for i, f in enumerate(fmts)]).to(card)
+         if weighted else None)
+    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+            fmt.tile_first_block, fmt.tile_num_blocks, w)
+    kw = dict(n=fmt.n, tile=tile, tile_order=fmt.tile_order)
+    before = (edge_spmv_lanes_call.launches, edge_spmv_call.launches)
+    o1 = edge_spmv_lanes_call(*args, **kw)
+    o2 = edge_spmv_lanes_call(*args, **kw)
+    assert (edge_spmv_lanes_call.launches, edge_spmv_call.launches) == (
+        before[0] + 2, before[1])
+    assert torch.equal(o1, o2)
+    for lane in range(s_pre.shape[0]):
+        one = edge_spmv_call(*(None if a is None else a[lane] for a in args),
+                             n=fmt.n, tile=tile,
+                             tile_order=fmt.tile_order[lane])
+        assert torch.equal(o1[lane], one)
+    assert not o1[-1].any()
+    op = edge_spmv_lanes_plain(*(a.cpu() for a in args[:4]),
+                               None if w is None else w.cpu(), tile=tile,
+                               num_tiles=fmt.num_tiles)
+    assert torch.equal(o1.cpu(), op)
+
+
+# The fleet's cuda regime on the card: each lane's iterations, gap and s
+# equal the solo cuda engine's at the bucket's tile (bitwise: the same
+# kernel, the same slot order, the same inputs), one power_step_lanes launch
+# a step. The engine's ψ epilogue pushes with torch.segment_reduce, whose
+# sum on the card is not a slot-order fold, so the lane's ψ is held bitwise
+# against the fleet's epilogue (the edge_spmv kernel, then · 1/n) on the
+# engine's s, and within relative L1 1e-6 of the engine's own ψ.
+def test_fleet_cuda_regime_matches_solo_engine_on_card(card):
+    from repro_torch.serving import BucketPolicy, TenantFleet
+    graphs = [tg.powerlaw_configuration(3000, 30000, seed=41),
+              tg.erdos_renyi(2500, 15000, seed=42),
+              tg.powerlaw_configuration(3500, 20000, seed=43)]
+    acts = [tc.heterogeneous(g.n, seed=50 + i) for i, g in enumerate(graphs)]
+    fleet = TenantFleet(backend="cuda", tol=1e-8, device=card,
+                        policy=BucketPolicy((4096,), edge_quantum=32768),
+                        tile=256, e1=8, e2=128)
+    for i, (g, a) in enumerate(zip(graphs, acts)):
+        fleet.admit(f"t{i}", g, a)
+    before = power_step_lanes_call.launches
+    assert fleet.solve() == 3
+    steps = max(fleet.stats(f"t{i}")["iterations"] for i in range(3))
+    assert power_step_lanes_call.launches - before == steps
+    for i, (g, a) in enumerate(zip(graphs, acts)):
+        eng = tc.make_engine("cuda", graph=g.dedup(), activity=a,
+                             device=card, tile=256)
+        res = eng.run(tol=1e-8)
+        st = fleet.stats(f"t{i}")
+        assert st["iterations"] == res.iterations and st["gap"] == res.gap
+        assert np.array_equal(fleet.series(f"t{i}"), res.s.cpu().numpy())
+        ops = eng.ops
+        inv_n = torch.tensor(1.0, device=card) / g.n
+        psi = (ops.lam * edge_spmv(res.s * ops.inv_w, eng.fmt) + ops.d) \
+            * inv_n
+        assert np.array_equal(fleet.psi(f"t{i}"), psi.cpu().numpy())
+        rel = float((psi - res.psi).abs().sum() / res.psi.abs().sum())
+        assert rel <= 1e-6
 
 
 # --------------------------------------------------------------------- #

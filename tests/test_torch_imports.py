@@ -32,6 +32,9 @@ SLICE_MODULES = [
     "repro_torch.configs", "repro_torch.configs.registry",
     "repro_torch.configs.graphsage_reddit", "repro_torch.configs.psi_score",
     "repro_torch.launch.specs", "repro_torch.launch.train",
+    "repro_torch.obs.trace", "repro_torch.serving",
+    "repro_torch.serving.bucket", "repro_torch.serving.fleet",
+    "repro_torch.serving.frontier",
 ]
 
 
