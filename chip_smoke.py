@@ -78,6 +78,27 @@ on the first check that does not hold:
    beside as many single-lane launches, their bound, the plain version and
    a block-diagonal ``torch.sparse.mm``.
 
+Two more main paths run after the fleet, before the times:
+
+* ``paper``: the paper's comparison (Exp. 1-2) on the DBLP stand-in at
+  float64: Power-ψ through the ``cuda`` engine (``power_step``), Power-NF
+  (``power_nf``, one chunk loop a 256-origin chunk on the card) over
+  exp2's 256 origins at tols 1e-1 ... 1e-9 and over all 12,591 origins at
+  1e-9 (twice: the same bits), PageRank against homogeneous ψ. Every count
+  must equal ``PAPER_ITERS`` (the JAX package's), full-N Power-NF and
+  Power-ψ within 1e-6 rel L2 of ``exact_psi``; each solver's wall and
+  device time at tol 1e-9 are printed.
+* ``push``: the certified residual-push backend (``PsiService(backend=
+  "push")`` and ``frontier="jit"`` rounds on the card) on the DBLP stand-in:
+  certified top-10 reads equal the exact top-10 cold and after an activity
+  patch (which touches fewer users), the certificate bounds the true
+  error, an edge patch rebuilds the frontier table, and the device rounds
+  repeat bit for bit. No TPU kernel lies on this path.
+
+Their exact solves (``exact_psi``, a host sparse LU of tens of seconds
+each) run in three worker processes from the start of the run, which the
+script ends before it exits.
+
 Phase 2 holds ``seg_mm`` against its plain version on CPU copies, bitwise,
 at float32 and float64, d = 8, 128 and 602, with and without the layout's
 tile spans, on the trainer's format at the ``minibatch_lg`` shape (as
@@ -85,14 +106,15 @@ built, with padding blocks, with its slots shuffled within each tile), on
 a tile with only padding blocks and a tile with none; its backward against
 the plain gather.
 
-Phases 3 to 8 are the main paths (the auto phase is two: model-only and
-microbench): every launch counter is set to 0 just before each path and
+Phases 3 to 8, ``paper`` and ``push`` are the main paths (the auto phase is
+two: model-only and microbench): every launch counter is set to 0 just before each path and
 read just after, and each kernel of a path must have launched there. The
 last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -139,6 +161,29 @@ FIXED_POINT_ITERS = [33, 13, 23, 25, 44, 24, 23, 22,
 # re-solve after the edge patch, and the restacked facebook bucket cold
 FLEET_ITERS = [35, 35, 33, 36, 35, 35, 36, 36, 35, 34, 35, 40, 33, 34,
                23, 25, 35, 34, 35, 35]
+
+
+# The paper phase (phase_paper): the DBLP stand-in at float64, the setup of
+# benchmarks/exp2_matvecs.py. Its counts, in order, from the JAX package at
+# float64 on the host (`PYTHONPATH=src python tools/paper_iters_reference.py`):
+# for each tol 1e-1 ... 1e-9 the Power-psi mat-vecs, the Power-NF mat-vecs
+# and worst per-origin iterations over exp2's 256 origins (heterogeneous
+# rates, seed 7); for each tol the homogeneous (0.15, 0.85) Power-psi and
+# PageRank (alpha 0.85) mat-vecs; Power-NF over all 12,591 origins at 1e-9
+# (mat-vecs, worst iterations).
+PAPER_TOLS = [10.0 ** -k for k in range(1, 10)]
+PAPER_NF_ORIGINS = 256
+PAPER_ITERS = [18, 499, 9, 21, 1027, 12, 25, 1720, 15, 28, 2515, 19,
+               31, 3338, 22, 35, 4188, 25, 38, 5059, 29, 41, 5903, 32,
+               45, 6785, 36,
+               58, 5, 71, 9, 85, 14, 98, 27, 111, 40, 125, 54, 138, 67,
+               152, 81, 165, 94,
+               330790, 38]
+# The push phase's graph and rates (phase_push): the DBLP stand-in, as the
+# paper phase, with heterogeneous rates of seed 6. (The hepph stand-in's
+# exact solve, a sparse LU of 34,546 unknowns, runs far past this script's
+# time budget.)
+PUSH_RATE_SEED = 6
 
 
 class SmokeFailure(Exception):
@@ -1495,6 +1540,299 @@ def _check_fleet_psi_only(fleet, tid, graph, act, tag, report) -> None:
     report.setdefault("fixed_points", []).append((rec.iterations, rel))
 
 
+# --------------------------------------------------------------------- #
+# The paper's comparison path and the certified push backend
+# --------------------------------------------------------------------- #
+def push_edge(g) -> tuple[int, int]:
+    """The follow edge the push phase inserts: node 0 starts following the
+    most-followed user it does not follow yet."""
+    leaders = set(g.dst[g.src == 0].tolist()) | {0}
+    for i in np.argsort(-g.in_degree, kind="stable"):
+        if int(i) not in leaders:
+            return 0, int(i)
+    raise SmokeFailure("node 0 follows every user")
+
+
+def exact_job(kind: str):
+    """The host float64 exact solves (``exact_psi``, a sparse LU) of the
+    paper and push phases, run in a worker process while the card works:
+    each takes tens of seconds on one core. Returns (seconds, result):
+    ``paper`` ψ of the paper phase's rates; ``push`` (ψ, the patched user,
+    ψ after its λ × 1.2); ``edge`` ψ after :func:`push_edge`."""
+    from repro_torch.core import Activity, exact_psi, heterogeneous
+    from repro_torch.graphs import Graph, load_dataset
+    g = load_dataset("dblp")
+    t0 = time.perf_counter()
+    if kind == "paper":
+        out = exact_psi(g, heterogeneous(g.n, seed=7))[0]
+    elif kind == "push":
+        act = heterogeneous(g.n, seed=PUSH_RATE_SEED)
+        psi = exact_psi(g, act)[0]
+        u = int(np.argsort(-psi)[5])
+        lam = act.lam.copy()
+        lam[u] = act.lam[u] * 1.2
+        out = (psi, u, exact_psi(g, Activity(lam, act.mu))[0])
+    else:
+        src, dst = push_edge(g)
+        g2 = Graph(g.n, np.append(g.src, src), np.append(g.dst, dst)).dedup()
+        out = exact_psi(g2, heterogeneous(g.n, seed=PUSH_RATE_SEED))[0]
+    return time.perf_counter() - t0, out
+
+
+def _exact(report, kind):
+    secs, out = report["exact_jobs"][kind].get(timeout=900)
+    report.setdefault("exact_s", {})[kind] = secs
+    return out
+
+
+def solve_times(fn) -> tuple[float, float | None, object]:
+    """(wall ms, device ms, result) of one more call of ``fn``: the host
+    clock around the call and a synchronise, then the call again under the
+    profiler (the summed duration of its kernels and copies; None when the
+    profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU)
+    return wall, (us / 1e3 if us > 0 else None), out
+
+
+def _rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_paper(report: dict) -> None:
+    """The paper's comparison (Exp. 1-2, ``benchmarks/exp2_matvecs.py``) on
+    the card at float64: the DBLP stand-in (Table II's size, uncut), Power-ψ
+    through the ``cuda`` engine (``power_step``) and Power-NF over exp2's
+    256 origins at every tol 1e-1 ... 1e-9, Power-NF over all 12,591
+    origins at 1e-9 (twice: the same bits), and in the homogeneous regime
+    Power-ψ against PageRank. Every count must equal ``PAPER_ITERS`` (the
+    JAX package's), full-N Power-NF and Power-ψ must be within 1e-6 rel L2
+    of ``exact_psi``, PageRank within 1e-6 max abs of homogeneous ψ."""
+    import torch
+    from repro_torch.core import (build_operators, build_pagerank_ops,
+                                  heterogeneous, homogeneous, make_engine,
+                                  pagerank, power_nf)
+    from repro_torch.graphs import load_dataset
+    from repro_torch.kernels.power_step import power_step_call
+    g = load_dataset("dblp")
+    kw = dict(dtype=torch.float64, device="cuda")
+    act = heterogeneous(g.n, seed=7)
+    ops = build_operators(g, act, **kw)
+    eng = make_engine("cuda", graph=g, activity=act, **kw)
+    hom_eng = make_engine("cuda", graph=g,
+                          activity=homogeneous(g.n, lam=0.15, mu=0.85), **kw)
+    pro = build_pagerank_ops(g, **kw)
+    origins = np.sort(np.random.default_rng(1).choice(
+        g.n, PAPER_NF_ORIGINS, replace=False))
+
+    def psi_solve(engine, tol, tag):
+        before = power_step_call.launches
+        res = engine.run(tol=tol)
+        launched = power_step_call.launches - before
+        check(res.converged, f"paper {tag} tol {tol:.0e}: not converged")
+        check(launched == res.iterations, f"paper {tag} tol {tol:.0e}: "
+              f"{launched} launches for {res.iterations} iterations")
+        return res
+
+    counts, hom_counts = [], []
+    for tol in PAPER_TOLS:
+        res = psi_solve(eng, tol, "Power-ψ")
+        nf = power_nf(ops, tol=tol, chunk=256, origins=origins)
+        counts += [res.matvecs, nf.matvecs, nf.max_iterations]
+        full = nf.matvecs * g.n / PAPER_NF_ORIGINS
+        say(f"paper tol {tol:.0e}: Power-ψ {res.matvecs} mat-vecs; "
+            f"Power-NF {nf.matvecs} over {PAPER_NF_ORIGINS} origins (worst "
+            f"{nf.max_iterations} iterations, ~{full:.0f} for all {g.n}): "
+            f"ratio Power-NF/Power-ψ {full / res.matvecs:.0f}x")
+    for tol in PAPER_TOLS:
+        hom = psi_solve(hom_eng, tol, "homogeneous Power-ψ")
+        pr = pagerank(pro, alpha=0.85, tol=tol)
+        check(pr.converged, f"paper PageRank tol {tol:.0e}: not converged")
+        hom_counts += [hom.matvecs, pr.matvecs]
+        say(f"paper homogeneous tol {tol:.0e}: Power-ψ {hom.matvecs} "
+            f"mat-vecs, PageRank {pr.matvecs}")
+    nf_all = power_nf(ops, tol=PAPER_TOLS[-1], chunk=256)
+    got = counts + hom_counts + [nf_all.matvecs, nf_all.max_iterations]
+    say(f"paper counts: {got}")
+    check(got == PAPER_ITERS, f"paper counts {got} != {PAPER_ITERS}")
+    psi_true = _exact(report, "paper")
+    rel_nf = _rel_l2(nf_all.psi, psi_true)
+    rel_psi = _rel_l2(res.psi.cpu().numpy(), psi_true)
+    pr_err = float((pr.pi - hom.psi).abs().max())
+    say(f"paper at tol 1e-9: rel L2 vs exact_psi: Power-NF (all origins) "
+        f"{rel_nf:.3e}, Power-ψ {rel_psi:.3e}; max |PageRank − ψ_hom| "
+        f"{pr_err:.3e}; Power-NF/Power-ψ mat-vecs {nf_all.matvecs} / "
+        f"{res.matvecs} = {nf_all.matvecs / res.matvecs:.0f}x")
+    check(rel_nf <= 1e-6 and rel_psi <= 1e-6,
+          f"paper: rel L2 vs exact {rel_nf:.3e} / {rel_psi:.3e} > 1e-6")
+    check(pr_err <= 1e-6, f"paper: PageRank vs ψ_hom {pr_err:.3e} > 1e-6")
+    check(bool(torch.isfinite(res.psi).all()) and res.psi.shape == (g.n,),
+          "paper: Power-ψ not finite or of the wrong shape")
+    # each solver at tol 1e-9 once more by the host clock, then under the
+    # profiler; the Power-NF call by the clock must give the first's bits
+    tol = PAPER_TOLS[-1]
+    rows = {}
+    for name, fn, mv in (
+            ("power_psi", lambda: eng.run(tol=tol), res.matvecs),
+            ("power_nf_256", lambda: power_nf(ops, tol=tol, chunk=256,
+                                              origins=origins), None),
+            ("power_nf_all", lambda: power_nf(ops, tol=tol, chunk=256),
+             nf_all.matvecs),
+            ("power_psi_hom", lambda: hom_eng.run(tol=tol), hom.matvecs),
+            ("pagerank", lambda: pagerank(pro, alpha=0.85, tol=tol),
+             pr.matvecs)):
+        wall, dev, out = solve_times(fn)
+        if name == "power_nf_all":
+            check(np.array_equal(out.psi, nf_all.psi),
+                  "paper: a second Power-NF run at tol 1e-9 gave other bits")
+        mv = out.matvecs if mv is None else mv
+        rows[name] = dict(wall_ms=wall, device_ms=dev, matvecs=mv)
+        say(f"paper time {name} (tol 1e-9): wall {wall:.2f} ms, device "
+            + (f"{dev:.2f} ms" if dev is not None else "not measured")
+            + f", {mv} mat-vecs")
+    per = rows["power_nf_all"]
+    say(f"paper Power-NF per origin: wall {per['wall_ms'] / g.n:.4f} ms, "
+        f"{nf_all.matvecs / g.n:.1f} mat-vecs; exact_psi (host LU, one core "
+        f"of a worker) {report['exact_s']['paper']:.1f} s")
+    report["paper"] = dict(counts=got, rel_nf=rel_nf, rel_psi=rel_psi,
+                           pr_err=pr_err, times=rows)
+
+
+def phase_push(report: dict) -> None:
+    """The certified residual-push backend on the card: ``PsiService(backend
+    ="push")`` (host float64 rounds, device operators) and a ``push`` engine
+    with ``frontier="jit"`` (rounds on the card, f32, 128 nodes a round) on
+    the DBLP stand-in, each held against ``exact_psi``: the cold certified
+    top-10 equals the exact one, the certificate bounds the true error
+    after ``run(tol=1e-9)``, an activity patch (the 6th-ranked user's λ ×
+    1.2) is served by a warm certified top-10 that equals the new exact one
+    and touches fewer users than the cold read, an edge patch rebuilds the
+    frontier table and the re-solve lands within 1e-6 of exact, and the
+    device rounds run twice from one state give the same rounds and bits.
+    No TPU kernel lies on this path."""
+    import torch
+    from repro_torch.core import PsiService, heterogeneous, make_engine
+    from repro_torch.graphs import load_dataset
+    from repro_torch.localpush import cold_state, push
+    g = load_dataset("dblp")
+    act = heterogeneous(g.n, seed=PUSH_RATE_SEED)
+    psi_true, u, psi_patched = _exact(report, "push")
+
+    def exact_top(psi):
+        return set(np.argsort(-psi, kind="stable")[:10].tolist())
+
+    out = {}
+    svc = PsiService(g, act, tol=1e-9, backend="push", device="cuda")
+    for tag in ("cold", "warm"):
+        if tag == "warm":
+            svc.update_activity(np.asarray([u]),
+                                lam=np.asarray([act.lam[u] * 1.2]),
+                                resolve=False)
+        t0 = time.perf_counter()
+        cert = svc.top_k_certified(10)
+        wall = (time.perf_counter() - t0) * 1e3
+        stats = dict(svc.engine.last_run_stats)
+        want = exact_top(psi_true if tag == "cold" else psi_patched)
+        check(cert.certified, f"push {tag}: top-10 not certified "
+              f"(margin {cert.margin:.3e}, bound {cert.err_bound})")
+        check(set(cert.indices.tolist()) == want,
+              f"push {tag}: certified top-10 != exact top-10")
+        check(svc.last_result.psi.device.type == "cuda",
+              f"push {tag}: ψ not on the card")
+        out[tag] = dict(wall_ms=wall, rounds=stats["rounds"],
+                        edge_work=stats["edge_work"],
+                        touched_frac=stats["touched_frac"],
+                        err_bound=cert.err_bound)
+        say(f"push {tag} certified top-10 (user {u} patched)"
+            if tag == "warm" else "push cold certified top-10")
+        say(f"  {wall:.1f} ms, {stats['rounds']} rounds, edge work "
+            f"{stats['edge_work']}, touched {stats['touched_frac']:.1%}, "
+            f"bound {cert.err_bound:.3e}, equals the exact top-10")
+        if tag == "cold":
+            svc.resolve()                 # run(tol=1e-9) from the handle
+            err = float(np.abs(svc.engine.last_psi_host - psi_true).max())
+            bound = svc.engine.psi_error_bound()
+            check(bound is not None and err <= bound,
+                  f"push: true error {err:.3e} > certificate {bound}")
+            say(f"push resolve to tol 1e-9: |ψ_host − exact|∞ {err:.3e} ≤ "
+                f"certificate {bound:.3e}")
+    check(out["warm"]["touched_frac"] < out["cold"]["touched_frac"],
+          f"push: the warm read touched {out['warm']['touched_frac']:.1%}, "
+          f"not fewer than the cold {out['cold']['touched_frac']:.1%}")
+
+    jit = make_engine("push", graph=g, activity=act, frontier="jit",
+                      frontier_size=128, device="cuda")
+    fops = jit.frontier_ops()
+    check(all(t.device.type == "cuda" for t in (fops.leaders, fops.deg,
+                                                fops.inv_w, fops.mu)),
+          "push: a frontier tensor is not on the card")
+    t0 = time.perf_counter()
+    jit.run(tol=1e-9)
+    wall = (time.perf_counter() - t0) * 1e3
+    stats = dict(jit.last_run_stats)
+    err = float(np.abs(jit.last_psi_host - psi_true).max())
+    check(err <= jit.psi_error_bound(), f"push jit: true error {err:.3e} > "
+          f"certificate {jit.psi_error_bound()}")
+    out["jit"] = dict(wall_ms=wall, rounds=stats["rounds"],
+                      jit_rounds=stats["jit_rounds"],
+                      jit_share=stats["jit_seconds"] * 1e3 / wall,
+                      err=err, err_bound=jit.psi_error_bound())
+    say(f"push jit run(tol=1e-9): {wall:.1f} ms, {stats['jit_rounds']} "
+        f"device rounds ({stats['jit_seconds'] * 1e3:.1f} ms, "
+        f"{out['jit']['jit_share']:.1%} of the wall) then "
+        f"{stats['rounds'] - stats['jit_rounds']} host rounds; "
+        f"|ψ_host − exact|∞ {err:.3e} ≤ certificate "
+        f"{jit.psi_error_bound():.3e}")
+    # the device rounds twice from one state: the same rounds and bits
+    loop = push.make_frontier_loop(fops, frontier_size=128)
+    st = cold_state(jit.host)
+    args = [torch.tensor(v.astype(np.float32), device="cuda")
+            for v in (st.x, st.r, st.p)]
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(loop(*args, 0.0, 2000))
+        runs[-1] += ((time.perf_counter() - t0) * 1e3,)
+    (x1, r1, p1, t1, e1, ms1), (x2, r2, p2, t2, e2, ms2) = runs
+    check((t1, e1) == (t2, e2) and all(torch.equal(a, b) for a, b in
+                                       ((x1, x2), (r1, r2), (p1, p2))),
+          "push: two device runs from one state differ")
+    say(f"push device rounds twice from the cold state: {t1} rounds, edge "
+        f"work {e1}, bitwise equal; {ms1 / t1:.4f} / {ms2 / t2:.4f} ms a "
+        f"round")
+    out["round_ms"] = min(ms1 / t1, ms2 / t2)
+    out["round_busy"], _ = profile_run("push 200 device rounds",
+                                       lambda: loop(*args, 0.0, 200))
+    # an edge patch: the padded leader table is rebuilt
+    src, dst = push_edge(g)
+    jit.patch_edges(np.asarray([src]), np.asarray([dst]))
+    jit.run(tol=1e-8)
+    new = jit.frontier_ops()
+    check(new is not fops and dst in new.leaders[src].tolist()
+          and dst not in fops.leaders[src].tolist(),
+          "push: the frontier table was not rebuilt after an edge patch")
+    err = float(np.abs(jit.last_psi_host - _exact(report, "edge")).max())
+    check(err <= 1e-6, f"push after edge ({src}→{dst}): |ψ − exact|∞ "
+          f"{err:.3e} > 1e-6")
+    say(f"push jit after edge {src}→{dst}: frontier rebuilt, "
+        f"|ψ_host − exact|∞ {err:.3e}; exact_psi (host LU, worker) "
+        + ", ".join(f"{k} {v:.1f} s"
+                    for k, v in sorted(report["exact_s"].items())))
+    report["push"] = out
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -2101,7 +2439,13 @@ def summary(report: dict) -> str:
     (events and device) at d = 602 and 128 and device ms by tile; for the
     fleet its lanes' counts, the largest rel L1 of a lane's ψ from the solo
     cuda engine's, each bucket's cold solve (steps, ms, busy share) and the
-    lane-batched kernels' times at the facebook bucket."""
+    lane-batched kernels' times at the facebook bucket; for the paper
+    phase the rel L2 of full-N Power-NF and of Power-ψ from exact ψ,
+    PageRank's max error from homogeneous ψ and each solver's wall ms,
+    device ms and mat-vecs at tol 1e-9; for the push phase the cold and
+    warm certified reads (ms, rounds, edge work, touched share, bound),
+    the jit run (ms, rounds, device rounds and their share of the wall)
+    and the device round's ms."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -2145,7 +2489,16 @@ def summary(report: dict) -> str:
                                        else vv) for kk, vv in v.items()}
                               for k, v in report["fleet_resolve"].items()},
                   "lane_ms": {k: {kk: g(vv) for kk, vv in v.items()}
-                              for k, v in report["fleet_lane_ms"].items()}}})
+                              for k, v in report["fleet_lane_ms"].items()}},
+        "paper": {"rel_l2": [g(report["paper"]["rel_nf"]),
+                             g(report["paper"]["rel_psi"])],
+                  "pagerank_err": g(report["paper"]["pr_err"]),
+                  "tol_1e-9": {k: [g(v["wall_ms"]), g(v["device_ms"]),
+                                   v["matvecs"]]
+                               for k, v in report["paper"]["times"].items()}},
+        "push": {k: ({kk: g(vv) if isinstance(vv, float) else vv
+                      for kk, vv in v.items()} if isinstance(v, dict)
+                     else g(v)) for k, v in report["push"].items()}})
 
 
 def main() -> int:
@@ -2186,18 +2539,28 @@ def main() -> int:
               lambda r: ("edge_spmv", "bsr_spmv") + picked(r)),
              ("accelerate", phase_accelerate, ("power_step",)),
              ("gnn_train", phase_gnn_train, ("seg_mm",)),
-             ("fleet", phase_fleet, ("power_step_lanes", "edge_spmv_lanes"))]
+             ("fleet", phase_fleet, ("power_step_lanes", "edge_spmv_lanes")),
+             ("paper", phase_paper, ("power_step",)),
+             ("push", phase_push, ())]
+    pool = None
     try:
         phase_device(report)
+        # the paper and push phases' exact solves (host LU, tens of seconds
+        # each) run in worker processes while the card works
+        pool = multiprocessing.get_context("spawn").Pool(3)
+        report["exact_jobs"] = {kind: pool.apply_async(exact_job, (kind,))
+                                for kind in ("paper", "push", "edge")}
         phase_kernels(report)
         report["launches"] = {}
         for path, run, needs in paths:
             for fn in counters.values():
                 fn.launches = 0                  # this main path starts here
+            t_path = time.perf_counter()
             run(report)
             got = {k: fn.launches for k, fn in counters.items()}
             report["launches"][path] = got
-            say(f"main path {path}: launches {got}")
+            say(f"main path {path}: launches {got} "
+                f"({time.perf_counter() - t_path:.1f} s)")
             for k in (needs(report) if callable(needs) else needs):
                 check(got[k] > 0, f"kernel {k} never launched on the main "
                       f"path {path}")
@@ -2208,6 +2571,10 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"[smoke] FAIL: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
     say(f"run took {time.perf_counter() - t_start:.1f} s (kernel build "
         f"included)")
     say(f"summary: {summary(report)}")

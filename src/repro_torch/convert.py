@@ -41,9 +41,10 @@ def _vec(x, dtype, device) -> torch.Tensor:
 def operators_from_numpy(fields: Mapping, *, dtype: torch.dtype | None = None,
                          device: str | torch.device = "cuda") -> PsiOperators:
     """A :class:`PsiOperators` from the fields of the JAX package's
-    ``PsiOperators`` (``n``, ``m``, ``src_by_dst``, ``dst_by_dst``, ``lam``,
-    ``mu``, ``inv_w``, ``c``, ``d``, ``b_norm``; the src-sorted view is not
-    used). ``dtype`` defaults to the dtype of ``lam``."""
+    ``PsiOperators`` (``n``, ``m``, both sorted edge views ``src_by_dst``,
+    ``dst_by_dst``, ``src_by_src``, ``dst_by_src``, and ``lam``, ``mu``,
+    ``inv_w``, ``c``, ``d``, ``b_norm``). ``dtype`` defaults to the dtype of
+    ``lam``."""
     dev = resolve_device(device)
     lam = np.asarray(fields["lam"])
     if dtype is None:
@@ -51,8 +52,8 @@ def operators_from_numpy(fields: Mapping, *, dtype: torch.dtype | None = None,
     n = int(fields["n"])
     return PsiOperators(
         n=n, m=int(fields["m"]),
-        **_edge_tensors(n, np.asarray(fields["src_by_dst"]),
-                        np.asarray(fields["dst_by_dst"]), dev),
+        **_edge_tensors(n, *(np.asarray(fields[k]) for k in (
+            "src_by_dst", "dst_by_dst", "src_by_src", "dst_by_src")), dev),
         **{k: _vec(fields[k], dtype, dev)
            for k in ("lam", "mu", "inv_w", "c", "d", "b_norm")})
 

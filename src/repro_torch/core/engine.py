@@ -24,6 +24,9 @@ Backends are registered by name and constructed through :func:`make_engine`:
   * ``accelerated`` — the ``reference`` iteration wrapped in the Aitken
     extrapolation loop (:func:`_accelerated_loop`); any other backend opts
     in with ``accelerate=True``.
+  * ``push`` — the local residual-push solver with a certified error
+    bound (:class:`repro_torch.localpush.PushEngine`, registered on first
+    use of the registry).
 
 All share one :class:`ConvergenceCriterion` — ε on ‖B‖·‖Δs‖ per Eq. 19 —
 and report interchangeable :class:`~repro_torch.core.power_psi.PsiResult`
@@ -187,9 +190,11 @@ class PsiEngine(abc.ABC):
         return False
 
     def psi_error_bound(self) -> float | None:
-        """Certified per-node ``|ψ_exact − ψ_served|`` bound, or None: the
-        Eq. 19 gap bounds one step's movement, not the distance to the
-        fixed point, so neither backend of this package certifies one."""
+        """Certified per-node ``|ψ_exact − ψ_served|`` bound for the last
+        ``run``'s returned ψ, or None when the backend cannot certify one
+        (the Eq. 19 gap bounds one step's *movement*, not the distance to
+        the fixed point). The ``push`` backend overrides this with its
+        residual certificate; ``RankingCache`` consumes it."""
         return None
 
     # -- shared helpers ------------------------------------------------- #
@@ -268,7 +273,19 @@ def register_backend(name: str):
     return deco
 
 
+def _ensure_plugin_backends() -> None:
+    """Import out-of-package backends that self-register on import.
+
+    ``repro_torch.localpush`` imports this module, so a bottom-of-file
+    import here would deadlock whenever ``repro_torch.localpush`` is the
+    entry point (its partially-initialized module would be re-entered
+    before ``PushEngine`` exists). Deferring to first registry *use* keeps
+    both import orders cycle-free."""
+    from .. import localpush  # noqa: F401  (registers backend="push")
+
+
 def available_backends() -> tuple[str, ...]:
+    _ensure_plugin_backends()
     return tuple(sorted(_REGISTRY))
 
 
@@ -289,6 +306,7 @@ def _accepted_options(cls: type[PsiEngine]) -> set[str]:
 def make_engine(backend: str = "reference", *, graph: Graph | None = None,
                 activity: Activity | None = None, **opts) -> PsiEngine:
     """Factory: construct (and, when given a graph, prepare) a backend."""
+    _ensure_plugin_backends()
     try:
         cls = _REGISTRY[_ALIASES.get(backend, backend)]
     except KeyError:

@@ -35,11 +35,18 @@ class RankingCache:
     Memoizes the descending sort (one ``argsort`` per fixed point, not per
     query); ``top_k`` uses ``torch.topk`` on the device-resident ψ so a
     small k never round-trips through a host sort.
+
+    ``err_bound`` is the solve's certified per-node ``|ψ_exact − ψ|``
+    bound when the engine produced one
+    (:meth:`~repro_torch.core.engine.PsiEngine.psi_error_bound`); it powers
+    :meth:`top_k_certified` — rank-stability statements about the *exact*
+    scores, served from the approximate ones.
     """
 
-    def __init__(self, psi: torch.Tensor):
+    def __init__(self, psi: torch.Tensor, *, err_bound: float | None = None):
         self._psi_dev = psi
         self._psi = psi.detach().cpu().numpy()
+        self.err_bound = err_bound
         self._order: np.ndarray | None = None
         self._rank: np.ndarray | None = None
 
@@ -61,6 +68,24 @@ class RankingCache:
     def rank_of(self, users: np.ndarray) -> np.ndarray:
         self._ensure_order()
         return self._rank[np.asarray(users)]
+
+    def top_k_certified(self, k: int):
+        """:class:`~repro_torch.localpush.topk.TopKCertificate` for the
+        served ψ.
+
+        ``certified`` is True only when the cache carries an error bound
+        and the k/k+1 margin clears it — i.e. the returned *set* provably
+        equals the exact top-k. Without a bound (non-certifying backends)
+        the indices are still served, honestly marked uncertified.
+        """
+        from ..localpush.topk import certify_top_k
+        bound = self.err_bound
+        if bound is not None and self._psi.dtype != np.float64:
+            # the certificate covers the solver's float64 ψ; a lower-precision
+            # served copy adds one cast rounding per node on top of it
+            bound = float(bound) + float(np.finfo(self._psi.dtype).eps) \
+                * float(np.abs(self._psi).max(initial=0.0))
+        return certify_top_k(self._psi, k, bound)
 
     def _ensure_order(self) -> None:
         if self._order is None:
@@ -93,6 +118,11 @@ class RankedQueries:
     def rank_of(self, users: np.ndarray) -> np.ndarray:
         return self._query().rank_of(users)
 
+    def top_k_certified(self, k: int):
+        """Top-k plus its rank-stability certificate (see
+        :meth:`RankingCache.top_k_certified`)."""
+        return self._query().top_k_certified(k)
+
 
 class PsiService(RankedQueries):
     """Maintains ψ-scores for a mutable (graph, activity) pair.
@@ -101,8 +131,8 @@ class PsiService(RankedQueries):
       graph, activity: the initial platform state.
       tol / max_iter: shared convergence criterion for every (re)solve.
       backend: engine name — ``reference`` (default), ``cuda`` (alias
-        ``pallas``), ``auto`` or ``accelerated``; see
-        :func:`repro_torch.core.engine.make_engine`.
+        ``pallas``), ``auto``, ``accelerated`` or ``push`` (certified
+        top-k reads); see :func:`repro_torch.core.engine.make_engine`.
       accelerate: opt the chosen backend into the Aitken-extrapolated loop;
         ``accelerated`` implies it.
       check_every: gap-evaluation cadence of the solver loop; 1 keeps the
@@ -133,6 +163,7 @@ class PsiService(RankedQueries):
         self._cache: RankingCache | None = None
         self._pending = False            # deferred patches awaiting resolve
         self._dirty = 0                  # patched rows/edges since last solve
+        self._early = False              # last solve stopped at a top-k cert
 
     @classmethod
     def from_fleet(cls, fleet, tenant_id: str):
@@ -230,10 +261,37 @@ class PsiService(RankedQueries):
         return self._pending
 
     def resolve(self) -> None:
-        """Warm re-solve if any deferred patch is pending or nothing was
-        solved yet."""
-        if self._pending or self._last is None:
+        """Warm re-solve to the full tolerance if any deferred patch is
+        pending, nothing was solved yet, or the last solve stopped early at
+        a top-k certificate (query-driven resolution leaves scores only
+        err_bound-accurate; ``resolve`` restores the global contract)."""
+        if self._pending or self._last is None or self._early:
             self._resolve()
+
+    def top_k_certified(self, k: int):
+        """Certified top-k, resolved only as far as the query demands.
+
+        With a pending delta and a backend that exposes ``run_top_k`` (the
+        ``push`` engine), the warm re-solve stops at rank separation
+        instead of the global tolerance — the certified *set* is exact
+        while the edge-work stays proportional to the dirty region and the
+        requested k. Other backends (or a fresh state) fall through to the
+        cache path, which certifies against the engine's
+        :meth:`~repro_torch.core.engine.PsiEngine.psi_error_bound`.
+        """
+        if ((self._pending or self._last is None)
+                and hasattr(self._engine, "run_top_k")):
+            self._plan_query(k)
+            prev_s = None if self._last is None else self._last.s
+            self._last, cert = self._engine.run_top_k(
+                k, tol=self.tol, max_iter=self.max_iter, s0=prev_s)
+            self._cache = RankingCache(
+                self._last.psi, err_bound=self._engine.psi_error_bound())
+            self._pending = False
+            self._dirty = 0
+            self._early = not bool(self._last.converged)
+            return cert
+        return RankedQueries.top_k_certified(self, k)
 
     # -- internals ------------------------------------------------------ #
     def _plan_query(self, k: int | None) -> None:
@@ -276,6 +334,7 @@ class PsiService(RankedQueries):
         self._cache = None                        # ranking invalidated
         self._pending = False
         self._dirty = 0
+        self._early = False
 
     def _query(self) -> RankingCache:
         if self._last is None:
@@ -283,5 +342,6 @@ class PsiService(RankedQueries):
                                           max_iter=self.max_iter)
             self._cache = None
         if self._cache is None:
-            self._cache = RankingCache(self._last.psi)
+            self._cache = RankingCache(
+                self._last.psi, err_bound=self._engine.psi_error_bound())
         return self._cache

@@ -11,12 +11,15 @@ gather → segment-sum → scale pattern:
     d_i       = λ_i / (λ_i + μ_i)
 
 Left mat-vec (Power-ψ):   (sᵀA)_i = μ_i Σ_{(j→i)∈E} s_j / w_j
+Right mat-vec (Power-NF): (A p)_j = (1/w_j) Σ_{(j→i)∈E} μ_i p_i
 
-The device operators keep the edge list sorted by dst, so the push is a
-segmented sum over each node's follower run (``torch.segment_reduce`` with
-``lengths = in_degree``). That sum has a fixed order on every device: no
-atomics, so the f32 iteration is a deterministic map and can land on an exact
-fixed point (gap 0) the way the host reference does.
+The device operators keep the edge list twice, each sorted by its scatter
+axis, so both products are a segmented sum over sorted runs
+(``torch.segment_reduce`` with ``lengths = in_degree`` for the push,
+``lengths = out_degree`` for the right mat-vec). That sum has a fixed order
+on every device: no atomics, so the f32 iteration is a deterministic map and
+can land on an exact fixed point (gap 0) the way the host reference does,
+and two runs on the card give the same bits.
 
 Nodes with no leaders (w_j = 0) have empty A/B rows — handled by a masked
 reciprocal, exactly matching the linear-system semantics of the paper.
@@ -45,6 +48,9 @@ class PsiOperators:
     src_by_dst: torch.Tensor  # i64[M] follower endpoint, edges sorted by dst
     dst_by_dst: torch.Tensor  # i64[M] leader endpoint (ascending)
     in_degree: torch.Tensor   # i64[N] segment lengths of the dst-sorted view
+    src_by_src: torch.Tensor  # i64[M] follower endpoint (ascending)
+    dst_by_src: torch.Tensor  # i64[M] leader endpoint, edges sorted by src
+    out_degree: torch.Tensor  # i64[N] segment lengths of the src-sorted view
     lam: torch.Tensor         # f[N]
     mu: torch.Tensor          # f[N]
     inv_w: torch.Tensor       # f[N], 0 where w == 0
@@ -76,6 +82,23 @@ class PsiOperators:
     def psi_epilogue(self, s: torch.Tensor) -> torch.Tensor:
         """ψᵀ = (sᵀB + dᵀ)/N  (Eq. 12 epilogue)."""
         return (self.lam * self.push(s) + self.d) / self.n
+
+    def right_matvec(self, p: torch.Tensor) -> torch.Tensor:
+        """A p — used by the Power-NF baseline. Supports batched p [N, K]."""
+        col = (slice(None),) + (None,) * (p.dim() - 1)   # node axis first
+        vals = (self.mu[col] * p)[self.dst_by_src]
+        agg = torch.segment_reduce(vals, "sum", lengths=self.out_degree,
+                                   unsafe=True)
+        return self.inv_w[col] * agg
+
+    def b_columns(self, origins: torch.Tensor) -> torch.Tensor:
+        """Dense [N, K] slice of B for a chunk of origin users (Power-NF)."""
+        # edge (j -> i): b[j, col] = λ_i / w_j where i == origins[col]
+        hit = self.dst_by_src[:, None] == origins[None, :]        # [M, K]
+        vals = torch.where(hit, self.lam[self.dst_by_src][:, None], 0.0)
+        agg = torch.segment_reduce(vals, "sum", lengths=self.out_degree,
+                                   unsafe=True)                    # [N, K]
+        return self.inv_w[:, None] * agg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,16 +148,17 @@ def _induced_l1T_norm(n, src, dst, lam, inv_w) -> np.ndarray:
 
 
 def _edge_tensors(n: int, src_by_dst: np.ndarray, dst_by_dst: np.ndarray,
+                  src_by_src: np.ndarray, dst_by_src: np.ndarray,
                   device: torch.device) -> dict:
-    """The dst-sorted edge view and its segment lengths, on ``device``."""
+    """Both sorted edge views and their segment lengths, on ``device``."""
+    def idx(x):
+        return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+
     return dict(
-        src_by_dst=torch.as_tensor(src_by_dst.astype(np.int64),
-                                   device=device),
-        dst_by_dst=torch.as_tensor(dst_by_dst.astype(np.int64),
-                                   device=device),
-        in_degree=torch.as_tensor(
-            np.bincount(dst_by_dst, minlength=n).astype(np.int64),
-            device=device))
+        src_by_dst=idx(src_by_dst), dst_by_dst=idx(dst_by_dst),
+        in_degree=idx(np.bincount(dst_by_dst, minlength=n)),
+        src_by_src=idx(src_by_src), dst_by_src=idx(dst_by_src),
+        out_degree=idx(np.bincount(src_by_src, minlength=n)))
 
 
 def build_operators(graph: Graph, activity: Activity, *,
@@ -157,13 +181,13 @@ def build_operators(graph: Graph, activity: Activity, *,
         d = np.where(total > 0, lam / total, 0.0).astype(np_dtype)
     b_norm = _induced_l1T_norm(graph.n, graph.src, graph.dst, lam, inv_w)
 
-    s_d, d_d = graph.edges_by_dst
-
     def vec(x):
         return torch.tensor(np.asarray(x, np_dtype), device=dev)
 
     return PsiOperators(
-        n=graph.n, m=graph.m, **_edge_tensors(graph.n, s_d, d_d, dev),
+        n=graph.n, m=graph.m,
+        **_edge_tensors(graph.n, *graph.edges_by_dst, *graph.edges_by_src,
+                        dev),
         lam=vec(lam), mu=vec(mu), inv_w=vec(inv_w), c=vec(c), d=vec(d),
         b_norm=vec(b_norm))
 
@@ -428,7 +452,8 @@ class HostOperators:
         dev = resolve_device(device)
         return PsiOperators(
             n=self.n, m=self.m,
-            **_edge_tensors(self.n, self.src_by_dst, self.dst_by_dst, dev),
+            **_edge_tensors(self.n, self.src_by_dst, self.dst_by_dst,
+                            self.src_by_src, self.dst_by_src, dev),
             **self._node_arrays(dtype, dev))
 
     def refresh_node_arrays(self, ops: PsiOperators,

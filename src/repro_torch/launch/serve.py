@@ -11,7 +11,8 @@ batches of ``rank_of`` + ``scores_batch``, and a live activity update
 mid-traffic. ``--backend auto`` lets the autotuner pick the kernel regime
 (``--microbench`` times every candidate instead of trusting the cost
 model) and prints the plan; ``--accelerate`` wraps any backend's step in
-the Aitken-extrapolated loop. ``--device cuda`` (the default) needs a card;
+the Aitken-extrapolated loop; ``--backend push`` serves from the local
+residual-push engine, whose solves carry a certified error bound. ``--device cuda`` (the default) needs a card;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 
 ``--tenants K`` (K > 1) serves K independent tenants from one
@@ -109,7 +110,8 @@ def main(argv=None) -> None:
     ap.add_argument("--top-k", type=int, default=3)
     ap.add_argument("--backend", default=None,
                     help="ψ solver backend: reference (default) | cuda "
-                         "(alias pallas) | auto | accelerated; with "
+                         "(alias pallas) | auto | accelerated | push "
+                         "(local residual push, certified top-k); with "
                          "--tenants > 1 a fleet regime: auto (default) | "
                          "dense | reference | cuda (alias pallas)")
     ap.add_argument("--accelerate", action="store_true",

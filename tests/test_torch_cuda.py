@@ -651,3 +651,67 @@ def test_sage_reduced_train_step_on_card_matches_cpu(card):
     before = seg_mm_call.launches
     sage.loss_fn(params, batch, cfg).backward()
     assert seg_mm_call.launches - before == 2 * cfg.n_layers
+
+
+# --------------------------------------------------------------------- #
+# The paper's comparison path and the push backend's device rounds. None
+# of these runs a hand-written kernel: they are PyTorch segment sums in a
+# fixed order, which must agree with the CPU and repeat bit for bit.
+# --------------------------------------------------------------------- #
+def _paper_graph():
+    g = tg.powerlaw_configuration(3000, 20000, seed=4)
+    return g, tc.heterogeneous(g.n, seed=7)
+
+
+def test_power_nf_on_card_matches_cpu(card):
+    g, act = _paper_graph()
+    origins = np.sort(np.random.default_rng(1).choice(g.n, 300,
+                                                      replace=False))
+    out = {}
+    for dev in ("cpu", card):
+        ops = tc.build_operators(g, act, dtype=torch.float64, device=dev)
+        out[str(dev)] = tc.power_nf(ops, tol=1e-9, chunk=128,
+                                    origins=origins)
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert (gpu.matvecs, gpu.max_iterations) == (cpu.matvecs,
+                                                 cpu.max_iterations)
+    assert np.abs(gpu.psi - cpu.psi).max() <= 1e-12 * np.abs(cpu.psi).max()
+    ops = tc.build_operators(g, act, dtype=torch.float64, device=card)
+    again = tc.power_nf(ops, tol=1e-9, chunk=128, origins=origins)
+    assert np.array_equal(again.psi, gpu.psi)         # run to run bitwise
+
+
+def test_pagerank_on_card_matches_cpu(card):
+    g, _ = _paper_graph()
+    res = {str(dev): tc.pagerank(tc.build_pagerank_ops(
+        g, dtype=torch.float64, device=dev), alpha=0.85, tol=1e-10)
+        for dev in ("cpu", card)}
+    cpu, gpu = res["cpu"], res[str(card)]
+    assert gpu.iterations == cpu.iterations
+    assert float((gpu.pi.cpu() - cpu.pi).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_push_frontier_rounds_repeat_bitwise_on_card(card, dtype):
+    from repro_torch.localpush import cold_state, push
+    g, act = _paper_graph()
+    host = tc.HostOperators.from_graph(g, act)
+    fops = push.build_frontier_ops(host, dtype=dtype, device=card)
+    assert fops.leaders.device.type == "cuda"
+    loop = push.make_frontier_loop(fops, frontier_size=128)
+    st = cold_state(host)
+    args = [torch.as_tensor(v, dtype=dtype, device=card)
+            for v in (st.x, st.r, st.p)]
+    a = loop(*args, 1e-4, 400)
+    b = loop(*args, 1e-4, 400)
+    assert a[3:] == b[3:] and a[3] > 0
+    for u, v in zip(a[:3], b[:3]):
+        assert torch.equal(u, v)
+    # the push engine certifies the f64 host ψ after its device rounds
+    eng = tc.make_engine("push", graph=g, activity=act, frontier="jit",
+                         device=card)
+    eng.run(tol=1e-8)
+    psi_true, _ = tc.exact_psi(g, act)
+    assert eng.last_run_stats["rounds"] > 0
+    assert np.abs(eng.last_psi_host - psi_true).max() <= \
+        eng.psi_error_bound()

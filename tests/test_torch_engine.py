@@ -153,7 +153,7 @@ def test_make_engine_rejects_unknown_options_and_backends():
     with pytest.raises(ValueError, match="activity"):
         tc.make_engine("cuda", device="cpu", graph=_graphs()[0])
     assert tc.available_backends() == ("accelerated", "auto", "cuda",
-                                       "reference")
+                                       "push", "reference")
     assert isinstance(tc.make_engine("pallas", device="cpu"), tc.CudaEngine)
 
 

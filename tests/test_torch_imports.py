@@ -35,6 +35,11 @@ SLICE_MODULES = [
     "repro_torch.obs.trace", "repro_torch.serving",
     "repro_torch.serving.bucket", "repro_torch.serving.fleet",
     "repro_torch.serving.frontier",
+    "repro_torch.core.exact", "repro_torch.core.pagerank",
+    "repro_torch.core.power_nf",
+    "repro_torch.localpush", "repro_torch.localpush.push",
+    "repro_torch.localpush.warm", "repro_torch.localpush.topk",
+    "repro_torch.localpush.engine", "repro_torch.localpush.check",
 ]
 
 
@@ -68,11 +73,13 @@ def test_slice_module_list_covers_the_package():
 
 def test_no_file_names_jax_or_repro_in_an_import():
     """AST scan, so lazy imports inside functions are caught too. The
-    card-only tests are scanned as well: the card's machine has no jax."""
+    card-only tests and the port's examples are scanned as well: the card's
+    machine has no jax."""
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "ab_edge_tile.py",
         ROOT / "tests" / "test_torch_cuda.py",
-        ROOT / "tests" / "test_torch_edge_layouts.py"]
+        ROOT / "tests" / "test_torch_edge_layouts.py",
+        *sorted((ROOT / "examples").glob("torch_*.py"))]
     offenders = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -86,3 +93,24 @@ def test_no_file_names_jax_or_repro_in_an_import():
             offenders += [f"{path.name}:{node.lineno} {n}" for n in names
                           if _forbidden(n)]
     assert not offenders, offenders
+
+
+def test_localpush_entry_point_registers_push_without_jax():
+    """``repro_torch.localpush`` first (the import order that would cycle
+    through a bottom-of-file registration in the engine module), then the
+    registry: the push backend is found and no jax module is loaded."""
+    code = (
+        "import sys\n"
+        "import repro_torch.localpush as lp\n"
+        "from repro_torch.core import available_backends, make_engine\n"
+        "assert 'push' in available_backends()\n"
+        "assert type(make_engine('push', device='cpu')) is lp.PushEngine\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
