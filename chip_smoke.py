@@ -78,7 +78,7 @@ on the first check that does not hold:
    beside as many single-lane launches, their bound, the plain version and
    a block-diagonal ``torch.sparse.mm``.
 
-Two more main paths run after the fleet, before the times:
+Three more main paths run after the fleet, before the times:
 
 * ``paper``: the paper's comparison (Exp. 1-2) on the DBLP stand-in at
   float64: Power-ψ through the ``cuda`` engine (``power_step``), Power-NF
@@ -95,6 +95,23 @@ Two more main paths run after the fleet, before the times:
   error, an edge patch rebuilds the frontier table, and the device rounds
   repeat bit for bit. No TPU kernel lies on this path.
 
+* ``stream``: the ``serve --stream`` path. (a) A cold float64 ``cuda``
+  ``PsiService`` on the twitter stand-in (every rate at ``RATE_FLOOR``)
+  fed a flash crowd of ~100k events (posts, reposts, 96 follows of the
+  max in-degree user, 29 unfollows) through a ``StreamIngestor``
+  (coalesce 64, a resolve every 1,000 events), then 200 read rounds: the
+  event, resolve and ``engine.run`` counts must agree, the edge count
+  must be the start plus the follows minus the unfollows, ψ within 1e-6
+  rel L1 of a from-scratch f64 ``reference`` (top-10 identical), the
+  per-resolve iterations equal ``STREAM_ITERS`` and ``obs.dump`` parse
+  back; the first 10,000 events replayed on two fresh services give the
+  same bits. It prints ev/s, flush and resolve ms, the busy share of a
+  warm resolve, read p50/p99 by op from ``psi_query_seconds``, and the
+  re-prepares and format rebuilds. (b) Four dblp tenants in a
+  ``TenantFleet(backend="auto")`` at f32 fed an interleaved burst log
+  (80k events): events by tenant add up, each lane's ψ within 1e-5 rel L1
+  of a solo f64 reference (top-10 identical).
+
 Their exact solves (``exact_psi``, a host sparse LU of tens of seconds
 each) run in three worker processes from the start of the run, which the
 script ends before it exits.
@@ -106,9 +123,10 @@ built, with padding blocks, with its slots shuffled within each tile), on
 a tile with only padding blocks and a tile with none; its backward against
 the plain gather.
 
-Phases 3 to 8, ``paper`` and ``push`` are the main paths (the auto phase is
-two: model-only and microbench): every launch counter is set to 0 just before each path and
-read just after, and each kernel of a path must have launched there. The
+Phases 3 to 8, ``paper``, ``push`` and ``stream`` are the main paths (the
+auto phase is two: model-only and microbench): every launch counter is set
+to 0 just before each path and read just after, and each kernel of a path
+must have launched there. The
 last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -184,6 +202,23 @@ PAPER_ITERS = [18, 499, 9, 21, 1027, 12, 25, 1720, 15, 28, 2515, 19,
 # exact solve, a sparse LU of 34,546 unknowns, runs far past this script's
 # time budget.)
 PUSH_RATE_SEED = 6
+# The stream phase (phase_stream): the service part's event count (a flash
+# crowd on the twitter stand-in at float64), the events replayed twice for
+# the determinism check, the read rounds after the ingest, and the fleet
+# part's events a tenant. STREAM_ITERS are the service's per-resolve
+# iteration counts in order, from the first card run: the f64 maps sum in a
+# fixed order, so the list repeats from call to call.
+STREAM_EVENTS = 100_000
+STREAM_REPLAY = 10_000
+STREAM_READ_ROUNDS = 200
+STREAM_FLEET_EVENTS = 20_000
+STREAM_ITERS = [41, 32, 33, 32, 33, 33, 33, 33, 33, 33, 34, 33, 35, 34, 33,
+                33, 33, 33, 35, 33, 33, 33, 33, 33, 32, 33, 33, 33, 34, 33,
+                34, 32, 33, 35, 33, 33, 34, 33, 33, 34, 34, 33, 33, 33, 33,
+                34, 34, 33, 33, 34, 34, 33, 33, 33, 33, 33, 33, 33, 33, 33,
+                33, 34, 36, 33, 34, 36, 33, 34, 36, 35, 34, 34, 34, 34, 35,
+                34, 34, 34, 38, 36, 35, 36, 36, 36, 37, 36, 36, 36, 36, 35,
+                36, 36, 37, 37, 37, 36, 39, 36, 36, 36, 35]
 
 
 class SmokeFailure(Exception):
@@ -1833,6 +1868,330 @@ def phase_push(report: dict) -> None:
     report["push"] = out
 
 
+# --------------------------------------------------------------------- #
+# stream: serve --stream on the card (the service) and the fleet target
+# --------------------------------------------------------------------- #
+def _quantiles(xs) -> tuple[float, float]:
+    """(median, p99) of a list of numbers (nearest rank)."""
+    xs = sorted(xs)
+    return (xs[len(xs) // 2], xs[min(len(xs) - 1, int(0.99 * len(xs)))])
+
+
+def _obs_sinks():
+    """A fresh registry and convergence tracker for one stream run (so its
+    counts are its own); returns what ``obs.restore`` needs afterwards."""
+    from repro_torch import obs
+    return obs.configure(registry=obs.MetricsRegistry(),
+                         tracker=obs.ConvergenceTracker(keep=4096))
+
+
+def _read_rounds(svc, n: int, *, seed: int) -> float:
+    """Host seconds of ``STREAM_READ_ROUNDS`` rounds of ``serve --stream``'s
+    reads (``scores_batch`` of 4 users, their ``rank_of``, ``top_k(10)``)."""
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for _ in range(STREAM_READ_ROUNDS):
+        users = rng.integers(0, n, 4)
+        svc.scores_batch(users)
+        svc.rank_of(users)
+        svc.top_k(10)
+    return time.perf_counter() - t0
+
+
+def stream_ingest(graph, log, horizon, device, *, limit=None) -> dict:
+    """One cold float64 ``cuda`` service on ``graph`` fed ``log`` (its first
+    ``limit`` events) through a ``StreamIngestor`` (coalesce 64, a resolve
+    every 1,000 events); returns the service, the ingestor, its report and
+    what the run measured: the wall, each flush window's and each
+    re-prepare's host ms, the resolves' iterations and host ms (from the
+    ``engine.run`` records) and the format builds a tile overflow caused.
+    The caller has installed fresh obs sinks."""
+    import torch
+    from repro_torch.core import RATE_FLOOR, Activity, PsiService
+    from repro_torch.obs import convergence
+    from repro_torch.stream import FreshnessPolicy, StreamIngestor
+    cold = Activity(np.full(graph.n, RATE_FLOOR), np.full(graph.n,
+                                                          RATE_FLOOR))
+    svc = PsiService(graph, cold, tol=1e-8, backend="cuda",
+                     dtype=torch.float64, device=device)
+    ing = StreamIngestor(svc, half_life=horizon / 2, topk=10,
+                         policy=FreshnessPolicy(coalesce=64,
+                                                resolve_every=1000))
+    out = dict(svc=svc, ing=ing, m0=svc.graph.m, flush_ms=[],
+               rebuild_ms=[])
+    flush, rebuild = ing.flush, svc._full_rebuild
+
+    def timed_flush():
+        busy = ing._buffered > 0
+        t0 = time.perf_counter()
+        flush()
+        if busy:
+            out["flush_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def timed_rebuild(*args, **kw):
+        t0 = time.perf_counter()
+        rebuild(*args, **kw)
+        out["rebuild_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    ing.flush, svc._full_rebuild = timed_flush, timed_rebuild
+    t0 = time.perf_counter()
+    out["rep"] = ing.ingest(log, limit=limit)
+    out["wall_s"] = time.perf_counter() - t0
+    recs = [r for r in convergence.get_tracker().series(None)
+            if r.backend == "cuda"]
+    out["iters"] = [r.iterations for r in recs]
+    out["resolve_ms"] = [r.duration_s * 1e3 for r in recs]
+    # one build at prepare and one at each re-prepare; the rest were a
+    # tile running out of sentinel slots
+    out["overflow_builds"] = (svc.engine.format_builds - 1
+                              - len(out["rebuild_ms"]))
+    return out
+
+
+def stream_service(report: dict) -> None:
+    """Part (a) of the stream path: the twitter stand-in, cold, fed a
+    flash crowd of ~100k events (:func:`stream_ingest`), then 200 read
+    rounds; counts, edges, ψ and the iteration list held as the module
+    docstring says; then the first 10,000 events replayed on two fresh
+    services (ψ bitwise, the same iterations)."""
+    import json as _json
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import heterogeneous, make_engine
+    from repro_torch.kernels.power_step import power_step_call
+    from repro_torch.stream import flash_crowd_stream
+    g = report["twitter"]
+    truth = heterogeneous(g.n, seed=8)
+    horizon = STREAM_EVENTS / float(truth.total.sum())
+    t0 = time.perf_counter()
+    log = flash_crowd_stream(g, truth, horizon, seed=9, new_followers=96,
+                             churn=0.3)
+    counts = log.counts()
+    say(f"stream: {len(log)} events {counts} over {horizon:.3f} s of event "
+        f"time made in {time.perf_counter() - t0:.2f} s; celebrity "
+        f"{int(np.argmax(g.in_degree))} (in-degree "
+        f"{int(g.in_degree.max())})")
+    prev = _obs_sinks()
+    try:
+        before = power_step_call.launches
+        run = stream_ingest(g, log, horizon, "cuda")
+        svc, ing, rep = run["svc"], run["ing"], run["rep"]
+        launched = power_step_call.launches - before
+        reg = obs.metrics.get_registry()
+        by_kind = {k: int(reg.value("psi_stream_events_total", kind=k) or 0)
+                   for k in ("post", "repost", "follow", "unfollow")}
+        resolves_metric = int(reg.value("psi_stream_resolves_total") or 0)
+        read_s = _read_rounds(svc, g.n, seed=1)
+        fam = reg.get("psi_query_seconds")
+        reads = {key[0]: (ch.quantile(0.5) * 1e3, ch.quantile(0.99) * 1e3,
+                          ch.count) for key, ch in fam.children()}
+        dump_path = ROOT / "build" / "stream_obs_dump.json"
+        dump_path.parent.mkdir(exist_ok=True)
+        obs.dump(str(dump_path), device="cuda", dtype=torch.float64)
+        back = _json.loads(dump_path.read_text())
+        n_records = len([r for r in obs.convergence.get_tracker().series(
+            None) if r.backend == "cuda"])
+    finally:
+        obs.restore(prev)
+    # the funnel's cost: the same cached reads with the plane dark (one
+    # branch, no span, no metrics) and lit again
+    dark = obs.disable()
+    try:
+        dark_s = _read_rounds(svc, g.n, seed=2)
+    finally:
+        obs.restore(dark)
+    lit_s = _read_rounds(svc, g.n, seed=2)
+    check(rep.events_total == len(log) == ing.events_total,
+          f"stream: {rep.events_total} events ingested of {len(log)}")
+    want = {k.lower(): v for k, v in counts.items()}
+    check(by_kind == {k: want.get(k, 0) for k in by_kind},
+          f"stream: psi_stream_events_total {by_kind} != log {counts}")
+    check(resolves_metric == rep.resolves == n_records == len(run["iters"]),
+          f"stream: resolves metric {resolves_metric}, report "
+          f"{rep.resolves}, engine.run records {n_records}")
+    check(launched == sum(run["iters"]), f"stream: {launched} power_step "
+          f"launches for {sum(run['iters'])} iterations")
+    m_want = run["m0"] + counts.get("Follow", 0) - counts.get("Unfollow", 0)
+    check(svc.graph.m == m_want, f"stream: {svc.graph.m} edges at the end, "
+          f"not {run['m0']} + follows − unfollows = {m_want}")
+    check("metrics" in back and "convergence" in back
+          and back["fingerprint"]["dtype"] == "float64",
+          "stream: obs.dump did not parse back")
+    ref = make_engine("reference", graph=svc.graph,
+                      activity=svc.engine.activity, dtype=torch.float64,
+                      device="cuda").run(tol=1e-12)
+    psi = svc.last_result.psi
+    check(bool(torch.isfinite(psi).all()) and psi.shape == (g.n,),
+          "stream: ψ not finite or of the wrong shape")
+    rel = float((psi - ref.psi).abs().sum() / ref.psi.abs().sum())
+    top = torch.topk(psi, 10).indices.tolist()
+    ref_top = torch.topk(ref.psi, 10).indices.tolist()
+    check(rel <= 1e-6 and top == ref_top, f"stream: ψ rel L1 {rel:.3e} "
+          f"from the f64 reference (≤ 1e-6), top-10 {top} vs {ref_top}")
+    flush_med, flush_p99 = _quantiles(run["flush_ms"])
+    res_med, res_p99 = _quantiles(run["resolve_ms"])
+    it_med, it_p99 = _quantiles(run["iters"])
+    out = dict(events=len(log), ev_per_s=len(log) / run["wall_s"],
+               wall_s=run["wall_s"], flushes=len(run["flush_ms"]),
+               flush_ms=[flush_med, flush_p99], resolves=rep.resolves,
+               resolve_ms=[res_med, res_p99], steps=[it_med, it_p99],
+               rebuilds=len(run["rebuild_ms"]),
+               rebuild_ms=(_quantiles(run["rebuild_ms"])
+                           if run["rebuild_ms"] else None),
+               overflow_builds=run["overflow_builds"], rel_l1=rel,
+               launches=launched, read_s=read_s,
+               read_us=[lit_s / (3 * STREAM_READ_ROUNDS) * 1e6,
+                        dark_s / (3 * STREAM_READ_ROUNDS) * 1e6],
+               reads={op: [p50, p99] for op, (p50, p99, _) in reads.items()})
+    say(f"stream service: {len(log)} events in {run['wall_s']:.2f} s "
+        f"({out['ev_per_s']:.0f} ev/s sustained), {rep.resolves} resolves "
+        f"({launched} power_step launches), churn history "
+        f"{[round(c, 2) for c in ing.churn_history][:12]}...")
+    say(f"  flush windows {len(run['flush_ms'])}: {flush_med:.3f} ms median, "
+        f"{flush_p99:.3f} ms p99 (host); resolves {res_med:.3f} / "
+        f"{res_p99:.3f} ms, steps {it_med} / {it_p99} (median / p99)")
+    say(f"  unfollow windows that re-prepared the engine: "
+        f"{len(run['rebuild_ms'])}"
+        + (f" ({out['rebuild_ms'][0]:.1f} ms median, "
+           f"{out['rebuild_ms'][1]:.1f} ms p99)" if run["rebuild_ms"]
+           else "")
+        + f"; edge-tile format rebuilds after a tile overflow: "
+        f"{run['overflow_builds']}; edges {run['m0']} → {svc.graph.m}")
+    say(f"  {STREAM_READ_ROUNDS} read rounds in {read_s * 1e3:.1f} ms; "
+        "psi_query_seconds p50 / p99 by op: " + ", ".join(
+            f"{op} {p50:.4f} / {p99:.4f} ms (x{n})"
+            for op, (p50, p99, n) in sorted(reads.items())))
+    say(f"  a cached read (host clock, {3 * STREAM_READ_ROUNDS} reads): "
+        f"{out['read_us'][0]:.2f} µs with the obs plane lit, "
+        f"{out['read_us'][1]:.2f} µs dark")
+    say(f"  final ψ vs the f64 reference from scratch: rel L1 {rel:.3e}, "
+        f"top-10 identical; obs.dump parsed back "
+        f"({len(back['convergence'].get('_default', []))} records)")
+    say(f"  per-resolve iterations: {run['iters']}")
+    # the busy share of one warm resolve (one user's λ × 1.2, deferred)
+    u = int(np.argsort(-svc.scores())[5])
+    svc.update_activity(np.asarray([u]),
+                        lam=np.asarray([svc.engine.activity.lam[u] * 1.2]),
+                        resolve=False)
+    out["busy"], out["kernel_share"] = profile_run(
+        "stream warm resolve", svc.resolve, "power_step")
+    check(run["iters"] == STREAM_ITERS, f"stream: per-resolve iterations "
+          f"{run['iters']} != STREAM_ITERS {STREAM_ITERS}")
+    # determinism: the first events twice, each on a fresh service
+    replays = []
+    for _ in range(2):
+        prev = _obs_sinks()
+        try:
+            replays.append(stream_ingest(g, log, horizon, "cuda",
+                                         limit=STREAM_REPLAY))
+        finally:
+            obs.restore(prev)
+    (a, b) = replays
+    check(a["iters"] == b["iters"]
+          and torch.equal(a["svc"].last_result.psi, b["svc"].last_result.psi)
+          and torch.equal(a["svc"].last_result.s, b["svc"].last_result.s),
+          "stream: two replays of the first events differ")
+    say(f"stream replay of the first {STREAM_REPLAY} events, twice: ψ and s "
+        f"bitwise equal, iterations {a['iters']} both times "
+        f"({a['wall_s']:.2f} / {b['wall_s']:.2f} s)")
+    report["stream"] = out
+
+
+def stream_fleet(report: dict) -> None:
+    """Part (b) of the stream path: four dblp tenants (seeds 1-4) admitted
+    cold to a ``TenantFleet(backend="auto")`` at f32, fed one interleaved
+    log of a burst stream a tenant (20,000 events, 16 users at ×10 in the
+    middle third) with a fleet resolve every 2,000 events; events by
+    tenant add up and each lane's ψ is held against a solo f64 reference
+    solve of that tenant's final activity (top-10 identical, rel L1 ≤
+    1e-5)."""
+    import torch
+    from repro_torch.core import (RATE_FLOOR, Activity, heterogeneous,
+                                  make_engine)
+    from repro_torch.graphs import load_dataset
+    from repro_torch.serving import TenantFleet
+    from repro_torch.stream import (FreshnessPolicy, StreamIngestor,
+                                    burst_stream, tenant_interleave)
+    from repro_torch import obs
+    fleet = TenantFleet(backend="auto", tol=1e-8, device="cuda")
+    graphs, sources, horizons = {}, {}, []
+    for k, seed in enumerate(FLEET_SEEDS):
+        tid = f"dblp-{seed}"
+        g = graphs[tid] = load_dataset("dblp", seed=seed)
+        truth = heterogeneous(g.n, seed=200 + k)
+        horizon = STREAM_FLEET_EVENTS / float(truth.total.sum())
+        rng = np.random.default_rng(300 + k)
+        sources[tid] = burst_stream(truth, horizon, seed=300 + k,
+                                    burst_users=rng.integers(0, g.n, 16),
+                                    burst_factor=10.0)
+        horizons.append(horizon)
+        fleet.admit(tid, g, Activity(np.full(g.n, RATE_FLOOR),
+                                     np.full(g.n, RATE_FLOOR)))
+    log = tenant_interleave(sources)
+    ing = StreamIngestor(fleet, half_life=max(horizons) / 2, topk=10,
+                         policy=FreshnessPolicy(coalesce=64,
+                                                resolve_every=2000))
+    prev = _obs_sinks()
+    try:
+        t0 = time.perf_counter()
+        rep = ing.ingest(log)
+        wall = time.perf_counter() - t0
+        lane_iters = {tid: [r.iterations for r in
+                            obs.convergence.get_tracker().series(tid)]
+                      for tid in graphs}
+    finally:
+        obs.restore(prev)
+    per = {tid: ing.estimator(tid).events for tid in graphs}
+    want = {tid: len(src) for tid, src in sources.items()}
+    check(per == want and sum(per.values()) == len(log) == rep.events_total,
+          f"stream fleet: events by tenant {per} != {want}")
+    occ = {str(s): a["regime"] for s, a in fleet.occupancy().items()}
+    worst = 0.0
+    for tid, g in graphs.items():
+        ref = make_engine("reference", graph=fleet._rec(tid).host.graph(),
+                          activity=fleet.activity(tid), dtype=torch.float64,
+                          device="cuda").run(tol=1e-12)
+        psi = torch.as_tensor(fleet.psi(tid), dtype=torch.float64,
+                              device="cuda")
+        check(bool(torch.isfinite(psi).all()) and psi.shape == ref.psi.shape,
+              f"stream fleet {tid}: ψ not finite or of the wrong shape")
+        rel = float((psi - ref.psi).abs().sum() / ref.psi.abs().sum())
+        top = torch.topk(psi, 10).indices.tolist()
+        ref_top = torch.topk(ref.psi, 10).indices.tolist()
+        check(rel <= 1e-5 and top == ref_top, f"stream fleet {tid}: rel L1 "
+              f"{rel:.3e} (≤ 1e-5), top-10 {top} vs reference {ref_top}")
+        worst = max(worst, rel)
+    # a lane solve that ran to max_iter sat in an f32 cycle whose gap never
+    # reached tol (its ψ is held above all the same)
+    capped = sum(i >= fleet.max_iter for v in lane_iters.values() for i in v)
+    report["stream_fleet"] = dict(
+        events=len(log), ev_per_s=len(log) / wall, resolves=rep.resolves,
+        lane_solves=sum(map(len, lane_iters.values())),
+        capped=capped, max_rel_l1=worst)
+    say(f"stream fleet: {len(log)} events {per} in {wall:.2f} s "
+        f"({len(log) / wall:.0f} ev/s), {rep.resolves} fleet resolves, "
+        f"buckets {occ}; every lane's ψ within {worst:.3e} rel L1 of its "
+        f"f64 reference, top-10 identical")
+    say(f"  lane solves {report['stream_fleet']['lane_solves']}, "
+        f"{capped} of them ran to max_iter={fleet.max_iter} (f32 gap never "
+        f"≤ tol); iterations by tenant: " + "; ".join(
+            f"{tid} {v}" for tid, v in lane_iters.items()))
+
+
+def phase_stream(report: dict) -> None:
+    """The ``serve --stream`` path: :func:`stream_service` (``power_step``
+    under live event patches) and :func:`stream_fleet`
+    (``power_step_lanes`` and ``edge_spmv_lanes`` under per-tenant event
+    routing)."""
+    t0 = time.perf_counter()
+    stream_service(report)
+    t1 = time.perf_counter()
+    stream_fleet(report)
+    say(f"stream: service part {t1 - t0:.1f} s, fleet part "
+        f"{time.perf_counter() - t1:.1f} s")
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -2498,7 +2857,14 @@ def summary(report: dict) -> str:
                                for k, v in report["paper"]["times"].items()}},
         "push": {k: ({kk: g(vv) if isinstance(vv, float) else vv
                       for kk, vv in v.items()} if isinstance(v, dict)
-                     else g(v)) for k, v in report["push"].items()}})
+                     else g(v)) for k, v in report["push"].items()},
+        "stream": {k: ([g(x) for x in v] if isinstance(v, (list, tuple))
+                       else g(v) if isinstance(v, float) else v)
+                   for k, v in report["stream"].items() if k != "reads"},
+        "stream_reads_ms": {op: [g(x) for x in v] for op, v in
+                            report["stream"]["reads"].items()},
+        "stream_fleet": {k: g(v) if isinstance(v, float) else v
+                         for k, v in report["stream_fleet"].items()}})
 
 
 def main() -> int:
@@ -2541,7 +2907,9 @@ def main() -> int:
              ("gnn_train", phase_gnn_train, ("seg_mm",)),
              ("fleet", phase_fleet, ("power_step_lanes", "edge_spmv_lanes")),
              ("paper", phase_paper, ("power_step",)),
-             ("push", phase_push, ())]
+             ("push", phase_push, ()),
+             ("stream", phase_stream,
+              ("power_step", "power_step_lanes", "edge_spmv_lanes"))]
     pool = None
     try:
         phase_device(report)

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import functools
 import inspect
 import time
 from typing import Any
@@ -62,6 +63,9 @@ from ..kernels.formats import build_bsr, build_edge_tiles
 from ..kernels.ops import (DeviceBsr, DeviceEdgeTiles, _i32, bsr_step,
                            power_step, power_step_lanes)
 from ..obs import calibrate as obs_calibrate
+from ..obs import convergence as obs_convergence
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .activity import Activity
 from .operators import HostOperators, PsiOperators
 from .power_psi import _NORMS, PsiResult
@@ -116,6 +120,50 @@ class EngineState:
 # --------------------------------------------------------------------- #
 # Protocol + registry
 # --------------------------------------------------------------------- #
+def _instrument_run(run):
+    """Wrap a backend's ``run`` with the telemetry plane (repro_torch.obs).
+
+    Applied automatically by :meth:`PsiEngine.__init_subclass__` to every
+    backend that defines its own ``run`` — one instrumentation point for
+    all current and future backends, including out-of-package ones like
+    ``repro_torch.localpush``. When every obs sink is null the wrapper is
+    one boolean check and a tail call; otherwise it opens an ``engine.run``
+    span + a convergence record around the resolve. Instrumentation only
+    *reads* the result, so the returned ψ/s are bitwise identical either
+    way. Only a live tracer makes the span wait for the result's CUDA
+    stream (``Span.sync``, the dispatch/compute split it records); under
+    the default null tracer the wrapper adds no device sync, and the
+    record's duration is the host wall of ``run``, which ends in the gap
+    read of the last step.
+    """
+
+    @functools.wraps(run)
+    def wrapped(self, *args, **kwargs):
+        tracker = obs_convergence.get_tracker()
+        tracer = obs_trace.get_tracer()
+        if not (tracker.enabled or tracer.enabled or obs_metrics.enabled()):
+            return run(self, *args, **kwargs)
+        rec = tracker.begin(self.name,
+                            tenant=getattr(self, "obs_tenant", None))
+        with obs_trace.span("engine.run", backend=self.name) as sp:
+            try:
+                res = run(self, *args, **kwargs)
+            except BaseException:
+                tracker.finish(rec, converged=False,
+                               duration_s=sp.duration_s)
+                raise
+            if tracer.enabled:
+                sp.sync(res.s)
+        tracker.finish(rec, iterations=int(res.iterations),
+                       gap=float(res.gap), converged=bool(res.converged),
+                       duration_s=sp.duration_s,
+                       psi_error_bound=self.psi_error_bound())
+        return res
+
+    wrapped._obs_instrumented = True
+    return wrapped
+
+
 class PsiEngine(abc.ABC):
     """One (graph, activity) pair's solver; see module docstring.
 
@@ -136,6 +184,12 @@ class PsiEngine(abc.ABC):
     """
 
     name: str = "abstract"
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        run = cls.__dict__.get("run")
+        if run is not None and not getattr(run, "_obs_instrumented", False):
+            cls.run = _instrument_run(run)
 
     def __init__(self, *, dtype: torch.dtype = torch.float32,
                  device: str | torch.device = "cuda",
@@ -872,3 +926,6 @@ class AutoEngine(CudaEngine):
                 env=obs_calibrate.env_key(self.device, self.dtype),
                 source="step_span")
         return res
+    # super().run is already the instrumented CudaEngine.run — marking
+    # this thin timer prevents a second nested span/record per resolve
+    run._obs_instrumented = True

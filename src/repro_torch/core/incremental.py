@@ -21,6 +21,8 @@ import torch
 
 from ..graphs.structure import Graph
 from ..kernels.autotune import choose_solver
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .activity import Activity
 from .engine import PsiEngine, make_engine
 from .operators import _validate_rates
@@ -99,29 +101,113 @@ class RankedQueries:
     """Read-side ψ-query surface over an abstract ``_query()``.
 
     Subclasses provide ``_query() -> RankingCache`` (fresh for the current
-    fixed point); the mixin supplies the canonical reads.
+    fixed point); the mixin supplies the canonical reads so a dedicated
+    :class:`PsiService` and a fleet lane
+    (:class:`repro_torch.serving.fleet.TenantView`) are interchangeable at
+    every query site. Every read goes through :meth:`_read`, the funnel
+    that times it on the host and counts its cache outcome.
     """
 
     def _query(self) -> RankingCache:
         raise NotImplementedError
 
+    def _obs_cache_state(self) -> str:
+        """'hit' when this read will be served from a memoized ranking,
+        'miss' when it must (re)build one. Overridable by subclasses whose
+        cache lives elsewhere (the fleet's per-lane views)."""
+        return "hit" if getattr(self, "_cache", None) is not None else "miss"
+
+    def _read(self, op: str, fn):
+        """Every public read funnels through here: latency histogram
+        (``psi_query_seconds{op=}``), cache hit ratio, staleness-at-read
+        counter, and a ``query`` span — all skipped in one branch when the
+        telemetry plane is dark. The funnel only reads host clocks and
+        counters: it adds no device sync of its own (a read that builds a
+        ranking copies ψ to the host, with or without it)."""
+        reg = obs_metrics.get_registry()
+        if getattr(reg, "null", False) and not obs_trace.get_tracer().enabled:
+            return fn(self._query())
+        state = self._obs_cache_state()
+        stale = bool(getattr(self, "stale", False))
+        with obs_trace.span("query", op=op, cache=state) as sp:
+            out = fn(self._query())
+        # remembered for explain(): the facts of the most recent read
+        self._last_read = dict(op=op, cache=state, stale=stale,
+                               seconds=sp.duration_s)
+        reg.histogram("psi_query_seconds",
+                      "read-side ψ query latency (seconds)",
+                      labelnames=("op",)).labels(op=op).observe(sp.duration_s)
+        reg.counter("psi_query_cache_total",
+                    "ranking-cache outcome at read time",
+                    labelnames=("result",)).labels(result=state).inc()
+        if stale:
+            reg.counter("psi_query_stale_reads_total",
+                        "reads served from a fixed point with deferred "
+                        "patches pending").inc()
+        return out
+
     def scores(self) -> np.ndarray:
-        return self._query().psi
+        return self._read("scores", lambda c: c.psi)
 
     def scores_batch(self, users: np.ndarray) -> np.ndarray:
         """ψ for a batch of users (no ranking sort paid)."""
-        return self._query().scores_batch(users)
+        return self._read("scores_batch", lambda c: c.scores_batch(users))
 
     def top_k(self, k: int) -> tuple[np.ndarray, np.ndarray]:
-        return self._query().top_k(k)
-
-    def rank_of(self, users: np.ndarray) -> np.ndarray:
-        return self._query().rank_of(users)
+        return self._read("top_k", lambda c: c.top_k(k))
 
     def top_k_certified(self, k: int):
         """Top-k plus its rank-stability certificate (see
         :meth:`RankingCache.top_k_certified`)."""
-        return self._query().top_k_certified(k)
+        return self._read("top_k_certified", lambda c: c.top_k_certified(k))
+
+    def rank_of(self, users: np.ndarray) -> np.ndarray:
+        return self._read("rank_of", lambda c: c.rank_of(users))
+
+    def explain(self, *, op: str | None = None) -> str:
+        """EXPLAIN-ANALYZE tree for the last resolve + query.
+
+        Assembles the decision trail recorded by the planner stack
+        (:mod:`repro_torch.obs.explain`) — plan candidates, prunes, cache
+        state, predicted vs measured cost, calibration factors — together
+        with the owning resolve's convergence record, the last read's
+        funnel facts (op, cache, staleness, wall time), and the served
+        certificate bound. Pure read: rendering never touches the engine
+        state or the device.
+        """
+        from ..obs import calibrate as obs_calibrate
+        from ..obs import convergence as obs_convergence
+        from ..obs import explain as obs_explain
+        g = getattr(self, "graph", None)
+        decisions = obs_explain.decisions_for(
+            n=getattr(g, "n", None), m=getattr(g, "m", None))
+        tenant = getattr(self, "tenant_id", None)
+        tracker = obs_convergence.get_tracker()
+        series = tracker.series(tenant) or (
+            tracker.series(None) if tenant is not None else [])
+        resolve = series[-1] if series else None
+        query = dict(getattr(self, "_last_read", None) or {})
+        if op is not None:
+            query["op"] = op
+        cache = getattr(self, "_cache", None)
+        if cache is not None and cache.err_bound is not None:
+            query.setdefault("err_bound", f"{cache.err_bound:.3g}")
+        query.setdefault("stale", bool(getattr(self, "stale", False)))
+        store = obs_calibrate.get_store()
+        # the port keys calibration samples by the engine's device and
+        # dtype; a fleet view owns no engine
+        eng = getattr(self, "engine", None)
+        extra = (dict(calibration_env=(None if eng is None else
+                                       obs_calibrate.env_key(eng.device,
+                                                             eng.dtype)),
+                      calibration_samples=len(store),
+                      calibration_generation=store.generation)
+                 if len(store) else None)
+        backend = getattr(self, "backend", "?")
+        return obs_explain.explain_tree(
+            header=f"EXPLAIN ANALYZE — power-ψ [backend={backend}]",
+            resolve=resolve, decisions=decisions, query=query or None,
+            extra=extra)
 
 
 class PsiService(RankedQueries):
@@ -282,14 +368,20 @@ class PsiService(RankedQueries):
         if ((self._pending or self._last is None)
                 and hasattr(self._engine, "run_top_k")):
             self._plan_query(k)
-            prev_s = None if self._last is None else self._last.s
-            self._last, cert = self._engine.run_top_k(
-                k, tol=self.tol, max_iter=self.max_iter, s0=prev_s)
-            self._cache = RankingCache(
-                self._last.psi, err_bound=self._engine.psi_error_bound())
-            self._pending = False
-            self._dirty = 0
-            self._early = not bool(self._last.converged)
+            with obs_trace.span("query", op="top_k_certified",
+                                cache="early_stop") as sp:
+                prev_s = None if self._last is None else self._last.s
+                self._last, cert = self._engine.run_top_k(
+                    k, tol=self.tol, max_iter=self.max_iter, s0=prev_s)
+                self._cache = RankingCache(
+                    self._last.psi, err_bound=self._engine.psi_error_bound())
+                self._pending = False
+                self._dirty = 0
+                self._early = not bool(self._last.converged)
+            obs_metrics.histogram(
+                "psi_query_seconds", "read-side ψ query latency (seconds)",
+                labelnames=("op",)) \
+                .labels(op="top_k_certified").observe(sp.duration_s)
             return cert
         return RankedQueries.top_k_certified(self, k)
 

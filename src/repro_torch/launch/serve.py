@@ -23,6 +23,23 @@ ends with the fleet-wide top-k. ``--backend`` then names a fleet regime
 (``auto`` by default; on a card ``auto`` runs the lane-batched CUDA kernels
 for the buckets above ``dense_max_n``); ``--bucket-sizes`` sets the node
 rungs of the bucket policy.
+
+``--stream {poisson,burst,flash}`` replays a synthetic live event log (posts,
+reposts, follows, unfollows) through a :class:`~repro_torch.stream.
+StreamIngestor` into a float64 ``PsiService`` that starts cold, as the JAX
+launcher's ``--stream`` does on the same 2,000-user graph and seeds:
+online λ/μ estimation, coalesced O(Δ) patches, a resolve every
+``--resolve-every`` events, then query rounds and a parity check against a
+from-scratch solve.
+
+Observability: ``--metrics-port`` exposes the live registry over HTTP on
+localhost, ``--trace-out`` records every span to JSONL (+ a Chrome trace at
+exit), ``--metrics-dump`` writes one snapshot (the port's environment
+fingerprint + metrics + convergence records) at exit, ``--explain`` prints
+the EXPLAIN-ANALYZE tree of the last resolve and read, and
+``--calibration-out`` saves the cost model's calibration store. The JAX
+launcher's ``--slo``, ``--watch``, ``--profile-out`` and ``--chaos`` are not
+ported yet and exit with a message saying so.
 """
 from __future__ import annotations
 
@@ -101,6 +118,186 @@ def _serve_fleet(args) -> None:
           + ", ".join(f"{t}/{u}@{s:.2e}" for t, u, s in top))
 
 
+def _serve_stream(args) -> None:
+    """Streaming ψ serving: a live event log (posts / reposts / follows /
+    unfollows) drives online λ/μ estimation and coalesced O(Δ) patches
+    against a float64 PsiService; the freshness policy decides when to
+    re-resolve versus serve the existing ranking with certified staleness.
+    The JAX launcher's ``_serve_stream``, line for line."""
+    import torch
+
+    from ..core import (Activity, PsiService, RATE_FLOOR, heterogeneous,
+                        make_engine)
+    from ..graphs import powerlaw_configuration
+    from ..stream import (FreshnessPolicy, StreamIngestor, burst_stream,
+                          flash_crowd_stream, poisson_stream)
+
+    n, m = 2_000, 12_000
+    g = powerlaw_configuration(n, m, seed=7)
+    truth = heterogeneous(n, seed=8)
+    horizon = args.stream_events / float(truth.total.sum())
+    if args.stream == "poisson":
+        log = poisson_stream(truth, horizon, seed=9, graph=g)
+    elif args.stream == "burst":
+        rng = np.random.default_rng(9)
+        log = burst_stream(truth, horizon, seed=9,
+                           burst_users=rng.integers(0, n, 16),
+                           burst_factor=10.0)
+    else:
+        log = flash_crowd_stream(g, truth, horizon, seed=9,
+                                 new_followers=96, churn=0.3)
+    backend = args.backend or "reference"
+    # the platform starts cold: every user at the RATE_FLOOR clamp; the
+    # stream teaches the estimator the true rates event by event
+    cold = Activity(np.full(n, RATE_FLOOR), np.full(n, RATE_FLOOR))
+    svc = PsiService(g, cold, tol=1e-8, backend=backend,
+                     check_every=args.check_every, dtype=torch.float64,
+                     device=args.device)
+    args._svc = svc                          # for the --explain epilogue
+    half_life = args.half_life if args.half_life else horizon / 2
+    ing = StreamIngestor(
+        svc, half_life=half_life, topk=args.top_k,
+        policy=FreshnessPolicy(coalesce=64,
+                               resolve_every=args.resolve_every))
+    print(f"[serve] stream={args.stream}: {len(log)} events over "
+          f"{horizon:.1f}s event-time ({log.counts()}), half_life="
+          f"{half_life:.1f}s, resolve_every={args.resolve_every} events, "
+          f"backend={svc.backend} device={svc.engine.device}")
+    t0 = time.perf_counter()
+    rep = ing.ingest(log)
+    wall = time.perf_counter() - t0
+    print(f"[serve] ingested {rep.events_total} events in {wall:.2f}s "
+          f"({rep.events_total / wall:.0f} ev/s sustained) — "
+          f"{rep.resolves} resolves, top-{args.top_k} churn history "
+          f"{[round(c, 2) for c in ing.churn_history]}")
+    print(f"[serve] freshness: staleness={rep.staleness_events} events / "
+          f"{rep.staleness_seconds:.1f}s, dirty_mass={rep.dirty_mass:.2e}, "
+          f"certified(max_events=0)={rep.certify(max_events=0)}")
+    top, _ = ing.top_k(args.top_k)
+    print(f"[serve] top-{args.top_k}: {top.tolist()}")
+    # batched query traffic against the resolved service (populates the
+    # psi_query_seconds / cache-hit telemetry the obs epilogue summarizes)
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    for _ in range(args.requests):
+        users = rng.integers(0, n, args.batch)
+        svc.scores_batch(users)
+        svc.rank_of(users)
+        svc.top_k(args.top_k)
+    print(f"[serve] {args.requests} query rounds (batch {args.batch} + "
+          f"rank + top-{args.top_k}) in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # parity + estimation quality vs the generator's ground truth
+    batch = make_engine("reference", graph=svc.graph,
+                        activity=svc.engine.activity, dtype=torch.float64,
+                        device=args.device).run(tol=1e-8)
+    err = float(np.abs(svc.scores() - batch.psi.cpu().numpy()).max())
+    lam_hat, mu_hat = ing.estimator().rates()
+    rate_err = (np.abs(lam_hat - truth.lam).sum()
+                + np.abs(mu_hat - truth.mu).sum()) \
+        / float(truth.total.sum())
+    # Poisson information floor: ~0.8·√(2n/events) l1 relative error is the
+    # best ANY estimator can do from this many events over this many users
+    floor = 0.8 * (2 * n / max(1, rep.events_total)) ** 0.5
+    print(f"[serve] psi parity vs from-scratch batch: {err:.2e}; "
+          f"estimator l1 rate err vs ground truth: {rate_err:.1%} "
+          f"(Poisson information floor at {len(log)} events / {n} users "
+          f"≈ {floor:.0%})")
+
+
+def _obs_epilogue(args) -> None:
+    """When any obs flag was given: print the human summary (query
+    p50/p99, events/s, cache hit ratio, convergence records, retraces,
+    explain) and write the registry dump and the trace file. The JAX
+    launcher's epilogue without the parts whose modules are not ported
+    (resilience, slo, watch, profile)."""
+    if not (args.metrics_port or args.metrics_dump or args.trace_out
+            or args.explain):
+        return
+    from .. import obs
+    from ..obs import calibrate as obs_calibrate
+    from ..obs import convergence as obs_convergence
+    from ..obs import metrics as obs_metrics
+    from ..obs import trace as obs_trace
+
+    reg = obs_metrics.get_registry()
+
+    def pooled(name):
+        fam = reg.get(name)
+        if fam is None or getattr(fam, "kind", "") != "histogram":
+            return None
+        m = fam.merged()
+        return m if m.count else None
+
+    def total(name):
+        fam = reg.get(name)
+        return (sum(ch.value for _, ch in fam.children())
+                if fam is not None else 0.0)
+
+    q = pooled("psi_query_seconds")
+    if q is not None:
+        print(f"[obs] query latency: p50={q.quantile(0.5) * 1e3:.2f} ms "
+              f"p99={q.quantile(0.99) * 1e3:.2f} ms over {q.count} queries")
+    evs = reg.value("psi_stream_ingest_events_per_s")
+    if evs:
+        print(f"[obs] stream ingest: {evs:.0f} ev/s "
+              f"({int(total('psi_stream_events_total'))} events, "
+              f"{int(total('psi_stream_resolves_total'))} resolves)")
+    cache = reg.get("psi_query_cache_total")
+    if cache is not None:
+        tot = sum(ch.value for _, ch in cache.children())
+        hits = reg.value("psi_query_cache_total", result="hit") or 0.0
+        if tot:
+            print(f"[obs] query cache: hit ratio {hits / tot:.1%} "
+                  f"({int(hits)}/{int(tot)})")
+    tracker = obs_convergence.get_tracker()
+    for tenant in tracker.tenants():
+        recs = tracker.series(tenant)
+        if not recs:
+            continue
+        last = recs[-1]
+        pts = sum(len(r.points) for r in recs)
+        tag = "" if tenant == "_default" else f" tenant={tenant}"
+        print(f"[obs] convergence{tag}: {len(recs)} resolves, "
+              f"{pts} gap-trajectory points; last [{last.backend}] "
+              f"{last.iterations} iters gap={last.gap:.2e}")
+    retraces = total("psi_retraces_total")
+    print(f"[obs] silent jit retraces: {int(retraces)}")
+    svc = getattr(args, "_svc", None)
+    if args.explain:
+        if svc is None:
+            print("[explain] no PsiService ran in this mode; "
+                  "nothing to explain")
+        else:
+            tree = svc.explain()
+            print(tree)
+            if args.explain_out:
+                with open(args.explain_out, "w") as fh:
+                    fh.write(tree + "\n")
+                print(f"[explain] decision trail -> {args.explain_out}")
+        if args.calibration_out:
+            obs_calibrate.get_store().save(args.calibration_out)
+            print(f"[explain] calibration store -> {args.calibration_out}")
+    if args.metrics_dump:
+        if svc is None:
+            obs.dump(args.metrics_dump, device=args.device)
+        else:
+            obs.dump(args.metrics_dump, device=svc.engine.device,
+                     dtype=svc.engine.dtype)
+        print(f"[obs] registry dump -> {args.metrics_dump}")
+    tracer = obs_trace.get_tracer()
+    if tracer.enabled and args.trace_out:
+        tracer.flush()
+        chrome = args.trace_out + ".chrome.json"
+        tracer.export_chrome(chrome)
+        print(f"[obs] trace -> {args.trace_out} "
+              f"({len(tracer.spans)} spans retained, "
+              f"{tracer.dropped} dropped); chrome view -> {chrome}")
+    if args.metrics_port:
+        print(f"[obs] /metrics, /metrics.json and /healthz still live on "
+              f"port {args.metrics_port} until the process exits")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=("psi-score",),
@@ -131,9 +328,72 @@ def main(argv=None) -> None:
     ap.add_argument("--bucket-sizes", default=None,
                     help="comma list of node-capacity rungs for the fleet "
                          "bucket policy, e.g. '512,2048,8192'")
+    ap.add_argument("--stream", default=None,
+                    choices=("poisson", "burst", "flash"),
+                    help="replay a synthetic live event log (posts/"
+                         "reposts/follows/unfollows) through the "
+                         "StreamIngestor → online λ/μ estimation → "
+                         "continuously-fresh ψ")
+    ap.add_argument("--stream-events", type=int, default=4_000,
+                    help="approximate event count of the synthetic stream")
+    ap.add_argument("--half-life", type=float, default=None,
+                    help="estimator decay half-life in event-time seconds "
+                         "(default: half the stream horizon)")
+    ap.add_argument("--resolve-every", type=int, default=1_000,
+                    help="freshness policy: re-resolve psi every N "
+                         "ingested events (serve stale in between)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="expose the live metrics registry over HTTP "
+                         "(/metrics Prometheus text, /metrics.json, "
+                         "/healthz) on this localhost port")
+    ap.add_argument("--metrics-dump", default=None,
+                    help="write one obs snapshot (environment fingerprint "
+                         "+ metrics + convergence records + recent events) "
+                         "to this JSON path at exit")
+    ap.add_argument("--trace-out", default=None,
+                    help="record every span to this JSONL path (+ a "
+                         ".chrome.json trace_event export at exit)")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the EXPLAIN-ANALYZE decision trail of the "
+                         "last resolve and read")
+    ap.add_argument("--explain-out", default=None,
+                    help="also write the explain tree to this text path "
+                         "(implies --explain)")
+    ap.add_argument("--calibration-out", default=None,
+                    help="with --explain: save the cost-model calibration "
+                         "store to this JSON path at exit")
+    for flag in ("--slo", "--watch", "--chaos"):
+        ap.add_argument(flag, action="store_true",
+                        help="not ported yet (exits with a message)")
+    ap.add_argument("--profile-out", default=None,
+                    help="not ported yet (exits with a message)")
     args = ap.parse_args(argv)
+    missing = [flag for flag, on in (
+        ("--slo", args.slo), ("--watch", args.watch),
+        ("--profile-out", args.profile_out), ("--chaos", args.chaos)) if on]
+    if missing:
+        raise SystemExit(f"{', '.join(missing)}: not ported yet (the JAX "
+                         "package's obs.slo / obs.watch / obs.profile and "
+                         "resilience modules have no port yet)")
+    if args.explain_out:
+        args.explain = True
+    args._svc = None
+    if args.trace_out or args.metrics_port:
+        from .. import obs
+        if args.trace_out:
+            obs.configure(trace_out=args.trace_out)
+        if args.metrics_port:
+            obs.start_http_server(args.metrics_port)
+            print(f"[obs] metrics on "
+                  f"http://127.0.0.1:{args.metrics_port}/metrics "
+                  "(+ /metrics.json /healthz)")
+    if args.stream:
+        _serve_stream(args)
+        _obs_epilogue(args)
+        return
     if args.tenants > 1:
         _serve_fleet(args)
+        _obs_epilogue(args)
         return
     args.backend = args.backend or "reference"
 
@@ -150,6 +410,7 @@ def main(argv=None) -> None:
                      engine_opts=engine_opts)
     regime = getattr(svc.engine, "regime", None)
     plan = getattr(svc.engine, "plan", None)
+    args._svc = svc                          # for the --explain epilogue
     print(f"[serve] backend={svc.backend}"
           + (f" regime={regime}" if regime else "")
           + (f" plan={plan.label()} source={plan.source}" if plan else "")
@@ -179,6 +440,7 @@ def main(argv=None) -> None:
             print(f"[serve] delta update user {u}: re-converged in "
                   f"{svc.last_iterations()} warm iterations "
                   f"({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    _obs_epilogue(args)
 
 
 if __name__ == "__main__":

@@ -807,5 +807,11 @@ class TenantView(RankedQueries):
         triggers it — unlike PsiService, views never serve stale)."""
         return self._fleet._rec(self.tenant_id).staleness > 0
 
+    def _obs_cache_state(self) -> str:
+        rec = self._fleet._rec(self.tenant_id)
+        entry = self._fleet.frontier._caches.get(self.tenant_id)
+        fresh = entry is not None and entry[0] == rec.solved_epoch
+        return "hit" if fresh and rec.staleness == 0 else "miss"
+
     def _query(self):
         return self._fleet.frontier.ranking(self.tenant_id)

@@ -715,3 +715,138 @@ def test_push_frontier_rounds_repeat_bitwise_on_card(card, dtype):
     assert eng.last_run_stats["rounds"] > 0
     assert np.abs(eng.last_psi_host - psi_true).max() <= \
         eng.psi_error_bound()
+
+
+# --------------------------------------------------------------------- #
+# Streaming ingestion and the read funnel on the card
+# --------------------------------------------------------------------- #
+def _flash_ingest(device):
+    """A cold f64 ``cuda`` service on ``device`` fed a short flash crowd
+    (posts, reposts, follows, unfollows) through a StreamIngestor."""
+    from repro_torch.stream import (FreshnessPolicy, StreamIngestor,
+                                    flash_crowd_stream)
+    n = 3000
+    g = tg.powerlaw_configuration(n, 20000, seed=25)
+    truth = tc.heterogeneous(n, seed=26)
+    horizon = 3000 / float(truth.total.sum())
+    log = flash_crowd_stream(g, truth, horizon, new_followers=48, churn=0.5,
+                             seed=27)
+    cold = tc.Activity(np.full(n, tc.RATE_FLOOR), np.full(n, tc.RATE_FLOOR))
+    svc = tc.PsiService(g, cold, tol=1e-10, backend="cuda",
+                        dtype=torch.float64, device=device)
+    iters = []
+    run = svc.engine.run
+
+    def counted(**kw):
+        res = run(**kw)
+        iters.append(res.iterations)
+        return res
+
+    svc.engine.run = counted
+    ing = StreamIngestor(svc, half_life=horizon / 2,
+                         policy=FreshnessPolicy(coalesce=32,
+                                                resolve_every=500))
+    rep = ing.ingest(log)
+    return svc, ing, rep, iters
+
+
+def test_stream_ingest_on_card_matches_plain_on_cpu(card):
+    """The same flash-crowd ingest on the card (``power_step``) and with
+    the plain versions on the CPU: the same resolves, churn and per-resolve
+    iterations, s and ψ within ``power_step``'s f64 tolerance."""
+    before = power_step_call.launches
+    gpu, ing_g, rep_g, it_g = _flash_ingest(card)
+    assert power_step_call.launches - before == sum(it_g) > 0
+    cpu, ing_c, rep_c, it_c = _flash_ingest("cpu")
+    assert rep_g.resolves == rep_c.resolves >= 2
+    assert it_g == it_c and ing_g.churn_history == ing_c.churn_history
+    assert gpu.graph.m == cpu.graph.m != 20000
+    torch.testing.assert_close(gpu.last_result.s.cpu(), cpu.last_result.s,
+                               rtol=1e-14, atol=1e-16)
+    torch.testing.assert_close(gpu.last_result.psi.cpu(),
+                               cpu.last_result.psi, rtol=1e-14, atol=1e-16)
+
+
+def overflow_follows(svc, rng):
+    """``(src, dst)`` new follow edges into the edge-tile engine's fullest
+    tile that still has a free sentinel slot: one edge more than the tile
+    has free slots, so inserting them all must rebuild the format."""
+    eng = svc.engine
+    free = eng._tile_capacity - eng._tile_used
+    tile = int(np.argmin(np.where(free > 0, free, np.iinfo(np.int64).max)))
+    need = int(free[tile]) + 1
+    lo = tile * eng.tile
+    hi = min(lo + eng.tile, svc.graph.n)
+    src, dst = np.empty(0, np.int32), np.empty(0, np.int32)
+    while src.size < need:
+        s = rng.integers(0, svc.graph.n, 4 * need).astype(np.int32)
+        d = rng.integers(lo, hi, 4 * need).astype(np.int32)
+        s, d = eng.host.filter_new_edges(np.concatenate([src, s]),
+                                         np.concatenate([dst, d]))
+        src, dst = s[:need], d[:need]
+    return src, dst
+
+
+def test_stream_edge_flush_overflows_a_tile_on_card(card):
+    """Follows that overflow a tile's sentinel slots in one window rebuild
+    the edge-tile format; ψ after the resolve is the f64 reference's."""
+    from repro_torch.stream import Follow, FreshnessPolicy, StreamIngestor
+    g = tg.powerlaw_configuration(3000, 20000, seed=5)
+    act = tc.heterogeneous(g.n, seed=6)
+    svc = tc.PsiService(g, act, tol=1e-10, backend="cuda",
+                        dtype=torch.float64, device=card)
+    svc.scores()
+    src, dst = overflow_follows(svc, np.random.default_rng(7))
+    ing = StreamIngestor(svc, policy=FreshnessPolicy(
+        coalesce=len(src), resolve_every=None))
+    builds = svc.engine.format_builds
+    before = power_step_call.launches
+    for k, (s, d) in enumerate(zip(src, dst)):
+        ing.submit(Follow(float(k), int(s), int(d)))
+    assert svc.engine.format_builds == builds + 1         # one flush, rebuilt
+    assert svc.graph.m == g.m + len(src)
+    ing.resolve()
+    assert power_step_call.launches - before == svc.last_result.iterations
+    ref = tc.make_engine("reference", graph=svc.graph, activity=act,
+                         dtype=torch.float64, device=card).run(tol=1e-12)
+    assert float((svc.last_result.psi - ref.psi).abs().max()) <= 1e-10
+
+
+def test_read_funnel_adds_no_device_sync_on_card(card, monkeypatch):
+    """The funnel's span, histogram and counters read host clocks only:
+    cached reads make no CUDA stream wait, and ``engine.run`` waits on the
+    stream only under a live tracer (``Span.sync``)."""
+    from repro_torch import obs
+    waits = []
+    sync = torch.cuda.Stream.synchronize
+
+    def counting(self):
+        waits.append(self)
+        return sync(self)
+
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", counting)
+    prev = obs.configure(registry=obs.MetricsRegistry(),
+                         tracker=obs.ConvergenceTracker())
+    try:
+        g = tg.powerlaw_configuration(3000, 20000, seed=3)
+        svc = tc.PsiService(g, tc.heterogeneous(g.n, seed=4),
+                            backend="cuda", device=card)
+        svc.top_k(5)                              # solve + build the ranking
+        assert waits == []                        # null tracer: no span wait
+        for _ in range(10):
+            users = np.arange(8)
+            svc.scores_batch(users)
+            svc.rank_of(users)
+            svc.top_k(5)
+            svc.scores()
+        assert waits == []
+        reg = obs.metrics.get_registry()
+        assert reg.value("psi_query_cache_total", result="hit") == 40
+        obs.configure(tracer=obs.Tracer(None))
+        svc.update_activity(np.asarray([1]), lam=np.asarray([2.0]))
+        assert len(waits) == 1                    # engine.run's Span.sync
+        svc.top_k(5)
+        svc.scores_batch(np.arange(8))
+        assert len(waits) == 1                    # reads: still none
+    finally:
+        obs.restore(prev)

@@ -40,6 +40,9 @@ SLICE_MODULES = [
     "repro_torch.localpush", "repro_torch.localpush.push",
     "repro_torch.localpush.warm", "repro_torch.localpush.topk",
     "repro_torch.localpush.engine", "repro_torch.localpush.check",
+    "repro_torch.stream", "repro_torch.stream.events",
+    "repro_torch.stream.estimator", "repro_torch.stream.freshness",
+    "repro_torch.stream.ingest", "repro_torch.stream.check",
 ]
 
 
@@ -47,11 +50,19 @@ def _forbidden(name: str) -> bool:
     return name.split(".")[0] in ("jax", "jaxlib", "repro")
 
 
+EXAMPLES = sorted(str(p) for p in (ROOT / "examples").glob("torch_*.py"))
+
+
 def test_import_loads_neither_jax_nor_repro():
+    """Every module of the port, and every example of the port loaded from
+    its file (its imports run; its ``main`` does not)."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for k, path in enumerate({EXAMPLES!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{k}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -61,6 +72,10 @@ def test_import_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_example_list_holds_the_stream_example():
+    assert str(ROOT / "examples" / "torch_influence_stream.py") in EXAMPLES
 
 
 def test_slice_module_list_covers_the_package():
