@@ -78,7 +78,7 @@ on the first check that does not hold:
    beside as many single-lane launches, their bound, the plain version and
    a block-diagonal ``torch.sparse.mm``.
 
-Three more main paths run after the fleet, before the times:
+Four more main paths run after the fleet, before the times:
 
 * ``paper``: the paper's comparison (Exp. 1-2) on the DBLP stand-in at
   float64: Power-ψ through the ``cuda`` engine (``power_step``), Power-NF
@@ -112,6 +112,26 @@ Three more main paths run after the fleet, before the times:
   (80k events): events by tenant add up, each lane's ψ within 1e-5 rel L1
   of a solo f64 reference (top-10 identical).
 
+* ``driver``: the ``serve --executor sync|async`` path on the twitter
+  stand-in (uncut, ``heterogeneous(n, seed=6)``), on a world-1 mesh over
+  NCCL (two ranks cannot share one card under NCCL; the multi-rank
+  schedule is held on the CPU by the gloo tests). Sync: ``PsiDriver``
+  (16 iterations a chunk, a checkpoint a chunk) at f64 / tol 1e-9 with the
+  JAX package's counts (``DRIVER_ITERS``, from
+  ``tools/driver_iters_reference.py``), at f32 / tol 1e-7, then restarted
+  from its checkpoints at chunks 1 and 3 (ψ bitwise the clean run), and
+  ``PsiService(backend="distributed")`` through an activity patch and a
+  block-local edge insert. Async: ``AsyncPsiDriver(num_chunks=4)`` at τ = 0
+  / f64 with the JAX package's epochs and chunk steps, at τ = 2 with a
+  straggler on chunk 1 (max_staleness ≤ τ + 1, overlap printed), a
+  checkpoint restart and a warm ``rechunk(6)`` that needs fewer epochs
+  than a cold run; a ``StreamIngestor`` on the async driver (~10k burst
+  events); then ``serve --executor sync`` and ``--executor async`` as
+  subprocesses (exit 0). Every ψ is held against the f64 ``reference``
+  engine on the card (top-10 identical, rel L1 ≤ 1e-5); it prints each
+  part's host ms, a chunk's ms and the busy share of one sync solve. No
+  kernel of the port runs on it.
+
 Their exact solves (``exact_psi``, a host sparse LU of tens of seconds
 each) run in three worker processes from the start of the run, which the
 script ends before it exits.
@@ -123,11 +143,10 @@ built, with padding blocks, with its slots shuffled within each tile), on
 a tile with only padding blocks and a tile with none; its backward against
 the plain gather.
 
-Phases 3 to 8, ``paper``, ``push`` and ``stream`` are the main paths (the
-auto phase is two: model-only and microbench): every launch counter is set
-to 0 just before each path and read just after, and each kernel of a path
-must have launched there. The
-last line of standard output is ``{"ok": true, "device": {...}}``.
+Phases 3 to 8, ``paper``, ``push``, ``stream`` and ``driver`` are the main
+paths (the auto phase is two: model-only and microbench): every launch
+counter is set to 0 just before each path and read just after, and each
+kernel of a path must have launched there. The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -219,6 +238,19 @@ STREAM_ITERS = [41, 32, 33, 32, 33, 33, 33, 33, 33, 33, 34, 33, 35, 34, 33,
                 33, 34, 36, 33, 34, 36, 33, 34, 36, 35, 34, 34, 34, 34, 35,
                 34, 34, 34, 38, 36, 35, 36, 36, 36, 37, 36, 36, 36, 36, 35,
                 36, 36, 37, 37, 37, 36, 39, 36, 36, 36, 35]
+
+# The driver phase (phase_driver): the fault-tolerant executors on the
+# twitter stand-in with heterogeneous rates of seed 6. DRIVER_ITERS are the
+# JAX package's counts at float64, tol 1e-9 on the raw l1 gap, on the host
+# (`PYTHONPATH=src python tools/driver_iters_reference.py`): the sync
+# PsiDriver on a (1, 1) mesh at 16 iterations a chunk (iterations, chunks)
+# and the AsyncPsiDriver with 4 chunks at tau = 0 (epochs, chunk steps,
+# verification sweeps). The f32 runs stop at the CLI's tol 1e-7 and are
+# held against the f64 reference engine (top-10 identical, rel L1 ≤ 1e-5).
+DRIVER_ITERS = [48, 3, 45, 180, 1]
+DRIVER_TOL_F64 = 1e-9
+DRIVER_TOL = 1e-7
+DRIVER_STREAM_EVENTS = 10_000
 
 
 class SmokeFailure(Exception):
@@ -2192,6 +2224,263 @@ def phase_stream(report: dict) -> None:
         f"{time.perf_counter() - t1:.1f} s")
 
 
+def _rel_top(psi, ref) -> tuple[float, bool]:
+    """(rel L1 of ``psi`` from ``ref``, whether their top-10 are equal);
+    both node-order vectors, ``ref`` a float64 tensor on the card."""
+    import torch
+    psi = torch.as_tensor(psi).to(ref.device, torch.float64)
+    rel = float((psi - ref).abs().sum() / ref.abs().sum())
+    return rel, (torch.topk(psi, 10).indices.tolist()
+                 == torch.topk(ref, 10).indices.tolist())
+
+
+def _hold(tag, psi, ref, out) -> None:
+    """Finite ψ of the right shape, top-10 identical and rel L1 ≤ 1e-5
+    against the f64 reference; records the rel L1 under ``tag``."""
+    import torch
+    psi = torch.as_tensor(psi)
+    check(bool(torch.isfinite(psi).all()) and psi.shape == ref.shape,
+          f"driver {tag}: ψ not finite or of the wrong shape")
+    rel, same = _rel_top(psi, ref)
+    check(rel <= 1e-5 and same, f"driver {tag}: rel L1 {rel:.3e} from the "
+          f"f64 reference (≤ 1e-5), top-10 identical: {same}")
+    out["rel_l1"][tag] = rel
+
+
+def driver_sync(report, g, act, ref, out, tmp) -> None:
+    """The sync executor on a world-1 NCCL mesh: the f64 counts against
+    DRIVER_ITERS, the f32 run at the CLI's tol, a restart at chunks 1 and
+    3 (ψ bitwise the clean run), and PsiService(backend="distributed")
+    through an activity patch and a block-local edge insert."""
+    import torch
+    from repro_torch.core import PsiService
+    from repro_torch.core.distributed import DistributedPsi
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import PsiDriver
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        t0 = time.perf_counter()
+        d64 = DistributedPsi.from_graph(g, act, mesh, dtype=torch.float64)
+        rep64 = PsiDriver(d64, chunk_iters=16, ckpt_dir=f"{tmp}/sync64"
+                          ).run(tol=DRIVER_TOL_F64)
+        out["ms"]["sync_f64"] = (time.perf_counter() - t0) * 1e3
+        out["counts"] += [rep64.iterations, rep64.chunks]
+        _hold("sync_f64", rep64.psi, ref, out)
+        d32 = DistributedPsi.from_graph(g, act, mesh)
+        t0 = time.perf_counter()
+        clean = PsiDriver(d32, chunk_iters=16, ckpt_dir=f"{tmp}/sync32"
+                          ).run(tol=DRIVER_TOL)
+        out["ms"]["sync_f32"] = (time.perf_counter() - t0) * 1e3
+        out["chunk_ms"] = float(np.median(clean.chunk_durations)) * 1e3
+        out["sync_f32"] = [clean.iterations, clean.gap]
+        if clean.gap > DRIVER_TOL:
+            say(f"driver sync f32: the gap cycles above tol {DRIVER_TOL} "
+                f"(gap {clean.gap:.3e} after {clean.iterations}); the f64 "
+                "run above is the count held")
+        _hold("sync_f32", clean.psi, ref, out)
+        t0 = time.perf_counter()
+        rep = PsiDriver(d32, chunk_iters=16, ckpt_dir=f"{tmp}/restart").run(
+            tol=DRIVER_TOL, fail_hook=lambda c: c in (1, 3))
+        out["ms"]["sync_restart"] = (time.perf_counter() - t0) * 1e3
+        check(rep.restarts == 2 and np.array_equal(rep.psi, clean.psi),
+              f"driver restart: {rep.restarts} restarts, ψ bitwise the "
+              f"clean run: {np.array_equal(rep.psi, clean.psi)}")
+        say(f"driver sync: f64 {rep64.iterations} iterations in "
+            f"{rep64.chunks} chunks ({out['ms']['sync_f64']:.1f} ms with a "
+            f"checkpoint a chunk); f32 {clean.iterations} iterations, gap "
+            f"{clean.gap:.2e} ({out['ms']['sync_f32']:.1f} ms, a chunk "
+            f"{out['chunk_ms']:.3f} ms median); restart at chunks 1 and 3: "
+            f"{rep.restarts} restarts, ψ bitwise the clean run "
+            f"({out['ms']['sync_restart']:.1f} ms)")
+        out["busy"], _ = profile_run(
+            "driver sync f32 solve",
+            lambda: PsiDriver(d32, chunk_iters=16).run(tol=DRIVER_TOL))
+        # the service on the distributed backend: a patch of each kind
+        t0 = time.perf_counter()
+        svc = PsiService(g, act, tol=DRIVER_TOL, backend="distributed",
+                         engine_opts=dict(mesh=mesh), device="cuda")
+        svc.scores()
+        cold_it = svc.last_iterations()
+        u = int(np.argsort(-svc.scores())[3])
+        svc.update_activity(np.asarray([u]), lam=np.asarray(
+            [svc.engine.activity.lam[u] * 5.0]))
+        act_it = svc.last_iterations()
+        from repro_torch.core import make_engine
+        ref_a = make_engine("reference", graph=svc.graph,
+                            activity=svc.engine.activity,
+                            dtype=torch.float64, device="cuda").run(tol=1e-12)
+        _hold("service_activity", svc.scores(), ref_a.psi, out)
+        e_max = int(svc.engine.dist.part.e_max)
+        rng = np.random.default_rng(11)
+        src = rng.integers(0, g.n, 8).astype(np.int32)
+        dst = np.full(8, u, np.int32)
+        svc.add_edges(src, dst)
+        check(int(svc.engine.dist.part.e_max) == e_max,
+              "driver service: the edge insert regrew the partition")
+        ref_e = make_engine("reference", graph=svc.graph,
+                            activity=svc.engine.activity,
+                            dtype=torch.float64, device="cuda").run(tol=1e-12)
+        _hold("service_edges", svc.scores(), ref_e.psi, out)
+        out["ms"]["service"] = (time.perf_counter() - t0) * 1e3
+        out["service_iters"] = [cold_it, act_it, svc.last_iterations()]
+        say(f"driver service (backend=distributed, f32): cold "
+            f"{cold_it} iterations, activity patch {act_it} warm, block-"
+            f"local insert of {svc.graph.m - g.m} edges (e_max {e_max} "
+            f"kept) {svc.last_iterations()} warm; each held against the "
+            f"f64 reference ({out['ms']['service']:.1f} ms)")
+    finally:
+        mesh.close()
+
+
+def driver_async(report, g, act, ref, out, tmp) -> None:
+    """The async executor: τ = 0 at f64 against DRIVER_ITERS, τ = 2 with a
+    straggler, a checkpoint restart, a warm rechunk(6)."""
+    import torch
+    from repro_torch.asyncexec import AsyncPsiDriver
+    t0 = time.perf_counter()
+    r0 = AsyncPsiDriver(g, act, num_chunks=4, tau=0, dtype=torch.float64,
+                        device="cuda").run(tol=DRIVER_TOL_F64)
+    out["ms"]["async_tau0_f64"] = (time.perf_counter() - t0) * 1e3
+    out["counts"] += [r0.iterations, r0.chunks, r0.sync_sweeps]
+    check(r0.converged, "driver async τ=0: not converged")
+    _hold("async_tau0_f64", r0.psi, ref, out)
+    t0 = time.perf_counter()
+    r2 = AsyncPsiDriver(g, act, num_chunks=4, tau=2, device="cuda",
+                        delay_hook=lambda k, e: 0.002 if k == 1 else 0.0
+                        ).run(tol=DRIVER_TOL)
+    out["ms"]["async_tau2"] = (time.perf_counter() - t0) * 1e3
+    # a chunk is dispatched only within τ epochs of the slowest, so every
+    # read is ≤ τ stale; the spread after its publish is at most τ + 1
+    check(r2.converged and r2.sync_sweeps >= 1 and r2.max_staleness <= 3,
+          f"driver async τ=2: converged {r2.converged}, sweeps "
+          f"{r2.sync_sweeps}, max_staleness {r2.max_staleness} (≤ τ + 1)")
+    _hold("async_tau2", r2.psi, ref, out)
+    out["async_tau2"] = dict(epochs=r2.iterations, steps=r2.chunks,
+                             max_staleness=r2.max_staleness,
+                             overlap=r2.overlap_efficiency,
+                             step_ms=float(np.median(r2.chunk_durations)) * 1e3)
+    t0 = time.perf_counter()
+    rr = AsyncPsiDriver(g, act, num_chunks=4, tau=1, ckpt_dir=f"{tmp}/async",
+                        ckpt_every=2, device="cuda").run(
+        tol=DRIVER_TOL, fail_hook=lambda t: t in (3, 6))
+    out["ms"]["async_restart"] = (time.perf_counter() - t0) * 1e3
+    check(rr.restarts == 2 and rr.converged, f"driver async restart: "
+          f"{rr.restarts} restarts, converged {rr.converged}")
+    _hold("async_restart", rr.psi, ref, out)
+    t0 = time.perf_counter()
+    part = AsyncPsiDriver(g, act, num_chunks=4, tau=2, device="cuda")
+    part.run(tol=1e-3)
+    warm = part.rechunk(6).run(tol=DRIVER_TOL)
+    cold = AsyncPsiDriver(g, act, num_chunks=6, tau=2, device="cuda"
+                          ).run(tol=DRIVER_TOL)
+    out["ms"]["async_rechunk"] = (time.perf_counter() - t0) * 1e3
+    check(warm.iterations < cold.iterations, f"driver rechunk: warm "
+          f"{warm.iterations} epochs, cold {cold.iterations}")
+    _hold("async_rechunk", warm.psi, ref, out)
+    out["rechunk"] = [warm.iterations, cold.iterations]
+    say(f"driver async: τ=0 f64 {r0.iterations} epochs, {r0.chunks} chunk "
+        f"steps, {r0.sync_sweeps} sweep ({out['ms']['async_tau0_f64']:.1f} "
+        f"ms); τ=2 with a 2 ms straggler on chunk 1: {r2.iterations} epochs, "
+        f"max_staleness {r2.max_staleness}, overlap efficiency "
+        f"{r2.overlap_efficiency:.2f}x, a step "
+        f"{out['async_tau2']['step_ms']:.3f} ms median "
+        f"({out['ms']['async_tau2']:.1f} ms); restart at ticks 3 and 6: "
+        f"{rr.restarts} restarts ({out['ms']['async_restart']:.1f} ms); "
+        f"rechunk(6) warm {warm.iterations} epochs against cold "
+        f"{cold.iterations}")
+
+
+def driver_stream(report, g, act, out) -> None:
+    """A StreamIngestor on the AsyncPsiDriver target: ~10k burst events,
+    a resolve every 2,500; the final ψ against the f64 reference."""
+    import torch
+    from repro_torch.asyncexec import AsyncPsiDriver
+    from repro_torch.core import make_engine
+    from repro_torch.stream import (FreshnessPolicy, StreamIngestor,
+                                    burst_stream)
+    horizon = DRIVER_STREAM_EVENTS / float(act.total.sum())
+    rng = np.random.default_rng(12)
+    log = burst_stream(act, horizon, seed=12,
+                       burst_users=rng.integers(0, g.n, 16),
+                       burst_factor=10.0)
+    drv = AsyncPsiDriver(g, act, num_chunks=4, tau=2, device="cuda")
+    ing = StreamIngestor(drv, half_life=horizon / 2, topk=10,
+                         policy=FreshnessPolicy(coalesce=64,
+                                                resolve_every=2500),
+                         resolve_opts=dict(tol=DRIVER_TOL))
+    t0 = time.perf_counter()
+    rep = ing.ingest(log)
+    wall = time.perf_counter() - t0
+    ref = make_engine("reference", graph=drv.host.graph(),
+                      activity=drv.host.activity(), dtype=torch.float64,
+                      device="cuda").run(tol=1e-12)
+    check(rep.events_total == len(log) and rep.resolves >= 3,
+          f"driver stream: {rep.events_total} of {len(log)} events, "
+          f"{rep.resolves} resolves")
+    _hold("stream", ing.psi(), ref.psi, out)
+    out["ms"]["stream"] = wall * 1e3
+    out["stream"] = dict(events=len(log), resolves=rep.resolves,
+                         ev_per_s=len(log) / wall)
+    say(f"driver stream: {len(log)} burst events into the AsyncPsiDriver "
+        f"target in {wall:.2f} s ({len(log) / wall:.0f} ev/s), "
+        f"{rep.resolves} resolves; ψ held against the f64 reference")
+
+
+def driver_cli(out) -> None:
+    """``serve --executor sync`` and ``--executor async`` on the card, one
+    subprocess each, side by side; both must exit 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {ex: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "psi-score", "--executor", ex, "--device", "cuda"], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for ex in ("sync", "async")}
+    for ex, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        check(proc.returncode == 0, f"serve --executor {ex} exited "
+              f"{proc.returncode}: {stderr[-2000:]}")
+        first = next(ln for ln in stdout.splitlines()
+                     if ln.startswith("[serve] executor="))
+        say(f"cli: {first}")
+    out["ms"]["cli"] = (time.perf_counter() - t0) * 1e3
+
+
+def phase_driver(report: dict) -> None:
+    """The fault-tolerant driver path (``serve --executor sync|async``) on
+    the twitter stand-in at Table II's size: :func:`driver_sync`,
+    :func:`driver_async`, :func:`driver_stream` and :func:`driver_cli`. No
+    kernel of the port runs on it (the sums are ``torch.segment_reduce``,
+    the collectives NCCL's at world size 1)."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import heterogeneous, make_engine
+    g = report["twitter"]
+    act = heterogeneous(g.n, seed=6)
+    t_all = time.perf_counter()
+    ref = make_engine("reference", graph=g, activity=act,
+                      dtype=torch.float64, device="cuda").run(tol=1e-12).psi
+    out = dict(counts=[], ms={}, rel_l1={})
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        driver_sync(report, g, act, ref, out, tmp)
+        driver_async(report, g, act, ref, out, tmp)
+    driver_stream(report, g, act, out)
+    driver_cli(out)
+    check(out["counts"] == DRIVER_ITERS, f"driver counts {out['counts']} "
+          f"!= DRIVER_ITERS {DRIVER_ITERS}")
+    out["ms"]["path"] = (time.perf_counter() - t_all) * 1e3
+    say(f"driver: counts {out['counts']} == DRIVER_ITERS; host ms by part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["ms"].items())
+        + "; worst rel L1 from the f64 reference "
+        f"{max(out['rel_l1'].values()):.3e}")
+    report["driver"] = out
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -2864,7 +3153,15 @@ def summary(report: dict) -> str:
         "stream_reads_ms": {op: [g(x) for x in v] for op, v in
                             report["stream"]["reads"].items()},
         "stream_fleet": {k: g(v) if isinstance(v, float) else v
-                         for k, v in report["stream_fleet"].items()}})
+                         for k, v in report["stream_fleet"].items()},
+        "driver": {"counts": report["driver"]["counts"],
+                   "ms": {k: g(v) for k, v in report["driver"]["ms"].items()},
+                   "chunk_ms": g(report["driver"]["chunk_ms"]),
+                   "busy": g(report["driver"]["busy"]),
+                   "max_rel_l1": g(max(report["driver"]["rel_l1"].values())),
+                   "async_tau2": {k: g(v) if isinstance(v, float) else v
+                                  for k, v in
+                                  report["driver"]["async_tau2"].items()}}})
 
 
 def main() -> int:
@@ -2909,7 +3206,8 @@ def main() -> int:
              ("paper", phase_paper, ("power_step",)),
              ("push", phase_push, ()),
              ("stream", phase_stream,
-              ("power_step", "power_step_lanes", "edge_spmv_lanes"))]
+              ("power_step", "power_step_lanes", "edge_spmv_lanes")),
+             ("driver", phase_driver, ())]
     pool = None
     try:
         phase_device(report)

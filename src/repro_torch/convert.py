@@ -24,7 +24,8 @@ from .kernels.formats import BsrFormat, EdgeTileFormat
 from .kernels.ops import DeviceBsr, DeviceEdgeTiles
 
 __all__ = ["operators_from_numpy", "edge_tiles_from_numpy", "bsr_from_numpy",
-           "warm_start_from_numpy", "sage_params_from_numpy"]
+           "warm_start_from_numpy", "sage_params_from_numpy",
+           "dist_arrays_from_numpy", "chunk_args_from_numpy"]
 
 
 def _host_fields(fields: Mapping, names) -> dict:
@@ -102,3 +103,43 @@ def sage_params_from_numpy(tree, *, dtype: torch.dtype | None = None,
     return dict(layers=[{k: {kk: leaf(vv) for kk, vv in v.items()}
                          for k, v in lyr.items()} for lyr in tree["layers"]],
                 head={k: leaf(v) for k, v in tree["head"].items()})
+
+
+def dist_arrays_from_numpy(fields: Mapping, *, row: int, col: int,
+                           dtype: torch.dtype | None = None,
+                           device: str | torch.device = "cuda"):
+    """One rank's block ``(row, col)`` of the distributed operators
+    (:class:`~repro_torch.core.distributed.DistPsiArrays`) from the fields
+    of the JAX package's ``DistPsiArrays`` as numpy (the global arrays:
+    ``src_local``/``dst_local`` ``[d, mo, e_max]``, ``inv_w_src``/``c_src``
+    ``[d, mo·q]``, the pieces ``[d, mo, q]``). The dst run lengths are
+    counted here from ``dst_local``. ``dtype`` defaults to the arrays'."""
+    from .core.distributed import block_arrays
+    fields = {k: np.asarray(v) for k, v in fields.items()}
+    if dtype is None:
+        dtype = (torch.float64 if fields["mu_piece"].dtype == np.float64
+                 else torch.float32)
+    d, _, q = fields["mu_piece"].shape
+    nc = d * q                                  # n_pad / mo
+    return block_arrays(fields, row, col, nc, dtype, resolve_device(device))
+
+
+def chunk_args_from_numpy(fields: Mapping, *, q: int,
+                          device: str | torch.device = "cuda"):
+    """A :class:`~repro_torch.asyncexec.scheduler.ChunkArgs` from the
+    fields of the JAX package's ``ChunkArgs`` as numpy (``src``,
+    ``dst_local``, ``mu``, ``c``, ``inv_w``, ``start``): the dst run
+    lengths (``q`` real runs, then the sentinel run) are counted here from
+    ``dst_local``; the dtype is the arrays'."""
+    from .asyncexec.scheduler import ChunkArgs
+    dev = resolve_device(device)
+
+    def t(k, dt=None):
+        return torch.tensor(np.asarray(fields[k], dt), device=dev)
+
+    return ChunkArgs(
+        src=t("src", np.int64),
+        lengths=torch.as_tensor(np.bincount(
+            np.asarray(fields["dst_local"], np.int64), minlength=q + 1),
+            device=dev),
+        mu=t("mu"), c=t("c"), inv_w=t("inv_w"), start=int(fields["start"]))

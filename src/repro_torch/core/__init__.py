@@ -10,7 +10,8 @@ from .exact import exact_psi
 from .accelerated import power_psi_accelerated
 from .engine import (ConvergenceCriterion, EngineState, PsiEngine,
                      ReferenceEngine, AcceleratedEngine, CudaEngine,
-                     AutoEngine, make_engine, register_backend,
+                     AutoEngine, DistributedEngine, AsyncEngine,
+                     ChunkExtrapolator, make_engine, register_backend,
                      available_backends, make_batched_loop,
                      make_reference_step, make_lane_reference_step,
                      make_dense_step, make_edge_tile_step)
@@ -24,7 +25,8 @@ __all__ = [
     "PowerNFResult", "power_nf",
     "PageRankResult", "build_pagerank_ops", "pagerank", "exact_psi",
     "ConvergenceCriterion", "EngineState", "PsiEngine", "ReferenceEngine",
-    "AcceleratedEngine", "CudaEngine", "AutoEngine", "make_engine",
+    "AcceleratedEngine", "CudaEngine", "AutoEngine", "DistributedEngine",
+    "AsyncEngine", "ChunkExtrapolator", "make_engine",
     "register_backend", "available_backends", "make_batched_loop",
     "make_reference_step", "make_lane_reference_step", "make_dense_step",
     "make_edge_tile_step",

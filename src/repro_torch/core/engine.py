@@ -27,6 +27,11 @@ Backends are registered by name and constructed through :func:`make_engine`:
   * ``push`` — the local residual-push solver with a certified error
     bound (:class:`repro_torch.localpush.PushEngine`, registered on first
     use of the registry).
+  * ``distributed`` — the 2-D block-cyclic schedule of
+    :mod:`repro_torch.core.distributed` over a ``torch.distributed`` mesh,
+    chunked on the host (:class:`DistributedEngine`).
+  * ``async`` — the bounded-staleness chunk scheduler of
+    :mod:`repro_torch.asyncexec` (:class:`AsyncEngine`).
 
 All share one :class:`ConvergenceCriterion` — ε on ‖B‖·‖Δs‖ per Eq. 19 —
 and report interchangeable :class:`~repro_torch.core.power_psi.PsiResult`
@@ -64,6 +69,7 @@ from ..kernels.ops import (DeviceBsr, DeviceEdgeTiles, _i32, bsr_step,
                            power_step, power_step_lanes)
 from ..obs import calibrate as obs_calibrate
 from ..obs import convergence as obs_convergence
+from ..obs import log as obs_log
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from .activity import Activity
@@ -72,6 +78,7 @@ from .power_psi import _NORMS, PsiResult
 
 __all__ = ["ConvergenceCriterion", "EngineState", "PsiEngine",
            "ReferenceEngine", "AcceleratedEngine", "CudaEngine", "AutoEngine",
+           "DistributedEngine", "AsyncEngine", "ChunkExtrapolator",
            "make_engine", "register_backend", "available_backends",
            "make_reference_step", "make_batched_loop",
            "make_lane_reference_step", "make_dense_step",
@@ -100,6 +107,9 @@ class ConvergenceCriterion:
         if self.norm not in _NORMS:
             raise ValueError(f"unknown norm {self.norm!r}; "
                              f"choose from {sorted(_NORMS)}")
+
+    def scale(self, b_norm) -> float:
+        return float(b_norm) if self.use_b_norm else 1.0
 
     def resolve(self, tol: float | None,
                 max_iter: int | None) -> tuple[float, int]:
@@ -583,6 +593,78 @@ def _accelerated_loop(step_with_gap, args, s0: torch.Tensor,
     return s, gap, t
 
 
+def _l1(x) -> float:
+    return float(abs(x).sum())
+
+
+class ChunkExtrapolator:
+    """Host-side Aitken jump between fixed-length device chunks.
+
+    The ``distributed`` backend (and ``runtime/psi_driver.py``) evaluate
+    convergence between ``chunk_iters``-step chunks; this helper
+    extrapolates across chunk *endpoints*: the per-chunk contraction ratio
+    is ρ^chunk_iters, so the remaining tail after chunk t sums to
+    Δ_t · r/(1−r) exactly as in the per-iteration loop. Eq. 19 survives
+    because the termination gap is always produced by the *next* chunk's
+    plain steps (≥ 1 plain iteration after any jump). A chunk whose gap
+    fails to shrink disables all future jumps — no revert is needed since
+    the chunk's plain steps already re-contracted the iterate.
+
+    **Epoch-consistency guard** (async executors): the geometric-tail
+    formula assumes Δ = s_out − s_in spans a *uniform* number of
+    contraction applications on every coordinate. Under bounded-staleness
+    execution a chunk endpoint can mix per-chunk epochs; callers pass the
+    endpoint pair's ``epoch_spread`` (max − min contributing chunk epoch)
+    and the extrapolator only jumps on same-epoch pairs (``spread == 0``),
+    dropping its ratio history otherwise — a mixed-epoch Δ is not one
+    contraction sample and must not seed r.
+
+    ``l1(x)`` is the norm of a Δ (tensor or array); a sharded iterate
+    passes its global norm (:meth:`DistributedPsi.l1`), so every rank takes
+    the same decisions.
+    """
+
+    def __init__(self, tol: float, *, guard: float = 100.0, l1=_l1):
+        self.tol = tol
+        self.guard = guard
+        self.l1 = l1
+        self.reset()
+
+    def reset(self) -> None:
+        """Forget history (e.g. after a checkpoint restore)."""
+        self._prev_dn: float | None = None
+        self._gap_prev = float("inf")
+        self.enabled = True
+        self.jumps = 0
+
+    def advance(self, s_in, s_out, gap: float, *, epoch_spread: int = 0):
+        """Map a finished chunk (input → output, scaled gap) to the next
+        chunk's start vector, possibly extrapolated. ``epoch_spread != 0``
+        marks the endpoints as epoch-inconsistent: no jump fires and the
+        Δ-ratio history resets (synchronous callers pass the default 0)."""
+        if not self.enabled:
+            return s_out
+        if epoch_spread != 0:
+            # mixed-epoch Δ poisons both the ratio history and the
+            # gap-progress baseline — drop them, keep only `enabled`
+            self._prev_dn = None
+            self._gap_prev = float("inf")
+            return s_out
+        if gap >= self._gap_prev:             # jump/stall did not help
+            self.enabled = False
+            obs_convergence.record_aitken(False)
+            return s_out
+        self._gap_prev = gap
+        dn = self.l1(s_out - s_in)
+        r = 0.0 if not self._prev_dn else dn / self._prev_dn
+        self._prev_dn = dn
+        if 0.0 < r < 0.999 and gap > self.guard * self.tol:
+            self.jumps += 1
+            obs_convergence.record_aitken(True)
+            return s_out + (s_out - s_in) * (r / (1.0 - r))
+        return s_out
+
+
 # --------------------------------------------------------------------- #
 # reference — edge-form segmented-sum iteration (power_psi semantics)
 # --------------------------------------------------------------------- #
@@ -929,3 +1011,314 @@ class AutoEngine(CudaEngine):
     # super().run is already the instrumented CudaEngine.run — marking
     # this thin timer prevents a second nested span/record per resolve
     run._obs_instrumented = True
+
+
+# --------------------------------------------------------------------- #
+# distributed — 2-D block-cyclic schedule over torch.distributed, chunked
+# --------------------------------------------------------------------- #
+@register_backend("distributed")
+class DistributedEngine(PsiEngine):
+    """Sharded Power-ψ over a (data, model) mesh
+    (:func:`repro_torch.launch.mesh.make_mesh`; without ``mesh=`` a
+    ``(world_size, 1)`` mesh on the engine's device, world size 1 when no
+    process group runs).
+
+    The device program is a fixed-length ``chunk_iters``-step chunk; the
+    criterion is evaluated on the host between chunks (iteration counts are
+    therefore multiples of ``chunk_iters``), exactly the
+    ``runtime/psi_driver.py`` schedule. The gap norm must be ``l1`` (what the
+    sharded step sums). ``s`` is converted to/from node order at the API
+    boundary so results interchange with the other backends.
+
+    ``accelerate=True`` applies the Aitken jump at *chunk* granularity via
+    :class:`ChunkExtrapolator`. ``patch_edges`` is a block-local O(Δ)
+    insert into the node-stable 2-D partition; a genuine block overflow
+    (``e_max`` exceeded) is handled per ``on_overflow``:
+
+    * ``"regrow"`` (default) — warn naming the overflowing block and the
+      required capacity, rebuild the partitioned arrays from the
+      already-patched host graph at the grown ``e_max``, and return True.
+    * ``"raise"`` — raise :class:`~repro_torch.core.distributed.
+      BlockOverflowError` (block, ``e_max``, required capacity) for callers
+      that budget capacity themselves; nothing is mutated.
+    """
+
+    def __init__(self, *, mesh=None, chunk_iters: int = 16,
+                 on_overflow: str = "regrow", **kw):
+        super().__init__(**kw)
+        if self.criterion.norm != "l1":
+            raise ValueError("distributed backend sums an l1 gap; "
+                             f"got norm={self.criterion.norm!r}")
+        if on_overflow not in ("regrow", "raise"):
+            raise ValueError(f"on_overflow must be 'regrow' or 'raise'; "
+                             f"got {on_overflow!r}")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh is on {mesh.device}, the engine on "
+                             f"{self.device}")
+        self.mesh = mesh
+        self.chunk_iters = chunk_iters
+        self.on_overflow = on_overflow
+        self.dist = None
+
+    def _install_dist(self, dist) -> None:
+        self.dist = dist
+        self._run_chunk = dist.make_run(chunk_iters=self.chunk_iters)
+        self._one_step = dist.make_step()
+        self._epi = dist.make_epilogue()
+
+    def prepare(self, graph: Graph, activity: Activity) -> EngineState:
+        from ..launch.mesh import make_mesh, world_size
+        from .distributed import DistributedPsi
+        self._base_prepare(graph, activity)
+        if self.mesh is None:
+            self.mesh = make_mesh((world_size(), 1), ("data", "model"),
+                                  device=self.device)
+        self._install_dist(DistributedPsi.from_graph(
+            graph, activity, self.mesh, dtype=self.dtype))
+        return EngineState(s=self.dist.arrays.c_src)
+
+    def step(self, state: EngineState) -> EngineState:
+        s_new, gap = self._one_step(state.s, self.dist.arrays)
+        scale = self.criterion.scale(self.host.b_norm)
+        return EngineState(s=s_new, gap=scale * float(gap), t=state.t + 1)
+
+    def run(self, *, tol=None, max_iter=None, s0=None) -> PsiResult:
+        tol, max_iter = self.criterion.resolve(tol, max_iter)
+        dist = self.dist
+        if s0 is None:
+            s = dist.arrays.c_src
+        else:
+            s_host = torch.as_tensor(s0).detach().cpu().numpy()
+            s = dist.local_src(dist.part.to_src_layout(
+                s_host.astype(numpy_dtype(self.dtype))))
+        scale = self.criterion.scale(self.host.b_norm)
+        extrap = (ChunkExtrapolator(tol, l1=dist.l1) if self.accelerate
+                  else None)
+        it, gap = 0, float("inf")
+        while it < max_iter and gap > tol:
+            s_new, gap_dev = self._run_chunk(s, dist.arrays)
+            it += self.chunk_iters
+            raw = float(gap_dev)
+            gap = scale * raw
+            # the host already read this gap — record it, free of syncs
+            obs_convergence.record_gap(it, raw=raw, certified=gap)
+            s = extrap.advance(s, s_new, gap) if extrap else s_new
+        psi = dist.gather_psi(self._epi(s, dist.arrays))
+        s_node = dist.part.from_src_layout(dist.gather_src(s))
+        return self._result(self._as_node_vector(psi),
+                            self._as_node_vector(s_node), gap, it, tol)
+
+    def patch_activity(self, users, lam=None, mu=None) -> bool:
+        # partition and edge layouts are untouched; only the activity-derived
+        # arrays are rebuilt (no re-partition, no edge re-sort)
+        self.host.patch_activity(users, lam=lam, mu=mu)
+        self.ops = self.host.refresh_node_arrays(self.ops, self.dtype)
+        self.dist.arrays = self.dist.build_arrays(self.graph, self.activity)
+        return True
+
+    def patch_edges(self, src, dst) -> bool:
+        """Block-local edge insert into the node-stable 2-D partition.
+
+        The node → (row, col) ownership map depends only on (n, d, mo, q),
+        so a new edge lands in exactly one block; it is merged dst-sorted
+        into that block's host slice (sentinels stay at the tail), the rank
+        owning a touched block uploads that block's src ids and run
+        lengths, and every rank rewrites the 1/w entries of its row — no
+        re-partition, no O(M) rebuild. A genuine ``e_max`` block overflow
+        regrows the partition (with a warning naming the block and required
+        capacity) or raises :class:`~repro_torch.core.distributed.
+        BlockOverflowError`, per the engine's ``on_overflow`` option.
+        """
+        from .distributed import BlockOverflowError, DistributedPsi
+        p = self.dist.part
+        nc, q = p.nc, p.q
+        # probe (no mutation) first: on_overflow='raise' must leave the
+        # host mirror untouched, or a caught-and-retried patch would dedup
+        # against the half-applied state and silently skip the device insert
+        src_k, dst_k = self.host.filter_new_edges(src, dst)
+        if src_k.size == 0:
+            return True
+        s64 = src_k.astype(np.int64)
+        d64 = dst_k.astype(np.int64)
+        c_of_src = s64 // nc
+        off = s64 - c_of_src * nc
+        row = off // q
+        src_loc = (c_of_src * q + (off - row * q)).astype(np.int32)
+        col = d64 // nc
+        dst_loc = (d64 - col * nc).astype(np.int32)
+        add = np.zeros((p.d, p.mo), np.int64)
+        np.add.at(add, (row, col), 1)
+        over = p.e_counts + add > p.e_max
+        if np.any(over):
+            # name the *worst* overflowing block so the reported required
+            # capacity belongs to the block in the message
+            need = p.e_counts + add
+            r_o, c_o = (int(x) for x in
+                        np.unravel_index(int(np.argmax(need)), need.shape))
+            required = int(need[r_o, c_o])
+            if self.on_overflow == "raise":
+                raise BlockOverflowError((r_o, c_o), int(p.e_max), required)
+            obs_log.warn(
+                "block_overflow_regrow",
+                f"distributed patch_edges: block (row={r_o}, col={c_o}) "
+                f"overflows e_max={int(p.e_max)} (insert requires capacity "
+                f">= {required}); regrowing the partition from the patched "
+                f"graph", category=RuntimeWarning,
+                row=r_o, col=c_o, e_max=int(p.e_max), required=required)
+            # commit the edges to the host mirror, then repartition once at
+            # the grown e_max
+            self.host.insert_filtered(src_k, dst_k)
+            self._graph_stale = True
+            self._install_dist(DistributedPsi.from_graph(
+                self.graph, self.activity, self.mesh, dtype=self.dtype))
+            self.ops = self.host.to_device(self.dtype, self.device)
+            return True
+        self.host.insert_filtered(src_k, dst_k)
+        self._graph_stale = True
+        a = self.dist.arrays
+        mesh = self.mesh
+        src_local, lengths = a.src_local, a.lengths
+        for r, c in {(int(r), int(c)) for r, c in zip(row, col)}:
+            sel = (row == r) & (col == c)
+            s_row = p.src_local[r, c]
+            d_row = p.dst_local[r, c]
+            cnt = int(p.e_counts[r, c])
+            for sl, dl in sorted(zip(src_loc[sel], dst_loc[sel]),
+                                 key=lambda e: e[1]):
+                ins = int(np.searchsorted(d_row[:cnt], dl, side="right"))
+                s_row[ins + 1:cnt + 1] = s_row[ins:cnt].copy()
+                d_row[ins + 1:cnt + 1] = d_row[ins:cnt].copy()
+                s_row[ins], d_row[ins] = sl, dl
+                cnt += 1
+            p.e_counts[r, c] = cnt
+            if (r, c) == (mesh.row, mesh.col):
+                src_local = torch.as_tensor(s_row.astype(np.int64),
+                                            device=self.device)
+                lengths = torch.as_tensor(
+                    np.bincount(d_row, minlength=nc + 1), device=self.device)
+        # 1/w changed only at the src endpoints of the new edges; this rank
+        # holds the entries of its row
+        g = np.unique(s64)
+        c_of = g // nc
+        off_g = g - c_of * nc
+        r_g = off_g // q
+        mine = r_g == mesh.row
+        loc_g = (c_of * q + (off_g - r_g * q))[mine]
+        inv_w_src = a.inv_w_src.clone()
+        inv_w_src[torch.as_tensor(loc_g, device=self.device)] = torch.as_tensor(
+            self.host.inv_w[g[mine]], dtype=self.dtype, device=self.device)
+        self.dist.arrays = dataclasses.replace(
+            a, src_local=src_local, lengths=lengths, inv_w_src=inv_w_src)
+        self.ops = self.host.to_device(self.dtype, self.device)
+        return True
+
+
+# --------------------------------------------------------------------- #
+# async — bounded-staleness overlapped chunk scheduler (repro_torch.asyncexec)
+# --------------------------------------------------------------------- #
+@register_backend("async")
+class AsyncEngine(PsiEngine):
+    """Power-ψ through the bounded-staleness chunk scheduler.
+
+    The node set splits into ``num_chunks`` dst-row chunks; each carries an
+    epoch counter and steps against the latest published board without a
+    global barrier — a chunk may run up to ``tau`` epochs ahead of the
+    slowest one (``tau=0`` is exactly the bulk-synchronous schedule).
+    Termination is gated by the stale-corrected Eq. 19 certificate and
+    always sealed by a synchronous verification sweep, so results are
+    interchangeable with every other backend. On a card each worker thread
+    steps on its own CUDA stream.
+
+    ``delay_hook(chunk, epoch) -> seconds`` injects simulated stragglers;
+    ``read_hook(reader, neighbor, epochs) -> lag`` forces reads from the
+    epoch history (the staleness-injection test harness). The gap norm is
+    ``l1`` (what the chunk deltas sum to).
+    """
+
+    def __init__(self, *, num_chunks: int = 4, tau: int = 2,
+                 max_workers: int | None = None, delay_hook=None,
+                 read_hook=None, lane_pad: int = 128, **kw):
+        super().__init__(**kw)
+        if self.criterion.norm != "l1":
+            raise ValueError("async backend sums per-chunk l1 gaps; "
+                             f"got norm={self.criterion.norm!r}")
+        if self.accelerate:
+            raise ValueError(
+                "async backend has no Aitken composition (a mixed-epoch Δ "
+                "is not a contraction sample — see ChunkExtrapolator's "
+                "epoch guard); run accelerate on a synchronous backend")
+        from ..asyncexec.staleness import StalenessBound
+        StalenessBound(tau)                  # validate tau eagerly
+        self.num_chunks = int(num_chunks)
+        self.tau = int(tau)
+        self.max_workers = max_workers
+        self.delay_hook = delay_hook
+        self.read_hook = read_hook
+        self.lane_pad = int(lane_pad)
+        self.sched = None
+        self.chunked = None
+
+    def prepare(self, graph: Graph, activity: Activity) -> EngineState:
+        from ..asyncexec.scheduler import (AsyncChunkScheduler,
+                                           ChunkedOperators)
+        from ..asyncexec.staleness import StalenessBound
+        self._base_prepare(graph, activity)
+        self.chunked = ChunkedOperators(self.host, self.num_chunks,
+                                        dtype=self.dtype,
+                                        lane_pad=self.lane_pad,
+                                        device=self.device)
+        self.sched = AsyncChunkScheduler(
+            self.chunked, bound=StalenessBound(self.tau),
+            max_workers=self.max_workers, delay_hook=self.delay_hook,
+            read_hook=self.read_hook)
+        return EngineState(s=self.chunked.board0)
+
+    def step(self, state: EngineState) -> EngineState:
+        """One *synchronous* sweep of every chunk — the protocol-level step
+        (the overlap lives in ``run``, not here)."""
+        board, raw = self.sched.sync_sweep(state.s)
+        return EngineState(s=board, gap=float(self._scale()) * raw,
+                           t=state.t + 1)
+
+    def run(self, *, tol=None, max_iter=None, s0=None) -> PsiResult:
+        tol, max_iter = self.criterion.resolve(tol, max_iter)
+        self.sched.reset(s0=None if s0 is None
+                         else self._s0_node_order(s0))
+        out = self.sched.run(tol=tol, max_epochs=max_iter,
+                             scale=float(self._scale()))
+        self.last_run = out                  # staleness/overlap observability
+        s_node = self.chunked.node_order(out.s)
+        res = self._result(self.ops.psi_epilogue(s_node), s_node, out.gap,
+                           int(out.epochs.max()), tol)
+        # converged comes from the scheduler, not gap ≤ tol: an epoch-budget
+        # exit reports the latest *stale* gap sum, which may under-report
+        # the true residual and must never claim convergence unverified
+        return dataclasses.replace(
+            res, converged=bool(out.converged),
+            # honest currency: chunk-steps / chunks-per-sweep, + epilogue
+            matvecs=-(-out.total_steps // self.num_chunks) + 1)
+
+    # -- delta hooks (mid-flight capable at the scheduler level) --------- #
+    def patch_activity(self, users, lam=None, mu=None) -> bool:
+        self.host.patch_activity(users, lam=lam, mu=mu)
+        self.ops = self.host.refresh_node_arrays(self.ops, self.dtype)
+        self.sched.patch_node_arrays()
+        return True
+
+    def patch_edges(self, src, dst) -> bool:
+        src, dst = self.host.patch_edges(src, dst)
+        self._graph_stale = True
+        self.ops = self.host.to_device(self.dtype, self.device)
+        if src.size:
+            self.sched.patch_edges(src, dst)
+        return True
+
+    def unpatch_edges(self, src, dst) -> bool:
+        src, dst = self.host.remove_edges(src, dst)
+        if src.size:
+            self._graph_stale = True
+            self.ops = self.host.to_device(self.dtype, self.device)
+            # same touched-chunk rebuild as an insert: the scheduler's
+            # patch hook re-reads the (already shrunk) host mirror
+            self.sched.patch_edges(src, dst)
+        return True

@@ -1,0 +1,203 @@
+"""A device mesh over ``torch.distributed`` for the 2-D distributed Power-ψ.
+
+The JAX package builds its mesh with ``jax.make_mesh(shape, axis_names)``
+and lets ``shard_map`` name the axes a collective runs over. Here every
+rank is one process with one device, and :func:`make_mesh` gives each rank
+what the sharded step needs:
+
+* its coordinates ``(row, col)`` on the ``d × mo`` grid: ``col`` is the
+  ``"model"`` index and ``row`` folds every axis before it (``"pod"`` ×
+  ``"data"``), pod-major, as the JAX schedule folds ``src_axes``. Global
+  rank ``row · mo + col``.
+* the **src group** — the ``d`` ranks of its column, in row order (the
+  reduce-scatter of the push and the gap's sum run over it), and the
+  **model group** — the ``mo`` ranks of its row, in column order (the
+  all-gather of the new iterate runs over it).
+
+Every collective the port issues goes through the :class:`Mesh` methods
+below, and only these ``torch.distributed`` names are used:
+``reduce_scatter_tensor``, ``all_gather_into_tensor``, ``all_reduce`` and
+``new_group`` (present in torch 2.11 and 2.13; 2.13 marks the first two
+deprecated, which is silenced here).
+
+Without a process group :func:`make_mesh` starts one of world size 1 on an
+in-process ``HashStore`` (no port to collide on) with the backend
+``"cpu:gloo,cuda:nccl"`` (``"gloo"`` where torch has no NCCL), and a
+multi-rank mesh needs the caller's group (``init_process_group`` under
+``torchrun``, or spawned workers). The group :func:`make_mesh` started is
+destroyed when the last mesh on it is closed.
+"""
+from __future__ import annotations
+
+import math
+import warnings
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+__all__ = ["Mesh", "make_mesh", "world_size"]
+
+# the world group make_mesh started, and how many open meshes use it
+_STARTED = {"group": None, "meshes": 0}
+
+
+def _quiet(fn, *args, **kwargs):
+    """Call a collective with torch 2.13's deprecation warning silenced."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return fn(*args, **kwargs)
+
+
+class Mesh:
+    """One rank's view of a ``("data", "model")`` or ``("pod", "data",
+    "model")`` mesh; see the module docstring. Build with
+    :func:`make_mesh`."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
+                 device: torch.device, *, owns_world: bool = False):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(x) for x in shape)))
+        self.device = device
+        self.world_size = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.mo = self.shape["model"]
+        self.d = self.world_size // self.mo
+        self.row, self.col = divmod(self.rank, self.mo)
+        self._groups = []
+        # new_group is collective: every rank creates every group, in the
+        # same order, and keeps the two it belongs to
+        for c in range(self.mo):
+            g = self._new_group([r * self.mo + c for r in range(self.d)])
+            if c == self.col:
+                self.src_group = g
+        for r in range(self.d):
+            g = self._new_group([r * self.mo + c for c in range(self.mo)])
+            if r == self.row:
+                self.model_group = g
+        self._owns_world = owns_world
+        self._closed = False
+
+    def _new_group(self, ranks):
+        g = dist.new_group(ranks)
+        self._groups.append(g)
+        return g
+
+    @property
+    def src_axes(self) -> tuple[str, ...]:
+        return self.axis_names[:-1]
+
+    # -- the collectives ------------------------------------------------- #
+    def reduce_scatter_src(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the src group; this rank keeps slice ``row`` of
+        ``d`` equal slices."""
+        out = x.new_empty(x.numel() // self.d)
+        _quiet(dist.reduce_scatter_tensor, out, x.contiguous(),
+               group=self.src_group)
+        return out
+
+    def all_gather_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Concatenate ``x`` over the model group in column order."""
+        return self._all_gather(x, self.mo, self.model_group)
+
+    def all_gather_src(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of every row of this rank's column, stacked ``[d, ...]``."""
+        return self._all_gather(x, self.d, self.src_group).reshape(
+            (self.d,) + tuple(x.shape))
+
+    def all_gather_world(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of every rank, concatenated in global rank order."""
+        return self._all_gather(x, self.world_size, None)
+
+    @staticmethod
+    def _all_gather(x, size, group):
+        out = x.new_empty(size * x.numel())
+        _quiet(dist.all_gather_into_tensor, out, x.contiguous().reshape(-1),
+               group=group)
+        return out
+
+    def all_reduce_src(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of ``x`` over the src group (a new tensor)."""
+        return self._all_reduce(x, self.src_group)
+
+    def all_reduce_world(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of ``x`` over every rank (a new tensor)."""
+        return self._all_reduce(x, None)
+
+    @staticmethod
+    def _all_reduce(x, group):
+        out = x.reshape(-1).clone()
+        dist.all_reduce(out, group=group)
+        return out.reshape(x.shape)
+
+    def barrier(self) -> None:
+        """Every rank waits here for every other (an all-reduce on the
+        mesh's device, read back on the host)."""
+        float(self.all_reduce_world(torch.zeros(1, device=self.device))[0])
+
+    # -- lifetime -------------------------------------------------------- #
+    def close(self) -> None:
+        """Destroy this mesh's groups, and the world group when this mesh
+        was the last one on a group :func:`make_mesh` started."""
+        if self._closed:
+            return
+        self._closed = True
+        for g in self._groups:
+            if g is not None and g != dist.GroupMember.NON_GROUP_MEMBER:
+                dist.destroy_process_group(g)
+        self._groups = []
+        if self._owns_world:
+            _STARTED["meshes"] -= 1
+            if _STARTED["meshes"] == 0:
+                dist.destroy_process_group()
+                _STARTED["group"] = None
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank={self.rank} at (row={self.row}, "
+                f"col={self.col}), device={self.device})")
+
+
+def make_mesh(shape: tuple[int, ...],
+              axis_names: tuple[str, ...] = ("data", "model"), *,
+              device: str | torch.device = "cuda") -> Mesh:
+    """This rank's :class:`Mesh` of ``shape`` over ``axis_names``.
+
+    ``axis_names`` must be ``("data", "model")`` or ``("pod", "data",
+    "model")``; ``prod(shape)`` must equal the world size of the existing
+    process group, or be 1 when there is none (a world-1 group is started).
+    """
+    dev = resolve_device(device)
+    axis_names = tuple(axis_names)
+    if axis_names not in (("data", "model"), ("pod", "data", "model")):
+        raise ValueError("mesh axes must be ('data', 'model') or ('pod', "
+                         f"'data', 'model'); got {axis_names}")
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {tuple(shape)} does not match axes "
+                         f"{axis_names}")
+    size = math.prod(int(x) for x in shape)
+    if not dist.is_initialized():
+        if size != 1:
+            raise ValueError(
+                f"a {tuple(shape)} mesh needs {size} ranks: start the process "
+                "group first (torch.distributed.init_process_group, e.g. "
+                "under torchrun); without one only a world-1 mesh is made")
+        backend = ("cpu:gloo,cuda:nccl" if dist.is_nccl_available()
+                   else "gloo")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+        _STARTED["group"] = dist.group.WORLD
+    elif size != dist.get_world_size():
+        raise ValueError(f"mesh {tuple(shape)} has {size} ranks but the "
+                         f"process group has {dist.get_world_size()}")
+    owns = _STARTED["group"] is not None \
+        and _STARTED["group"] is dist.group.WORLD
+    if owns:
+        _STARTED["meshes"] += 1
+    return Mesh(tuple(shape), axis_names, dev, owns_world=owns)
+
+
+def world_size() -> int:
+    """The process group's world size, 1 when there is none yet."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+

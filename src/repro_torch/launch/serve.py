@@ -4,6 +4,8 @@
         --backend auto --microbench --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch psi-score \
         --tenants 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch psi-score \
+        --executor sync --device cpu
 
 The single-tenant loop of the JAX package's launcher, on the same graph and
 seeds, printing the same lines: a cold solve, the top-k, ``--requests``
@@ -31,6 +33,18 @@ launcher's ``--stream`` does on the same 2,000-user graph and seeds:
 online λ/μ estimation, coalesced O(Δ) patches, a resolve every
 ``--resolve-every`` events, then query rounds and a parity check against a
 from-scratch solve.
+
+``--executor {sync,async}`` runs the fault-tolerant chunk drivers instead of
+``PsiService``, as the JAX launcher's ``--executor`` does on the same
+10,000-user graph at tol 1e-7: ``sync`` is the bulk-synchronous
+:class:`~repro_torch.runtime.PsiDriver` over the 2-D block-cyclic
+:class:`~repro_torch.core.distributed.DistributedPsi` (16 iterations a
+chunk) on a ``(world_size, 1)`` mesh — world size 1 unless the caller
+started a process group, e.g. under ``torchrun`` — and ``async`` the
+bounded-staleness :class:`~repro_torch.asyncexec.AsyncPsiDriver`
+(``--num-chunks`` chunks, ``--staleness-tau`` epochs of lag). Both print the
+chunk forensics (median and max chunk ms, slow chunks) and the ranked
+requests.
 
 Observability: ``--metrics-port`` exposes the live registry over HTTP on
 localhost, ``--trace-out`` records every span to JSONL (+ a Chrome trace at
@@ -116,6 +130,67 @@ def _serve_fleet(args) -> None:
     top = frontier.global_top_k(args.top_k)
     print(f"[serve] fleet-wide top-{args.top_k}: "
           + ", ".join(f"{t}/{u}@{s:.2e}" for t, u, s in top))
+
+
+def _serve_driver(args) -> None:
+    """Driver-level ψ serving: the fault-tolerant chunk executors — the
+    bulk-synchronous ``runtime/psi_driver.py`` or the bounded-staleness
+    ``repro_torch.asyncexec`` pipeline — followed by the shared query
+    layer. The JAX launcher's ``_serve_driver``, line for line."""
+    from ..core import heterogeneous
+    from ..graphs import powerlaw_configuration
+
+    g = powerlaw_configuration(10_000, 70_000, seed=5)
+    act = heterogeneous(g.n, seed=6)
+    tol = 1e-7
+    t0 = time.perf_counter()
+    if args.executor == "async":
+        from ..asyncexec import AsyncPsiDriver
+        drv = AsyncPsiDriver(g, act, num_chunks=args.num_chunks,
+                             tau=args.staleness_tau, device=args.device)
+        rep = drv.run(tol=tol)
+        print(f"[serve] executor=async chunks={args.num_chunks} "
+              f"tau={args.staleness_tau}: {rep.iterations} epochs "
+              f"gap={rep.gap:.2e} in {time.perf_counter() - t0:.2f}s; "
+              f"max_staleness={rep.max_staleness} "
+              f"overlap={rep.overlap_efficiency:.2f}x "
+              f"verify_sweeps={rep.sync_sweeps}")
+    else:
+        from ..core.distributed import DistributedPsi
+        from ..runtime import PsiDriver
+        from .mesh import make_mesh, world_size
+        mesh = make_mesh((world_size(), 1), ("data", "model"),
+                         device=args.device)
+        try:
+            drv = PsiDriver(DistributedPsi.from_graph(g, act, mesh),
+                            chunk_iters=16)
+            rep = drv.run(tol=tol)
+        finally:
+            mesh.close()
+        print(f"[serve] executor=sync chunk_iters=16: {rep.iterations} "
+              f"iterations gap={rep.gap:.2e} in "
+              f"{time.perf_counter() - t0:.2f}s")
+    # straggler forensics: measured durations + the deadline that tripped
+    if rep.chunk_durations:
+        durs = np.asarray(rep.chunk_durations)
+        print(f"[serve] {durs.size} chunk steps: median="
+              f"{np.median(durs) * 1e3:.1f} ms max={durs.max() * 1e3:.1f} ms")
+    for ev in rep.slow_chunk_events:
+        print(f"[serve] slow chunk {ev.chunk}: {ev.duration * 1e3:.1f} ms "
+              f"exceeded deadline {ev.deadline * 1e3:.1f} ms")
+    if not rep.slow_chunk_events:
+        print("[serve] no chunk exceeded its deadline")
+    q = rep.queries()
+    rng = np.random.default_rng(0)
+    for r in range(args.requests):
+        users = rng.integers(0, g.n, args.batch)
+        t0 = time.perf_counter()
+        scores = q.scores_batch(users)
+        top, _ = q.top_k(args.top_k)
+        print(f"[serve] req {r}: users={users.tolist()} "
+              f"psi={np.round(scores, 8).tolist()} "
+              f"top-{args.top_k}={top.tolist()} "
+              f"({(time.perf_counter() - t0) * 1e3:.1f} ms)")
 
 
 def _serve_stream(args) -> None:
@@ -308,7 +383,8 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default=None,
                     help="ψ solver backend: reference (default) | cuda "
                          "(alias pallas) | auto | accelerated | push "
-                         "(local residual push, certified top-k); with "
+                         "(local residual push, certified top-k) | "
+                         "distributed | async; with "
                          "--tenants > 1 a fleet regime: auto (default) | "
                          "dense | reference | cuda (alias pallas)")
     ap.add_argument("--accelerate", action="store_true",
@@ -328,6 +404,16 @@ def main(argv=None) -> None:
     ap.add_argument("--bucket-sizes", default=None,
                     help="comma list of node-capacity rungs for the fleet "
                          "bucket policy, e.g. '512,2048,8192'")
+    ap.add_argument("--executor", default=None, choices=("sync", "async"),
+                    help="run the fault-tolerant chunk driver instead of "
+                         "PsiService — sync (bulk-synchronous PsiDriver "
+                         "over the 2-D distributed schedule) or async "
+                         "(bounded-staleness AsyncPsiDriver)")
+    ap.add_argument("--staleness-tau", type=int, default=2,
+                    help="async executor: max epoch lag a chunk may fall "
+                         "behind (0 = barriered, i.e. sync semantics)")
+    ap.add_argument("--num-chunks", type=int, default=4,
+                    help="async executor: dst-row chunks in the pipeline")
     ap.add_argument("--stream", default=None,
                     choices=("poisson", "burst", "flash"),
                     help="replay a synthetic live event log (posts/"
@@ -389,6 +475,10 @@ def main(argv=None) -> None:
                   "(+ /metrics.json /healthz)")
     if args.stream:
         _serve_stream(args)
+        _obs_epilogue(args)
+        return
+    if args.executor:
+        _serve_driver(args)
         _obs_epilogue(args)
         return
     if args.tenants > 1:

@@ -13,9 +13,9 @@ closes that gap end to end on the port's engines and fleet:
   stationary streams — the generators' ground truth is a fixed point),
   with per-user dirty-set tracking.
 * :mod:`ingest`    — :class:`StreamIngestor`: coalesces events into
-  batched O(Δ) patches against a ``PsiService`` or a ``TenantFleet``
-  (``TenantEvent`` lane routing), resolving per the freshness policy. The
-  JAX package's third target, the async driver, is not ported yet.
+  batched O(Δ) patches against a ``PsiService``, a ``TenantFleet``
+  (``TenantEvent`` lane routing) or an ``AsyncPsiDriver`` (mid-flight
+  through its ``epoch_hook``), resolving per the freshness policy.
 * :mod:`freshness` — :class:`FreshnessPolicy` (when to patch / re-solve)
   and :class:`FreshnessReport` (certifiable staleness of the served
   ranking: unresolved events, dirty rate mass, top-k churn).

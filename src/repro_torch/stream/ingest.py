@@ -11,7 +11,7 @@ The pipeline this module closes:
                               dirty-mass threshold — else keep serving the
                               existing ranking with certified staleness)
 
-Two serving targets share the ingestor through thin adapters:
+Three serving targets share the ingestor through thin adapters:
 
 * :class:`~repro_torch.core.incremental.PsiService` — patches apply with
   ``resolve=False`` (deferred); ``resolve()`` warm re-solves; between
@@ -23,8 +23,11 @@ Two serving targets share the ingestor through thin adapters:
   every dirty lane per resolve. (Frontier reads are fresh-on-read by the
   fleet's contract; the policy here governs the proactive solve cadence.)
 
-The JAX package's third target, its ``AsyncPsiDriver``, waits for the port
-of the async executor; :func:`_adapt` says so when handed anything else.
+* :class:`~repro_torch.asyncexec.AsyncPsiDriver` — patches go through the
+  driver's generation-guarded hooks (between runs, or mid-flight from its
+  ``epoch_hook``); ``resolve()`` warm-runs the bounded-staleness pipeline
+  with the ingestor's ``resolve_opts``.
+
 The estimator and the coalescing window are host numpy: events never touch
 the card, only the batched patches and the resolves do.
 
@@ -153,17 +156,67 @@ class _FleetTarget:
         return None          # batched lanes carry no residual certificate
 
 
-def _adapt(target):
+class _AsyncDriverTarget:
+    """Single-lane adapter over an AsyncPsiDriver (patch between or during
+    runs; ``resolve`` warm-runs the bounded-staleness pipeline)."""
+
+    multi = False
+
+    def __init__(self, drv, resolve_opts: dict):
+        self.drv = drv
+        self.opts = dict(tol=1e-8)
+        self.opts.update(resolve_opts)
+        self.last_report = None
+        self._cache = None
+
+    def n_of(self, key) -> int:
+        return self.drv.host.n
+
+    def activity_of(self, key):
+        return self.drv.host.activity()
+
+    def apply_activity(self, key, users, lam, mu) -> None:
+        self.drv.patch_activity(users, lam=lam, mu=mu)
+
+    def apply_add_edges(self, key, src, dst) -> None:
+        self.drv.patch_edges(src, dst)
+
+    def apply_remove_edges(self, key, src, dst) -> None:
+        self.drv.remove_edges(src, dst)
+
+    def resolve(self) -> None:
+        self.last_report = self.drv.run(warm=True, **self.opts)
+        self._cache = self.last_report.queries()
+
+    def needs_resolve(self) -> bool:
+        return self._cache is None             # never resolved yet
+
+    def top_k(self, k: int):
+        return self._cache.top_k(k)
+
+    def topk_ids(self, k: int) -> tuple:
+        return tuple(int(u) for u in self._cache.top_k(k)[0])
+
+    def psi_of(self, key) -> np.ndarray:
+        return self._cache.psi
+
+    def psi_error_bound(self):
+        return None          # the async gap certifies movement, not distance
+
+
+def _adapt(target, resolve_opts: dict):
+    from ..asyncexec.executor import AsyncPsiDriver
     from ..core.incremental import PsiService
     from ..serving.fleet import TenantFleet
     if isinstance(target, PsiService):
         return _ServiceTarget(target)
     if isinstance(target, TenantFleet):
         return _FleetTarget(target)
+    if isinstance(target, AsyncPsiDriver):
+        return _AsyncDriverTarget(target, resolve_opts)
     raise TypeError(
         f"unsupported ingest target {type(target).__name__!r}; supported: "
-        "PsiService, TenantFleet (the JAX package's AsyncPsiDriver target "
-        "is not ported yet)")
+        "PsiService, TenantFleet, AsyncPsiDriver")
 
 
 # --------------------------------------------------------------------- #
@@ -185,22 +238,22 @@ class StreamIngestor:
     """Coalesce a live event stream into batched O(Δ) ψ patches.
 
     Args:
-      target: a ``PsiService`` or a ``TenantFleet``.
+      target: a ``PsiService``, ``TenantFleet`` or ``AsyncPsiDriver``.
       half_life / floor: estimator parameters (see ``estimator.py``).
       policy: flush + resolve cadence (:class:`FreshnessPolicy`).
       topk: ranking depth tracked for the churn-between-resolves metric
         (0 disables churn tracking).
       t0: event-time origin.
-
-    The targets own their tolerance; the JAX ingestor's ``resolve_opts``
-    served only its async-driver target and is not taken here.
+      resolve_opts: extra kwargs for the async driver's ``run`` (e.g.
+        ``dict(tol=1e-9)``); ignored by the other targets, which own their
+        tolerance.
     """
 
     def __init__(self, target, *, half_life: float = 64.0,
                  floor: float = RATE_FLOOR,
                  policy: FreshnessPolicy | None = None, topk: int = 10,
-                 t0: float = 0.0):
-        self._adapter = _adapt(target)
+                 t0: float = 0.0, resolve_opts: dict | None = None):
+        self._adapter = _adapt(target, resolve_opts or {})
         self.policy = policy or FreshnessPolicy()
         self.half_life = float(half_life)
         self.floor = float(floor)

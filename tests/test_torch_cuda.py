@@ -850,3 +850,106 @@ def test_read_funnel_adds_no_device_sync_on_card(card, monkeypatch):
         assert len(waits) == 1                    # reads: still none
     finally:
         obs.restore(prev)
+
+
+# --------------------------------------------------------------------- #
+# The driver path: the distributed and async backends on the card
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def driver_graph(card):
+    g = tg.powerlaw_configuration(5000, 40000, seed=3)
+    act = tc.heterogeneous(g.n, seed=4)
+    ref = tc.make_engine("reference", graph=g, activity=act,
+                         dtype=torch.float64, device=card).run(tol=1e-13)
+    return g, act, ref.psi
+
+
+@pytest.mark.parametrize("backend", ["distributed", "async"])
+@pytest.mark.parametrize("dtype,tol,bound", [(torch.float32, 1e-8, 1e-6),
+                                             (torch.float64, 1e-12, 1e-10)])
+def test_driver_backends_match_f64_reference_on_card(driver_graph, backend,
+                                                     dtype, tol, bound):
+    """``make_engine("distributed" | "async")`` on the card (a world-1 NCCL
+    mesh; 4 chunks on worker streams) lands on the f64 reference's ψ."""
+    g, act, ref = driver_graph
+    eng = tc.make_engine(backend, graph=g, activity=act, dtype=dtype,
+                         device="cuda")
+    res = eng.run(tol=tol)
+    assert res.converged and res.psi.is_cuda
+    assert float((res.psi.double() - ref).abs().max()) <= bound
+
+
+def test_chunk_step_on_card_matches_its_cpu_copy(driver_graph):
+    """One chunk step of every chunk on the card against the same step on
+    CPU copies of its args (f64: the segment sums add in another order on
+    the card, 1e-13 relative)."""
+    from repro_torch.asyncexec import ChunkedOperators, make_chunk_step
+    from repro_torch.core import HostOperators
+    g, act, _ = driver_graph
+    host = HostOperators.from_graph(g, act)
+    on_card = ChunkedOperators(host, 4, dtype=torch.float64, device="cuda")
+    on_cpu = ChunkedOperators(host, 4, dtype=torch.float64, device="cpu")
+    step = make_chunk_step(on_card.q)
+    board = on_card.board0 * 1.5
+    for a_k, a_c in zip(on_card.args, on_cpu.args):
+        s_k, gap_k = step(a_k, board)
+        s_c, gap_c = step(a_c, board.cpu())
+        torch.testing.assert_close(s_k.cpu(), s_c, rtol=1e-13, atol=0)
+        assert float(gap_k) == pytest.approx(float(gap_c), rel=1e-12)
+
+
+def test_async_tau2_on_worker_streams_reaches_sync_fixed_point(
+        driver_graph):
+    """τ = 2 with a straggler: 4 workers, each stepping on its own CUDA
+    stream, publish fresh boards the scheduling thread reads; the run is
+    sync-verified and lands on the reference fixed point."""
+    from repro_torch.asyncexec import AsyncPsiDriver
+    g, act, ref = driver_graph
+    drv = AsyncPsiDriver(g, act, num_chunks=4, tau=2, dtype=torch.float64,
+                         device="cuda",
+                         delay_hook=lambda k, e: 0.003 if k == 1 else 0.0)
+    rep = drv.run(tol=1e-12)
+    assert rep.converged and rep.sync_sweeps >= 1
+    assert 1 <= rep.max_staleness <= 3
+    assert np.abs(rep.psi - ref.cpu().numpy()).max() <= 1e-10
+
+
+def test_world1_nccl_group_opens_and_closes_twice():
+    """A fresh process opens a world-1 mesh over NCCL, runs each
+    collective, closes it (the group is destroyed), and does it again."""
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run `python -m pytest -m cuda "
+                    "tests/test_torch_cuda.py` on the card")
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "from repro_torch.launch.mesh import make_mesh\n"
+        "for _ in range(2):\n"
+        "    m = make_mesh((1, 1), device='cuda')\n"
+        "    assert 'nccl' in str(dist.get_backend()), dist.get_backend()\n"
+        "    x = torch.arange(4.0, device='cuda')\n"
+        "    assert torch.equal(m.reduce_scatter_src(x), x)\n"
+        "    assert torch.equal(m.all_gather_model(x), x)\n"
+        "    assert float(m.all_reduce_src(x.sum().reshape(1))[0]) == 6.0\n"
+        "    m.barrier()\n"
+        "    m.close()\n"
+        "    assert not dist.is_initialized()\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
+
+
+def test_distributed_engine_refuses_a_mesh_on_another_device(card):
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), device="cpu")
+    try:
+        with pytest.raises(ValueError, match="mesh is on cpu"):
+            tc.make_engine("distributed", mesh=mesh, device="cuda")
+    finally:
+        mesh.close()

@@ -15,7 +15,7 @@ import repro_torch.graphs as tg
 from repro_torch.kernels.formats import build_bsr
 
 BACKENDS = [("reference", {}), ("cuda", {}), ("cuda", {"regime": "bsr"}),
-            ("pallas", {"tile": 128})]
+            ("pallas", {"tile": 128}), ("distributed", {}), ("async", {})]
 
 
 def _graphs(n=300, m=1800, seed=3):
@@ -36,7 +36,11 @@ def test_backends_match_exact_psi(backend, opts, dtype, tol, bound):
                          activity=tc.heterogeneous(g_t.n, seed=4),
                          dtype=dtype, device="cpu", **opts)
     res = eng.run(tol=tol)
-    assert res.converged and res.matvecs == res.iterations + 1
+    # the async backend counts its chunk steps a sweep (skewed epochs make
+    # that fewer than its max epoch); every other one a mat-vec a step
+    matvecs = (-(-eng.last_run.total_steps // eng.num_chunks) + 1
+               if backend == "async" else res.iterations + 1)
+    assert res.converged and res.matvecs == matvecs
     assert res.psi.dtype == dtype and res.s.shape == (g_t.n,)
     err = np.abs(res.psi.double().numpy() - _exact(g_j)).max()
     assert err <= bound, err
@@ -144,7 +148,7 @@ def test_make_engine_rejects_unknown_options_and_backends():
     with pytest.raises(ValueError, match="unknown engine option"):
         tc.make_engine("cuda", device="cpu", mesh=None)
     with pytest.raises(ValueError, match="unknown backend"):
-        tc.make_engine("distributed", device="cpu")
+        tc.make_engine("sharded", device="cpu")
     with pytest.raises(ValueError, match="l1"):
         tc.make_engine("cuda", device="cpu",
                        criterion=tc.ConvergenceCriterion(norm="l2"))
@@ -152,8 +156,9 @@ def test_make_engine_rejects_unknown_options_and_backends():
         tc.make_engine("cuda", device="cpu", regime="dense")
     with pytest.raises(ValueError, match="activity"):
         tc.make_engine("cuda", device="cpu", graph=_graphs()[0])
-    assert tc.available_backends() == ("accelerated", "auto", "cuda",
-                                       "push", "reference")
+    assert tc.available_backends() == ("accelerated", "async", "auto",
+                                       "cuda", "distributed", "push",
+                                       "reference")
     assert isinstance(tc.make_engine("pallas", device="cpu"), tc.CudaEngine)
 
 

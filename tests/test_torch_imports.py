@@ -43,6 +43,12 @@ SLICE_MODULES = [
     "repro_torch.stream", "repro_torch.stream.events",
     "repro_torch.stream.estimator", "repro_torch.stream.freshness",
     "repro_torch.stream.ingest", "repro_torch.stream.check",
+    "repro_torch.graphs.partition", "repro_torch.launch.mesh",
+    "repro_torch.core.distributed", "repro_torch.ckpt",
+    "repro_torch.ckpt.checkpoint", "repro_torch.runtime",
+    "repro_torch.runtime.psi_driver", "repro_torch.asyncexec",
+    "repro_torch.asyncexec.staleness", "repro_torch.asyncexec.scheduler",
+    "repro_torch.asyncexec.executor",
 ]
 
 

@@ -568,15 +568,21 @@ def test_ingest_fleet_routes_tenant_events_as_jax():
 
 
 def test_ingest_async_driver_target_is_not_ported_yet():
-    """The JAX ingestor's third target, ``AsyncPsiDriver``, waits for the
-    async executor's port: ``_adapt`` says so and names the two targets."""
+    """The JAX ingestor's third target is ported: the port's
+    ``AsyncPsiDriver`` is taken, while the JAX package's object is refused
+    with a message that names all three targets."""
     from repro.asyncexec import AsyncPsiDriver
+    from repro_torch.asyncexec import AsyncPsiDriver as TAsyncPsiDriver
     drv = AsyncPsiDriver(jg.erdos_renyi(40, 160, seed=42),
                          jc.heterogeneous(40, seed=43), num_chunks=3, tau=1)
     with pytest.raises(TypeError, match="PsiService, TenantFleet") as exc:
         StreamIngestor(drv)
     assert "AsyncPsiDriver" in str(exc.value)
-    assert "not ported yet" in str(exc.value)
+    assert "not ported" not in str(exc.value)
+    ing = StreamIngestor(TAsyncPsiDriver(
+        tg.erdos_renyi(40, 160, seed=42), tc.heterogeneous(40, seed=43),
+        num_chunks=3, tau=1, device="cpu"))
+    assert type(ing._adapter).__name__ == "_AsyncDriverTarget"
 
 
 def test_ingest_rejects_unsupported_target():
