@@ -78,7 +78,7 @@ on the first check that does not hold:
    beside as many single-lane launches, their bound, the plain version and
    a block-diagonal ``torch.sparse.mm``.
 
-Four more main paths run after the fleet, before the times:
+Five more main paths run after the fleet, before the times:
 
 * ``paper``: the paper's comparison (Exp. 1-2) on the DBLP stand-in at
   float64: Power-ψ through the ``cuda`` engine (``power_step``), Power-NF
@@ -132,6 +132,25 @@ Four more main paths run after the fleet, before the times:
   part's host ms, a chunk's ms and the busy share of one sync solve. No
   kernel of the port runs on it.
 
+* ``chaos``: the ``serve --chaos --slo --watch --profile-out`` path. (a)
+  The JAX package's f64 chaos gate (``run_chaos(n=200, m=1200,
+  horizon=3)``) on the card's ``AsyncPsiDriver`` stack: max|Δψ| ≤ 1e-12
+  against the fault-free run after crashes, forced-stale reads, a torn
+  stack checkpoint, a NaN patch, a duplicated/reordered/dropped feed,
+  recovery and an exactly-once replay; every fault class injected, none
+  unsurvived. (b) The same gate at the twitter stand-in's size
+  (``CHAOS_SIZE``, run_chaos's own graph), its horizon cut to about
+  ``CHAOS_EVENTS`` events, solved to ``CHAOS_SOLVER_TOL``; the oracle and
+  chaos walls, restarts, overhead, MTTR and the ladder's derived deadline
+  printed. (c) ``ServiceGuard`` over a float32 ``cuda`` service on the
+  twitter stand-in: a NaN patch rejected, an α patch rolled back to ψ bit
+  for bit a cold solve with the checkpointed rates. (d) ``LaneQuarantine``
+  over the fleet phase's fleet: a NaN- and an α-poisoned tenant frozen,
+  every other lane bitwise a deep copy of the fleet without the
+  quarantine. (e) The CLI drill and ``obs.check --device cuda`` as
+  subprocesses (exit 0; the watch's pre-emption, an SLO verdict, a
+  folded-stacks file).
+
 Their exact solves (``exact_psi``, a host sparse LU of tens of seconds
 each) run in three worker processes from the start of the run, which the
 script ends before it exits.
@@ -143,8 +162,9 @@ built, with padding blocks, with its slots shuffled within each tile), on
 a tile with only padding blocks and a tile with none; its backward against
 the plain gather.
 
-Phases 3 to 8, ``paper``, ``push``, ``stream`` and ``driver`` are the main
-paths (the auto phase is two: model-only and microbench): every launch
+Phases 3 to 8, ``paper``, ``push``, ``stream``, ``driver`` and ``chaos``
+are the main paths (the auto phase is two: model-only and microbench): every
+launch
 counter is set to 0 just before each path and read just after, and each
 kernel of a path must have launched there. The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -251,6 +271,20 @@ DRIVER_ITERS = [48, 3, 45, 180, 1]
 DRIVER_TOL_F64 = 1e-9
 DRIVER_TOL = 1e-7
 DRIVER_STREAM_EVENTS = 10_000
+
+# The chaos phase (phase_chaos): the fault classes the gate must inject, and
+# part (b)'s size: run_chaos's own powerlaw_configuration at the twitter
+# stand-in's nodes and edges, its horizon cut so the log holds about
+# CHAOS_EVENTS events (the full horizon's stream would take the ingest far
+# past the path's time budget: each coalesced window patches the async
+# driver's O(N) node arrays), solved to CHAOS_SOLVER_TOL on the raw l1 gap:
+# the JAX gate's f64 tol, which the f64 gap floor at this N lies below (the
+# async push sums in a fixed order).
+CHAOS_FAULTS = ("crash", "stale_read", "torn_ckpt", "poison", "dup",
+                "reorder", "drop", "hang")
+CHAOS_SIZE = (465_017, 834_797)
+CHAOS_EVENTS = 20_000
+CHAOS_SOLVER_TOL = 1e-13
 
 
 class SmokeFailure(Exception):
@@ -1319,19 +1353,16 @@ def check_fleet_lane(fleet, tid, graph, act, s0_node, tag, report) -> None:
        start: s, ψ and the count bitwise equal;
     2. against a solo ``cuda`` engine on ``graph`` at the bucket's plan:
        its inputs (μ, c, 1/w, ‖B‖) compared bit for bit first. Where they
-       are equal, the count, the gap and s must be too; the engine's ψ
-       epilogue pushes with ``torch.segment_reduce``, whose sum on the card
-       is not a slot-order fold, so the lane's ψ is held bitwise against
-       the fleet's epilogue on the engine's s, and within rel L1 1e-6 of
-       the engine's own ψ. Where an input differs, its ulps are printed;
-       the count must be equal and ψ within rel L1 1e-6;
+       are equal, the count, the gap, s and the engine's own ψ must be too
+       (both epilogues push through ``edge_spmv`` and multiply by 1/n
+       rounded once). Where an input differs, its ulps are printed; the
+       count must be equal and ψ within rel L1 1e-6;
     3. against the f64 ``reference`` on the card: top-10 identical and rel
        L1 ≤ 1e-5.
     """
     import torch
     from repro_torch.core import make_engine
     from repro_torch.core.incremental import RankingCache
-    from repro_torch.kernels.ops import edge_spmv
     rec = fleet._rec(tid)
     n = rec.n
     bucket, lane, fmt, inv_w_g, mu, c = _lane(fleet, tid)
@@ -1363,22 +1394,18 @@ def check_fleet_lane(fleet, tid, graph, act, s0_node, tag, report) -> None:
                      / res.psi.double().abs().sum())
     check(res.iterations == rec.iterations, f"{tag}: {rec.iterations} "
           f"iterations, the solo cuda engine {res.iterations}")
-    check(rel_solo <= 1e-6, f"{tag}: ψ rel L1 {rel_solo:.3e} from the solo "
-          f"cuda engine's (limit 1e-6)")
     if not differ:
-        psi_k = (ops.lam * edge_spmv(res.s * ops.inv_w, eng.fmt) + ops.d) \
-            * (torch.ones((), dtype=fleet.dtype, device="cuda") / n)
         check(res.gap == rec.gap and torch.equal(res.s, s_lane[0, :n])
-              and torch.equal(psi_k, psi_lane),
+              and torch.equal(res.psi, psi_lane),
               f"{tag}: inputs bitwise equal to the solo cuda engine's, but "
               f"gap {rec.gap} vs {res.gap}, s equal "
-              f"{torch.equal(res.s, s_lane[0, :n])}, ψ through the kernel "
-              f"epilogue equal {torch.equal(psi_k, psi_lane)}")
-        solo = (f"inputs bitwise equal; count, gap, s bitwise; ψ bitwise "
-                f"through the kernel epilogue, {int((res.psi != psi_lane).sum())}"
-                f" of {n} entries off the engine's segment_reduce epilogue, "
-                f"rel L1 {rel_solo:.3e}")
+              f"{torch.equal(res.s, s_lane[0, :n])}, ψ off in "
+              f"{int((res.psi != psi_lane).sum())} of {n} entries (rel L1 "
+              f"{rel_solo:.3e})")
+        solo = "inputs bitwise equal; count, gap, s and ψ bitwise"
     else:
+        check(rel_solo <= 1e-6, f"{tag}: ψ rel L1 {rel_solo:.3e} from the "
+              f"solo cuda engine's (limit 1e-6)")
         solo = (f"inputs differ (ulps: " + ", ".join(
             f"{k} {v}" for k, v in differ.items()) + f"); count equal, ψ "
             f"rel L1 {rel_solo:.3e}")
@@ -2481,6 +2508,253 @@ def phase_driver(report: dict) -> None:
     report["driver"] = out
 
 
+# --------------------------------------------------------------------- #
+# The resilience path (serve --chaos) and the rest of obs
+# --------------------------------------------------------------------- #
+def _chaos_gate(tag, out, **kw) -> dict:
+    """``run_chaos`` at float64 on the card; its own assertions (parity,
+    every fault class injected, none unsurvived) become smoke failures."""
+    import torch
+    from repro_torch.resilience.check import run_chaos
+    t0 = time.perf_counter()
+    try:
+        report, metrics = run_chaos(dtype=torch.float64, device="cuda", **kw)
+    except AssertionError as exc:
+        raise SmokeFailure(f"chaos {tag}: {exc}") from exc
+    wall = time.perf_counter() - t0
+    missing = [k for k in CHAOS_FAULTS if not report.injected.get(k)]
+    check(metrics["parity_err"] <= 1e-12 and not report.unsurvived
+          and not missing, f"chaos {tag}: parity {metrics['parity_err']:.3e}"
+          f" (limit 1e-12), unsurvived {report.unsurvived}, never injected "
+          f"{missing}")
+    say(f"chaos {tag}: n={metrics['n']} m={metrics['m']} "
+        f"{metrics['events']} events, solver tol {metrics['solver_tol']:g}, "
+        f"max|dpsi| {metrics['parity_err']:.3e} (limit 1e-12), recovered at "
+        f"offset {metrics['offset']} (step {metrics['recovered_step']}), "
+        f"{metrics['restarts']} restarts; oracle {metrics['oracle_wall_s']:.2f}"
+        f" s (ingest {metrics['oracle_ingest_s']:.2f} s), chaos "
+        f"{metrics['chaos_wall_s']:.2f} s, overhead "
+        f"{metrics['recovery_overhead']:.2f}x, mttr "
+        f"{metrics['mttr_s'] * 1e3:.1f} ms, ladder deadline "
+        f"{metrics['ladder_deadline_s']:.3f} s (hang "
+        f"{metrics['ladder_hang_s']:.3f} s); injected "
+        f"{dict(sorted(report.injected.items()))}; {wall:.1f} s in all")
+    out[tag] = dict(metrics, wall_s=wall)
+    return metrics
+
+
+def chaos_guard(report, out, tmp) -> None:
+    """``ServiceGuard`` over a float32 ``cuda`` service on the twitter
+    stand-in: a healthy patch checkpointed, a NaN patch rejected at the
+    wall (state untouched), an α-raising patch rolled back to ψ bit for bit
+    a fresh service's cold solve with the checkpointed rates, in as many
+    iterations."""
+    import torch
+    from repro_torch.core import Activity, PsiService, heterogeneous
+    from repro_torch.resilience import Sentinels, ServiceGuard
+    g = report["twitter"]
+    act = heterogeneous(g.n, seed=6)
+    svc = PsiService(g, act, tol=1e-8, max_iter=400, backend="cuda",
+                     device="cuda")
+    guard = ServiceGuard(svc, tmp, sentinels=Sentinels(alpha_max=0.999))
+    u = 17
+    check(guard.update_activity(np.asarray([u]),
+                                lam=np.asarray([act.lam[u] * 1.3])),
+          "chaos guard: the healthy patch was refused")
+    good = guard.scores().copy()
+    rates = svc.engine.activity
+    check(not guard.update_activity(np.asarray([u]),
+                                    lam=np.asarray([np.nan]))
+          and guard.rejected_patches == 1, "chaos guard: NaN patch accepted")
+    now = svc.engine.activity
+    check(np.array_equal(guard.scores(), good)
+          and np.array_equal(now.lam, rates.lam)
+          and np.array_equal(now.mu, rates.mu),
+          "chaos guard: the rejected patch moved the service")
+    rolls = []
+    rollback = guard.rollback
+
+    def timed_rollback():
+        t0 = time.perf_counter()
+        rollback()
+        torch.cuda.synchronize()
+        rolls.append(time.perf_counter() - t0)
+
+    guard.rollback = timed_rollback
+    hub = int(np.argmax(g.in_degree))
+    t0 = time.perf_counter()
+    accepted = guard.update_activity(np.asarray([hub]), mu=np.asarray([1e12]))
+    poisoned_s = time.perf_counter() - t0
+    trip = guard.sentinels.trips[-1] if guard.sentinels.trips else None
+    check(not accepted and guard.rollbacks == 1 and trip is not None,
+          f"chaos guard: α patch accepted {accepted}, rollbacks "
+          f"{guard.rollbacks}")
+    cold = PsiService(g, Activity(rates.lam, rates.mu), tol=1e-8,
+                      max_iter=400, backend="cuda", device="cuda")
+    want = cold.scores()
+    its, want_its = svc.last_result.iterations, cold.last_result.iterations
+    check(np.array_equal(guard.scores(), want) and its == want_its,
+          f"chaos guard: rolled-back ψ not bitwise a cold solve with the "
+          f"checkpointed rates ({int((guard.scores() != want).sum())} "
+          f"entries differ; {its} vs {want_its} iterations)")
+    out["guard"] = dict(rollback_s=rolls[0], poisoned_update_s=poisoned_s,
+                        iterations=its)
+    say(f"chaos guard: healthy patch checkpointed; NaN patch rejected, "
+        f"state untouched; α patch on user {hub} tripped {trip}, rolled back "
+        f"in {rolls[0] * 1e3:.1f} ms ({poisoned_s * 1e3:.1f} ms for the whole "
+        f"poisoned update), ψ bitwise a cold solve in {its} iterations")
+    del svc, cold
+
+
+def chaos_quarantine(report, out) -> None:
+    """``LaneQuarantine`` over the ``fleet`` phase's ``TenantFleet("auto")``
+    against a deep copy of it taken first: a NaN patch on one tenant is
+    rejected and its lane serves its last ψ bit for bit; an α patch on
+    another is reverted and frozen; every other kernel-regime lane takes the
+    same healthy patch in both fleets, re-solves, and is bitwise the copy's
+    lane, in as many iterations."""
+    import copy
+    from repro_torch.resilience import FaultPlan, LaneQuarantine, Sentinels
+    fleet = report["fleet"]
+    # the copy shares the batched loops (stateless but for a retrace count)
+    twin = copy.deepcopy(fleet, {id(fleet._machinery): fleet._machinery})
+    quar = LaneQuarantine(fleet, sentinels=Sentinels(alpha_max=0.999))
+    lanes = [t for t in fleet.tenant_ids
+             if fleet.occupancy()[fleet.spec_of(t)]["regime"] == "cuda"]
+    nan_t, alpha_t = lanes[0], lanes[-1]
+    last = fleet.psi(nan_t).copy()
+    host = fleet._rec(nan_t).host
+    users = np.arange(4)
+    clock = FaultPlan(seed=9, poison_kind="nan").clock()
+    pu, pl, pm = clock.poison_patch(users, host.lam[users], host.mu[users])
+    check(not quar.patch_activity(nan_t, pu, lam=pl, mu=pm)
+          and quar.is_frozen(nan_t), f"chaos quarantine: NaN patch on "
+          f"{nan_t} accepted")
+    rng = np.random.default_rng(11)
+    patched = [t for t in lanes if t not in (nan_t, alpha_t)]
+    for t in patched:
+        u = int(rng.integers(0, fleet.stats(t)["n"]))
+        lam = np.asarray([fleet._rec(t).host.lam[u] * 1.5])
+        check(quar.patch_activity(t, np.asarray([u]), lam=lam),
+              f"chaos quarantine: healthy patch on {t} refused")
+        twin.patch_activity(t, np.asarray([u]), lam=lam)
+    hub = int(np.argmax(np.bincount(fleet._rec(alpha_t).host.dst_by_dst)))
+    check(not quar.patch_activity(alpha_t, np.asarray([hub]),
+                                  mu=np.asarray([1e12]))
+          and quar.is_frozen(alpha_t) and quar.reverted_patches == 1,
+          f"chaos quarantine: α patch on {alpha_t} not reverted and frozen")
+    frozen = quar.psi(alpha_t)
+    fleet.solve()
+    twin.solve()
+    check(np.array_equal(quar.psi(nan_t), last)
+          and np.array_equal(quar.psi(alpha_t), frozen)
+          and not quar.patch_activity(nan_t, np.asarray([0]),
+                                      lam=np.asarray([0.5])),
+          "chaos quarantine: a frozen lane moved or took a patch")
+    for t in fleet.tenant_ids:
+        if t in (nan_t, alpha_t):
+            continue
+        check(np.array_equal(quar.psi(t), twin.psi(t))
+              and fleet.stats(t)["iterations"] == twin.stats(t)["iterations"],
+              f"chaos quarantine: lane {t} differs from the fleet without "
+              f"the quarantine")
+    rev = fleet.stats(alpha_t)
+    out["quarantine"] = dict(frozen=list(quar.frozen), patched=len(patched),
+                             reverted_iterations=rev["iterations"])
+    say(f"chaos quarantine: {nan_t} frozen by a NaN patch (ψ bitwise its "
+        f"last), {alpha_t} reverted and frozen by an α patch (its re-solve "
+        f"on the reverted rates: {rev['iterations']} iterations, gap "
+        f"{rev['gap']:.3e}); {len(patched)} kernel lanes patched and "
+        f"re-solved, every other lane of the {len(fleet.tenant_ids)} bitwise "
+        f"the fleet without the quarantine")
+    del twin
+
+
+def chaos_cli_start(tmp) -> dict:
+    """Start ``serve --stream burst --chaos --slo --watch --profile-out``
+    and ``obs.check --device cuda`` on the card, side by side, in the
+    background (:func:`chaos_cli_finish` collects them)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    folded = Path(tmp) / "profile.folded"
+    cmds = {"serve": ["-m", "repro_torch.launch.serve", "--arch", "psi-score",
+                      "--stream", "burst", "--chaos", "--slo", "--watch",
+                      "--profile-out", str(folded), "--device", "cuda"],
+            "obs.check": ["-m", "repro_torch.obs.check", "--device", "cuda",
+                          "--out-dir", str(Path(tmp) / "obs_check")]}
+    procs = {k: subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, cmd in cmds.items()}
+    return dict(procs=procs, folded=folded, t0=time.perf_counter())
+
+
+def chaos_cli_finish(cli, out) -> None:
+    """Both subprocesses exit 0; the drill prints the watch's pre-emption
+    (no sentinel trip), at least one SLO verdict and a non-empty
+    folded-stacks file."""
+    stdout = {}
+    for k, proc in cli["procs"].items():
+        try:
+            stdout[k], stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        check(proc.returncode == 0, f"chaos cli {k} exited "
+              f"{proc.returncode}: {stdout[k][-2000:]} {stderr[-2000:]}")
+    lines = stdout["serve"].splitlines()
+    pre = [ln for ln in lines if "supervisor pre-empted" in ln]
+    slo = [ln for ln in lines if ln.startswith("[slo] ")
+           and "catalog armed" not in ln]
+    check(len(pre) == 1 and "sentinel trips in watched arm: none" in pre[0],
+          f"chaos cli: no clean pre-emption line in {pre}")
+    check(len(slo) >= 1, "chaos cli: no [slo] verdict printed")
+    folded = cli["folded"]
+    check(folded.exists() and folded.stat().st_size > 0,
+          "chaos cli: the folded-stacks file is missing or empty")
+    out["cli_s"] = time.perf_counter() - cli["t0"]
+    for ln in (next(ln for ln in lines if "chaos drill" in ln), pre[0],
+               *slo, stdout["obs.check"].splitlines()[-1]):
+        say(f"chaos cli: {ln}")
+    say(f"chaos cli: both subprocesses done {out['cli_s']:.1f} s after "
+        f"their start")
+
+
+def phase_chaos(report: dict) -> None:
+    """The resilience path (``serve --chaos``) and the rest of obs on the
+    card: (a) the JAX package's f64 chaos gate (n = 200) on the
+    ``AsyncPsiDriver`` stack, (b) the same gate at the twitter stand-in's
+    size through ``run_chaos``'s own ``powerlaw_configuration``, the
+    horizon cut to ~``CHAOS_EVENTS`` events, (c) :func:`chaos_guard`, (d)
+    :func:`chaos_quarantine`, (e) the CLI drill and ``obs.check`` as two
+    subprocesses, started first and collected last. Parts (c) and (d) run
+    ``power_step``, ``edge_spmv`` and the lane kernels; (a) and (b) push
+    with ``torch.segment_reduce`` (the async chunk step)."""
+    import tempfile
+    from repro_torch.core import heterogeneous
+    t_all = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cli_tmp:
+        cli = chaos_cli_start(cli_tmp)
+        try:
+            _chaos_gate("gate", out, n=200, m=1200, horizon=3)
+            n, m = CHAOS_SIZE
+            horizon = CHAOS_EVENTS / float(
+                heterogeneous(n, seed=51).total.sum())
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+                _chaos_gate("twitter-size", out, n=n, m=m, horizon=horizon,
+                            solver_tol=CHAOS_SOLVER_TOL, workdir=tmp)
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+                chaos_guard(report, out, tmp)
+            chaos_quarantine(report, out)
+            chaos_cli_finish(cli, out)
+        finally:
+            for proc in cli["procs"].values():
+                proc.kill()
+    out["path_s"] = time.perf_counter() - t_all
+    say(f"chaos: path {out['path_s']:.1f} s")
+    report["chaos"] = out
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -3093,7 +3367,9 @@ def summary(report: dict) -> str:
     device ms and mat-vecs at tol 1e-9; for the push phase the cold and
     warm certified reads (ms, rounds, edge work, touched share, bound),
     the jit run (ms, rounds, device rounds and their share of the wall)
-    and the device round's ms."""
+    and the device round's ms; for the chaos path each gate's parity,
+    oracle and chaos walls, overhead, MTTR, ladder deadline and restarts,
+    the guard's rollback ms and the path's seconds."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -3161,7 +3437,15 @@ def summary(report: dict) -> str:
                    "max_rel_l1": g(max(report["driver"]["rel_l1"].values())),
                    "async_tau2": {k: g(v) if isinstance(v, float) else v
                                   for k, v in
-                                  report["driver"]["async_tau2"].items()}}})
+                                  report["driver"]["async_tau2"].items()}},
+        "chaos": {**{tag: {k: g(report["chaos"][tag][k]) for k in (
+                      "parity_err", "oracle_wall_s", "chaos_wall_s",
+                      "recovery_overhead", "mttr_s", "ladder_deadline_s")}
+                     | {"restarts": report["chaos"][tag]["restarts"]}
+                     for tag in ("gate", "twitter-size")},
+                  "rollback_ms": g(report["chaos"]["guard"]["rollback_s"]
+                                   * 1e3),
+                  "path_s": g(report["chaos"]["path_s"])}})
 
 
 def main() -> int:
@@ -3195,7 +3479,7 @@ def main() -> int:
                      else "bsr_step" for key, label in
                      report["auto_plans"].items()
                      if key.startswith("microbench/"))
-    paths = [("edge_tile", phase_edge_tile, ("power_step",)),
+    paths = [("edge_tile", phase_edge_tile, ("power_step", "edge_spmv")),
              ("bsr", phase_bsr, ("bsr_step",)),
              ("auto_model", lambda r: phase_auto(r, False), ("power_step",)),
              ("auto_microbench", lambda r: phase_auto(r, True),
@@ -3207,7 +3491,9 @@ def main() -> int:
              ("push", phase_push, ()),
              ("stream", phase_stream,
               ("power_step", "power_step_lanes", "edge_spmv_lanes")),
-             ("driver", phase_driver, ())]
+             ("driver", phase_driver, ()),
+             ("chaos", phase_chaos, ("power_step", "edge_spmv",
+                                     "power_step_lanes", "edge_spmv_lanes"))]
     pool = None
     try:
         phase_device(report)

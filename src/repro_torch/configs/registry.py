@@ -68,16 +68,16 @@ ARCHS: dict[str, ArchEntry] = {
     ]
 }
 
-# arch ids of the JAX package not ported yet, and the ROADMAP item
-# (queue 1) that brings each
+# arch ids of the JAX package not ported yet, and the ROADMAP item (queue
+# 1, named by its title: the numbers move as items land) that brings each
 UNPORTED: dict[str, str] = {
-    **{a: "ROADMAP queue 1 item 12 (models/transformer, the LM family)"
+    **{a: "ROADMAP queue 1, \"The LM family\" (models/transformer)"
        for a in ("tinyllama-1.1b", "yi-9b", "nemotron-4-340b",
                  "mixtral-8x22b", "mixtral-8x7b")},
-    **{a: "ROADMAP queue 1 item 12 (models/gnn: pna, nequip, "
-          "equiformer_v2, so3)"
+    **{a: "ROADMAP queue 1, \"The other GNN families\" (models/gnn: pna, "
+          "nequip, equiformer_v2, so3)"
        for a in ("pna", "nequip", "equiformer-v2")},
-    "mind": "ROADMAP queue 1 item 12 (models/recsys)",
+    "mind": "ROADMAP queue 1, \"The recsys family\" (models/recsys)",
 }
 
 

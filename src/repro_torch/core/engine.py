@@ -66,7 +66,7 @@ from ..device import numpy_dtype, resolve_device
 from ..graphs.structure import Graph
 from ..kernels.formats import build_bsr, build_edge_tiles
 from ..kernels.ops import (DeviceBsr, DeviceEdgeTiles, _i32, bsr_step,
-                           power_step, power_step_lanes)
+                           edge_spmv, power_step, power_step_lanes)
 from ..obs import calibrate as obs_calibrate
 from ..obs import convergence as obs_convergence
 from ..obs import log as obs_log
@@ -732,7 +732,12 @@ class CudaEngine(PsiEngine):
       launch). Native layout is the node-order ``f[n]`` vector.
 
     Both regimes compute the gap in ``l1`` (the paper's choice), so the
-    criterion's norm must be ``l1``. Activity patches refresh only node
+    criterion's norm must be ``l1``. The ``edge_tile`` regime's ψ epilogue
+    pushes with the ``edge_spmv`` kernel, in the fleet's form
+    ``(λ ⊙ edge_spmv(s ⊙ 1/w) + d) · 1/n`` with 1/n rounded once in the
+    working dtype, so a solo solve's ψ is bit for bit a fleet lane's where
+    their inputs are; the ``bsr`` regime keeps the operators' push.
+    Activity patches refresh only node
     vectors; edge patches go into free sentinel slots (edge-tile, via an
     O(Δ) per-tile free-slot cursor) or existing dense tiles (BSR), written
     into the device tensors in place, and fall back to a rebuild of the
@@ -812,6 +817,19 @@ class CudaEngine(PsiEngine):
         self._mu_pad = f.pad_node_vector(self.ops.mu)
         self._c_pad = f.pad_node_vector(self.ops.c)
         self._inv_w_gather = f.pad_gather_source(self.ops.inv_w)
+        one = numpy_dtype(self.dtype).type(1.0)
+        self._inv_n = torch.as_tensor(one / one.dtype.type(f.n),
+                                      device=self.device)
+
+    def epilogue(self, s) -> torch.Tensor:
+        """ψᵀ = (sᵀB + dᵀ)/N from a node-order series vector; in the
+        ``edge_tile`` regime through the ``edge_spmv`` kernel."""
+        s = self._as_node_vector(s)
+        if self.regime != "edge_tile":
+            return self.ops.psi_epilogue(s)
+        ops = self.ops
+        return (ops.lam * edge_spmv(s * ops.inv_w, self.fmt) + ops.d) \
+            * self._inv_n
 
     def _step_args(self):
         if self.regime == "edge_tile":
@@ -823,7 +841,7 @@ class CudaEngine(PsiEngine):
         s_init = self._to_native(self._s0_node_order(s0))
         s, gap, t = self._loop(s_init, tol, max_iter)
         s_n = self._from_native(s)
-        return self._result(self.ops.psi_epilogue(s_n), s_n, gap, t, tol)
+        return self._result(self.epilogue(s_n), s_n, gap, t, tol)
 
     # -- delta rebuilds ------------------------------------------------- #
     def patch_activity(self, users, lam=None, mu=None) -> bool:

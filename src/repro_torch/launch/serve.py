@@ -46,14 +46,29 @@ bounded-staleness :class:`~repro_torch.asyncexec.AsyncPsiDriver`
 chunk forensics (median and max chunk ms, slow chunks) and the ranked
 requests.
 
+``--chaos`` runs the seeded fault-injection drill of
+:func:`repro_torch.resilience.check.run_chaos` (crashes, forced-stale
+reads, a torn stack checkpoint, a poisoned patch, a corrupted event feed,
+then recovery and an exactly-once replay, and the supervisor's ladder) and
+prints its ``ResilienceReport``; ``--chaos-seed`` seeds its ``FaultPlan``.
+With ``--stream X`` the two run as one drill on one registry.
+
 Observability: ``--metrics-port`` exposes the live registry over HTTP on
-localhost, ``--trace-out`` records every span to JSONL (+ a Chrome trace at
-exit), ``--metrics-dump`` writes one snapshot (the port's environment
-fingerprint + metrics + convergence records) at exit, ``--explain`` prints
-the EXPLAIN-ANALYZE tree of the last resolve and read, and
-``--calibration-out`` saves the cost model's calibration store. The JAX
-launcher's ``--slo``, ``--watch``, ``--profile-out`` and ``--chaos`` are not
-ported yet and exit with a message saying so.
+localhost (``/metrics``, ``/metrics.json``, ``/healthz``, ``/slo``),
+``--trace-out`` records every span to JSONL (+ a Chrome trace at exit),
+``--metrics-dump`` writes one snapshot (the port's environment fingerprint
++ metrics + convergence records) at exit, ``--explain`` prints the
+EXPLAIN-ANALYZE tree of the last resolve and read, and ``--calibration-out``
+saves the cost model's calibration store. The analysis layer rides the same
+flags: ``--slo`` judges the run against the default SLO catalog (a
+background burn-rate ticker and a verdict epilogue), ``--watch`` attaches
+the convergence watch to the resolve stream (with ``--chaos`` it also runs
+the seeded α-drift pre-emption drill), and ``--profile-out`` writes the
+span stream's folded stacks (with a hotspot and critical-path epilogue).
+The JAX launcher's full drill, on the port::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch psi-score \
+        --stream burst --chaos --slo --watch --profile-out profile.folded
 """
 from __future__ import annotations
 
@@ -280,14 +295,122 @@ def _serve_stream(args) -> None:
           f"≈ {floor:.0%})")
 
 
+def _serve_chaos(args) -> None:
+    """Chaos drill: the seeded fault-injection scenario of
+    :mod:`repro_torch.resilience.check` against the whole serving stack —
+    streaming ingestion, whole-stack checkpoints, a mid-stream crash,
+    exactly-once replay, the supervised-resolve ladder — then the
+    ResilienceReport. The JAX launcher's ``_serve_chaos``, line for line."""
+    from ..resilience.check import run_chaos
+
+    t0 = time.perf_counter()
+    report, metrics = run_chaos(seed=args.chaos_seed, device=args.device)
+    print(f"[serve] chaos drill ({metrics['dtype']}, "
+          f"n={metrics['n']} m={metrics['m']} "
+          f"events={metrics['events']}) in "
+          f"{time.perf_counter() - t0:.2f}s")
+    print(f"[serve] recovered at offset {metrics['offset']} "
+          f"(checkpoint step {metrics['recovered_step']}), "
+          f"{metrics['restarts']} mid-run restarts, "
+          f"parity vs fault-free fixed point: "
+          f"{metrics['parity_err']:.2e} (tol {metrics['psi_tol']:g})")
+    print(f"[serve] recovery overhead {metrics['recovery_overhead']:.2f}x "
+          f"fault-free wall, mttr {metrics['mttr_s'] * 1e3:.0f} ms, "
+          f"{metrics['degraded_served']} degraded answers served "
+          "(staleness-tagged)")
+    print(report.summary())
+
+
+def _serve_watch(args) -> None:
+    """Seeded pre-emption scenario (``--watch`` with ``--chaos``): a
+    deterministic schedule of μ-raising patches marches the contraction
+    modulus α = ‖M‖₁ toward the sentinel wall. The baseline arm shows the α
+    sentinel *would* trip at some patch step; the watched arm's trend
+    projection flags the drift strictly earlier, stops the escalation, and
+    the supervisor consumes the advice as a pre-emptive sync sweep — a
+    certified answer is served and the sentinel never fires. The JAX
+    launcher's ``_serve_watch``, line for line."""
+    from ..asyncexec import AsyncPsiDriver
+    from ..core import heterogeneous
+    from ..graphs import powerlaw_configuration
+    from ..obs.watch import ConvergenceWatch
+    from ..resilience.health import Sentinels, alpha_norm
+    from ..resilience.supervisor import ResilientResolver
+
+    n, m, wall = 400, 2_400, 0.995
+    factors = [1.35] * 16                      # deterministic μ escalation
+
+    def build():
+        g = powerlaw_configuration(n, m, seed=13)
+        return AsyncPsiDriver(g, heterogeneous(n, seed=14),
+                              num_chunks=3, tau=2, device=args.device)
+
+    def patch(drv, f):
+        users = np.arange(n)
+        drv.host.patch_activity(users, mu=drv.host.mu[users] * f)
+
+    # arm 1 (baseline, no watch): walk the schedule until the sentinel
+    # trips — this is the incident the watch must get ahead of
+    drv = build()
+    sent = Sentinels(alpha_max=wall)
+    trip_step = trip_alpha = None
+    for step, f in enumerate(factors):
+        patch(drv, f)
+        if sent.check_alpha(drv.host) is not None:
+            trip_step, trip_alpha = step, alpha_norm(drv.host)
+            break
+    if trip_step is None:
+        raise SystemExit("[watch] drill broken: the μ schedule never "
+                         "reached the α sentinel wall")
+    print(f"[watch] baseline arm: α sentinel trips at patch {trip_step} "
+          f"(α={trip_alpha:.4f} ≥ {wall})")
+
+    # arm 2 (watched): same schedule, but every patch feeds the watch;
+    # the projected trend flags the drift before the wall and the
+    # supervisor pre-empts with a certified sync sweep
+    drv = build()
+    watch = args._watch or ConvergenceWatch()
+    watch_sent = Sentinels(alpha_max=wall)
+    resolver = ResilientResolver(drv, tol=1e-6, max_iter=4_000,
+                                 attempt_deadline_s=60.0,
+                                 sentinels=watch_sent, watch=watch)
+    watch.consume_advice()        # drop advice left over from earlier phases
+    flag_step = None
+    for step, f in enumerate(factors):
+        patch(drv, f)
+        watch.observe_alpha(alpha_norm(drv.host))
+        if watch.advice().sync_sweep:
+            flag_step = step               # control action: stop escalating
+            break
+    if flag_step is None or flag_step >= trip_step:
+        raise SystemExit(
+            f"[watch] drill FAILED: watch flagged at "
+            f"{flag_step} vs sentinel trip at {trip_step}")
+    out = resolver.resolve()
+    preempted = list(resolver.report.preemptions)
+    trips = [str(t) for t in watch_sent.trips]
+    print(f"[watch] watched arm: α-drift flagged at patch {flag_step} "
+          f"(α={alpha_norm(drv.host):.4f} < {wall}), "
+          f"{trip_step - flag_step} patches ahead of the baseline trip")
+    print(f"[watch] supervisor pre-empted: preemptions={preempted}, "
+          f"escalation={out.escalation!r}, degraded={out.degraded}, "
+          f"err_bound={out.psi_error_bound:.2e}, "
+          f"sentinel trips in watched arm: {trips or 'none'}")
+    if not preempted or trips:
+        raise SystemExit("[watch] drill FAILED: expected a pre-emption "
+                         "and zero sentinel trips in the watched arm")
+
+
 def _obs_epilogue(args) -> None:
     """When any obs flag was given: print the human summary (query
     p50/p99, events/s, cache hit ratio, convergence records, retraces,
-    explain) and write the registry dump and the trace file. The JAX
-    launcher's epilogue without the parts whose modules are not ported
-    (resilience, slo, watch, profile)."""
+    MTTR, SLO verdicts, watch signals, top hotspots, explain) and write the
+    registry dump, the trace file and the folded-stacks profile. The JAX
+    launcher's epilogue; then the SLO ticker stops, the watch detaches
+    from the resolve stream and, without ``--metrics-port``, the ``/slo``
+    provider is uninstalled."""
     if not (args.metrics_port or args.metrics_dump or args.trace_out
-            or args.explain):
+            or args.slo or args.watch or args.profile_out or args.explain):
         return
     from .. import obs
     from ..obs import calibrate as obs_calibrate
@@ -338,6 +461,47 @@ def _obs_epilogue(args) -> None:
               f"{last.iterations} iters gap={last.gap:.2e}")
     retraces = total("psi_retraces_total")
     print(f"[obs] silent jit retraces: {int(retraces)}")
+    mttr = pooled("psi_resilience_mttr_seconds")
+    if mttr is not None:
+        print(f"[obs] resilience: {mttr.count} recoveries, "
+              f"mttr mean={mttr.sum / mttr.count * 1e3:.0f} ms "
+              f"p99={mttr.quantile(0.99) * 1e3:.0f} ms; "
+              f"{int(total('psi_resilience_degraded_served_total'))} "
+              f"degraded answers")
+    slo_engine = args._slo_engine
+    if slo_engine is not None:
+        args._slo_stop.set()                # quiesce the background ticker
+        slo_engine.tick()                   # one final synchronous sample
+        for line in slo_engine.summary():
+            print(f"[slo] {line}")
+        if not args.metrics_port:
+            slo_engine.uninstall()
+    watch = args._watch
+    if watch is not None:
+        ws = watch.summary()
+        print(f"[watch] {ws['signals']} anomaly signal(s): "
+              f"{ws['by_kind'] or '{}'}")
+        watch.detach()
+    tracer = obs_trace.get_tracer()
+    if tracer.enabled and (args.profile_out or args.slo):
+        from ..obs.profile import Profile
+        prof = Profile.from_tracer(tracer)
+        if prof.records:
+            print("[profile] top hotspots (self time):")
+            for h in prof.hotspots(5):
+                split = (f" dispatch={h['dispatch_s'] * 1e3:.1f}ms "
+                         f"sync={h['sync_s'] * 1e3:.1f}ms"
+                         if h["dispatch_s"] or h["sync_s"] else "")
+                print(f"[profile]   {h['frame']}: "
+                      f"self={h['self_s'] * 1e3:.1f}ms "
+                      f"total={h['total_s'] * 1e3:.1f}ms "
+                      f"x{h['count']}{split}")
+            cp = prof.critical_path()
+            if cp.steps:
+                print(f"[profile] {cp.describe()}")
+            if args.profile_out:
+                prof.write_folded(args.profile_out)
+                print(f"[profile] folded stacks -> {args.profile_out}")
     svc = getattr(args, "_svc", None)
     if args.explain:
         if svc is None:
@@ -360,7 +524,6 @@ def _obs_epilogue(args) -> None:
             obs.dump(args.metrics_dump, device=svc.engine.device,
                      dtype=svc.engine.dtype)
         print(f"[obs] registry dump -> {args.metrics_dump}")
-    tracer = obs_trace.get_tracer()
     if tracer.enabled and args.trace_out:
         tracer.flush()
         chrome = args.trace_out + ".chrome.json"
@@ -369,8 +532,8 @@ def _obs_epilogue(args) -> None:
               f"({len(tracer.spans)} spans retained, "
               f"{tracer.dropped} dropped); chrome view -> {chrome}")
     if args.metrics_port:
-        print(f"[obs] /metrics, /metrics.json and /healthz still live on "
-              f"port {args.metrics_port} until the process exits")
+        print(f"[obs] /metrics, /metrics.json, /healthz and /slo still "
+              f"live on port {args.metrics_port} until the process exits")
 
 
 def main(argv=None) -> None:
@@ -448,33 +611,79 @@ def main(argv=None) -> None:
     ap.add_argument("--calibration-out", default=None,
                     help="with --explain: save the cost-model calibration "
                          "store to this JSON path at exit")
-    for flag in ("--slo", "--watch", "--chaos"):
-        ap.add_argument(flag, action="store_true",
-                        help="not ported yet (exits with a message)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run the seeded fault-injection drill (crashes, "
+                         "torn checkpoints, poisoned patches, corrupted "
+                         "event feeds) and print the ResilienceReport")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the FaultPlan the drill injects")
+    ap.add_argument("--slo", action="store_true",
+                    help="judge the run against the default SLO catalog "
+                         "(query p99, freshness, certified error, "
+                         "degraded ratio): background burn-rate ticker, "
+                         "verdict epilogue, /slo endpoint")
+    ap.add_argument("--watch", action="store_true",
+                    help="arm pre-emptive convergence anomaly detection; "
+                         "with --chaos also runs the seeded α-drift "
+                         "pre-emption drill")
     ap.add_argument("--profile-out", default=None,
-                    help="not ported yet (exits with a message)")
+                    help="write flamegraph folded stacks of the span "
+                         "stream to this path (+ hotspot/critical-path "
+                         "epilogue)")
     args = ap.parse_args(argv)
-    missing = [flag for flag, on in (
-        ("--slo", args.slo), ("--watch", args.watch),
-        ("--profile-out", args.profile_out), ("--chaos", args.chaos)) if on]
-    if missing:
-        raise SystemExit(f"{', '.join(missing)}: not ported yet (the JAX "
-                         "package's obs.slo / obs.watch / obs.profile and "
-                         "resilience modules have no port yet)")
     if args.explain_out:
         args.explain = True
     args._svc = None
-    if args.trace_out or args.metrics_port:
+    if args.trace_out or args.metrics_port or args.profile_out:
         from .. import obs
         if args.trace_out:
             obs.configure(trace_out=args.trace_out)
+        elif args.profile_out:
+            # the profiler needs retained spans; an in-memory tracer does
+            obs.configure(tracer=obs.Tracer(None))
         if args.metrics_port:
             obs.start_http_server(args.metrics_port)
             print(f"[obs] metrics on "
                   f"http://127.0.0.1:{args.metrics_port}/metrics "
-                  "(+ /metrics.json /healthz)")
-    if args.stream:
-        _serve_stream(args)
+                  "(+ /metrics.json /healthz /slo)")
+    args._slo_engine = args._slo_stop = args._watch = None
+    if args.slo:
+        import threading
+        from ..obs.slo import DRILL_TIME_SCALE, SLOEngine, default_slos
+        engine = SLOEngine(default_slos(), time_scale=DRILL_TIME_SCALE)
+        engine.install()                     # /slo endpoint
+        stop = threading.Event()
+
+        def _ticker():
+            while not stop.wait(0.05):
+                engine.tick()
+
+        threading.Thread(target=_ticker, name="slo-ticker",
+                         daemon=True).start()
+        args._slo_engine, args._slo_stop = engine, stop
+        print("[slo] default catalog armed "
+              f"(windows scaled x{DRILL_TIME_SCALE:g} to drill time)")
+    if args.watch:
+        from ..obs.watch import ConvergenceWatch
+        args._watch = ConvergenceWatch().attach()   # every finished resolve
+        print("[watch] convergence watch attached to the resolve stream")
+    if args.chaos or args.stream:
+        # --stream X --chaos is the combined drill: streaming ingestion
+        # and the fault ladder feed one registry, dumped once at the end
+        if args.stream:
+            _serve_stream(args)
+        if args.chaos:
+            _serve_chaos(args)
+        if args.watch and args.chaos:
+            _serve_watch(args)
+        if args._slo_engine is not None:
+            # multi-window burn alerts need sustained evidence: give the
+            # ticker a moment to accumulate the slow window post-fault
+            deadline = time.perf_counter() + 5.0
+            while time.perf_counter() < deadline:
+                if args._slo_engine.report()["alerts_total"] >= 1:
+                    break
+                time.sleep(0.1)
         _obs_epilogue(args)
         return
     if args.executor:

@@ -12,6 +12,15 @@ written anew from torch, and :mod:`trace` (spans on one clock, the JSONL /
 Chrome export and the retrace guard) is ported with a CUDA-stream
 ``Span.sync`` and a guard that counts new input signatures.
 
+The analysis-and-control layer on top, also copies: :mod:`slo`
+(declarative SLOs, error budgets, multi-window burn-rate alerts, served at
+``/slo``), :mod:`profile` (folded stacks, the dispatch/sync split,
+the async critical path), :mod:`watch` (online convergence anomaly
+detection feeding pre-emptive advice into the resilience ladder) and
+:mod:`regress` (the noise-aware gate over ``BENCH_power_psi.json``;
+``python -m repro_torch.obs.regress``). ``python -m repro_torch.obs.check``
+self-tests the plane end to end.
+
 Instrumentation sites call the cheap module-level helpers
 (``metrics.counter(...)``, ``trace.span(...)``, ``convergence``'s tracker);
 :func:`configure` swaps the process sinks behind them. The default state is
@@ -19,21 +28,22 @@ the JAX package's: metrics ON (host-side Python, no device syncs), the
 convergence tracker ON in its bounded in-memory form, the tracer null —
 :func:`disable` swaps every sink for its null twin so the hot path costs
 one attribute read and a no-op call.
-
-Not ported yet (the rest of the JAX package's plane): ``slo``, ``watch``,
-``profile``, ``regress`` and ``check``.
 """
 from __future__ import annotations
 
 import json as _json
 
-from . import calibrate, convergence, env, explain, log, metrics, trace
+from . import (calibrate, convergence, env, explain, log, metrics, profile,
+               slo, trace, watch)
 from .calibrate import CalibrationStore, env_key
 from .convergence import NULL_TRACKER, ConvergenceTracker
 from .env import device_fingerprint, environment_fingerprint
 from .explain import NULL_DECISIONS, DecisionLog, DecisionRecord
 from .metrics import MetricsRegistry, NullRegistry, start_http_server
+from .profile import Profile
+from .slo import SLO, SLOEngine, default_slos
 from .trace import NULL_TRACER, Span, Tracer, retrace_guard, span
+from .watch import ConvergenceWatch
 
 __all__ = ["calibrate", "convergence", "env", "explain", "log", "metrics",
            "trace", "CalibrationStore", "env_key", "ConvergenceTracker",
@@ -41,7 +51,20 @@ __all__ = ["calibrate", "convergence", "env", "explain", "log", "metrics",
            "DecisionLog", "DecisionRecord", "NULL_DECISIONS",
            "MetricsRegistry", "NullRegistry", "start_http_server",
            "NULL_TRACER", "Span", "Tracer", "retrace_guard", "span",
+           "slo", "profile", "watch", "regress", "SLO", "SLOEngine",
+           "default_slos", "Profile", "ConvergenceWatch",
            "configure", "disable", "restore", "enabled", "dump"]
+
+
+def __getattr__(name):
+    # lazy: regress is a CLI module; importing it eagerly would trip the
+    # runpy double-import warning under `python -m repro_torch.obs.regress`
+    # (``importlib``, not ``from . import regress``: that form asks this
+    # hook for the name again and recurses, as the JAX package's does)
+    if name == "regress":
+        import importlib
+        return importlib.import_module(f"{__name__}.regress")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def enabled() -> bool:

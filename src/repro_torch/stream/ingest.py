@@ -455,8 +455,8 @@ class StreamIngestor:
         no pending edge ops), so a recovery that replays the event log from
         this offset reconstructs exactly the un-applied suffix; the
         estimator's :meth:`~repro_torch.stream.estimator.RateEstimator.
-        state_dict` carries the applied prefix (the JAX package's
-        ``resilience.recovery`` composes the two; its port is to come)."""
+        state_dict` carries the applied prefix
+        (:mod:`repro_torch.resilience.recovery` composes the two)."""
         return int(self.events_total)
 
     def fast_forward(self, offset: int, *, event_t: float | None = None

@@ -472,13 +472,11 @@ def test_edge_spmv_lanes_kernel_on_card(card, tile, weighted, dtype):
     assert torch.equal(o1.cpu(), op)
 
 
-# The fleet's cuda regime on the card: each lane's iterations, gap and s
-# equal the solo cuda engine's at the bucket's tile (bitwise: the same
-# kernel, the same slot order, the same inputs), one power_step_lanes launch
-# a step. The engine's ψ epilogue pushes with torch.segment_reduce, whose
-# sum on the card is not a slot-order fold, so the lane's ψ is held bitwise
-# against the fleet's epilogue (the edge_spmv kernel, then · 1/n) on the
-# engine's s, and within relative L1 1e-6 of the engine's own ψ.
+# The fleet's cuda regime on the card: each lane's iterations, gap, s and
+# ψ equal the solo cuda engine's at the bucket's tile (bitwise: the same
+# kernels, the same slot order, the same inputs; both ψ epilogues push
+# through edge_spmv and multiply by 1/n rounded once), one power_step_lanes
+# launch a step.
 def test_fleet_cuda_regime_matches_solo_engine_on_card(card):
     from repro_torch.serving import BucketPolicy, TenantFleet
     graphs = [tg.powerlaw_configuration(3000, 30000, seed=41),
@@ -501,13 +499,28 @@ def test_fleet_cuda_regime_matches_solo_engine_on_card(card):
         st = fleet.stats(f"t{i}")
         assert st["iterations"] == res.iterations and st["gap"] == res.gap
         assert np.array_equal(fleet.series(f"t{i}"), res.s.cpu().numpy())
-        ops = eng.ops
-        inv_n = torch.tensor(1.0, device=card) / g.n
-        psi = (ops.lam * edge_spmv(res.s * ops.inv_w, eng.fmt) + ops.d) \
-            * inv_n
-        assert np.array_equal(fleet.psi(f"t{i}"), psi.cpu().numpy())
-        rel = float((psi - res.psi).abs().sum() / res.psi.abs().sum())
-        assert rel <= 1e-6
+        assert np.array_equal(fleet.psi(f"t{i}"), res.psi.cpu().numpy())
+
+
+# The solo engine's edge_tile ψ epilogue is the fleet's: a one-tenant fleet
+# lane and a solo cuda engine at the lane's plan give the same bits, at
+# float32 and float64, and the epilogue launches edge_spmv once a solve.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solo_cuda_psi_equals_one_tenant_fleet_lane_on_card(card, dtype):
+    from repro_torch.serving import TenantFleet
+    g = tg.powerlaw_configuration(3000, 20000, seed=4)
+    act = tc.heterogeneous(g.n, seed=5)
+    fleet = TenantFleet(backend="cuda", tol=1e-8, device=card, dtype=dtype)
+    fleet.admit("t", g, act)
+    fleet.solve()
+    plan = fleet._buckets[fleet.spec_of("t")].plan
+    eng = tc.make_engine("cuda", graph=g, activity=act, device=card,
+                         dtype=dtype, tile=plan.tile, e1=plan.e1, e2=plan.e2)
+    before = edge_spmv_call.launches
+    res = eng.run(tol=1e-8)
+    assert edge_spmv_call.launches - before == 1
+    assert res.iterations == fleet.stats("t")["iterations"]
+    assert np.array_equal(res.psi.cpu().numpy(), fleet.psi("t"))
 
 
 # --------------------------------------------------------------------- #

@@ -591,3 +591,28 @@ def test_serve_tenants_prints_the_jax_clis_fleet_top():
     with pytest.raises(SystemExit, match="accelerate"):
         main(["--arch", "psi-score", "--tenants", "2", "--device", "cpu",
               "--accelerate"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solo_cuda_psi_equals_one_tenant_fleet_lane(dtype):
+    """The solo ``cuda`` engine's ``edge_tile`` ψ epilogue is the fleet's
+    (``edge_spmv``, then · 1/n rounded once): a one-tenant fleet lane and a
+    solo engine at the lane's plan give s, the gap, the count and ψ bit for
+    bit, on the CPU's plain versions as on the card
+    (``tests/test_torch_cuda.py``)."""
+    g = tg.powerlaw_configuration(3000, 20000, seed=4)
+    act = tc.heterogeneous(g.n, seed=5)
+    fleet = ts.TenantFleet(backend="cuda", tol=1e-8, device="cpu",
+                           dtype=dtype)
+    fleet.admit("t", g, act)
+    fleet.solve()
+    assert fleet.occupancy()[fleet.spec_of("t")]["regime"] == "cuda"
+    plan = fleet._buckets[fleet.spec_of("t")].plan
+    eng = tc.make_engine("cuda", graph=g, activity=act, device="cpu",
+                         dtype=dtype, tile=plan.tile, e1=plan.e1, e2=plan.e2)
+    res = eng.run(tol=1e-8)
+    st = fleet.stats("t")
+    assert res.iterations == st["iterations"] and res.gap == st["gap"]
+    assert np.array_equal(res.s.numpy(), fleet.series("t"))
+    assert np.array_equal(res.psi.numpy(), fleet.psi("t"))
+    assert torch.equal(eng.epilogue(res.s), res.psi)

@@ -9,6 +9,7 @@ trainer's first 5 losses at relative 1e-3 (Adam's g/√v magnifies f32
 sum-order differences where gradients are near 0).
 """
 import dataclasses
+import pathlib
 import sys
 
 import jax
@@ -298,8 +299,24 @@ def test_registry_and_cell_dims_match_jax():
                                   169_984) == jspecs._gnn_model_flops(
         "graphsage-reddit", j_cfg, 169_984, 169_984)
     assert get_arch("psi-score").config().dataset == "twitter"
-    with pytest.raises(KeyError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(KeyError, match='"The other GNN families"'):
         get_arch("pna")
+
+
+def test_unported_archs_name_their_roadmap_item_by_title():
+    """Each unported arch's message names a queue-1 item of ROADMAP.md by
+    its bold title, which stays put while the item numbers move."""
+    import re
+    from repro_torch.configs.registry import UNPORTED
+    roadmap = (pathlib.Path(__file__).resolve().parents[1]
+               / "ROADMAP.md").read_text()
+    for arch, where in UNPORTED.items():
+        title = re.search(r'"([^"]+)"', where).group(1)
+        assert re.search(rf"^\d+\. \*\*{re.escape(title)}\.\*\*", roadmap,
+                         re.M), (arch, title)
+        assert "item" not in where
+        with pytest.raises(KeyError, match=re.escape(f'"{title}"')):
+            get_arch(arch)
 
 
 def test_reduced_trainer_matches_jax_trainer_losses(monkeypatch, capsys):
@@ -323,7 +340,7 @@ def test_train_cli_on_cpu_and_refusals(capsys):
     out = capsys.readouterr().out
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert out.count("[train] step") == 3
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(SystemExit, match='"The LM family"'):
         train.main(["--arch", "tinyllama-1.1b", "--device", "cpu"])
     with pytest.raises(SystemExit, match="launch.serve"):
         train.main(["--arch", "psi-score", "--device", "cpu"])

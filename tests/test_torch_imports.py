@@ -49,6 +49,12 @@ SLICE_MODULES = [
     "repro_torch.runtime.psi_driver", "repro_torch.asyncexec",
     "repro_torch.asyncexec.staleness", "repro_torch.asyncexec.scheduler",
     "repro_torch.asyncexec.executor",
+    "repro_torch.resilience", "repro_torch.resilience.faults",
+    "repro_torch.resilience.health", "repro_torch.resilience.recovery",
+    "repro_torch.resilience.supervisor", "repro_torch.resilience.check",
+    "repro_torch.obs.slo", "repro_torch.obs.profile",
+    "repro_torch.obs.watch", "repro_torch.obs.regress",
+    "repro_torch.obs.check",
 ]
 
 

@@ -756,10 +756,27 @@ def test_serve_stream_prints_the_jax_clis_top():
 
 @pytest.mark.parametrize("flag", [["--slo"], ["--watch"], ["--chaos"],
                                   ["--profile-out", "p.folded"]])
-def test_serve_flags_not_ported_yet_exit_with_a_message(flag):
+def test_serve_flags_not_ported_yet_exit_with_a_message(flag, tmp_path,
+                                                        monkeypatch):
+    """These four flags once exited "not ported yet"; they are ported now.
+    Each runs to its end on the CPU and prints its own epilogue line, and
+    none prints the old message."""
     from repro_torch.launch.serve import main
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--arch", "psi-score", "--device", "cpu", *flag])
+    monkeypatch.chdir(tmp_path)
+    want = {"--slo": "[slo] overall:", "--watch": "[watch] 0 anomaly",
+            "--chaos": "ResilienceReport",
+            "--profile-out": "[profile] folded stacks -> p.folded"}[flag[0]]
+    out = io.StringIO()
+    prev = tobs.configure(registry=tobs.MetricsRegistry(),
+                          tracker=tobs.ConvergenceTracker())
+    try:
+        with contextlib.redirect_stdout(out):
+            main(["--arch", "psi-score", "--device", "cpu", *flag])
+    finally:
+        tobs.restore(prev)
+    assert want in out.getvalue() and "not ported" not in out.getvalue()
+    if flag[0] == "--profile-out":
+        assert (tmp_path / "p.folded").stat().st_size > 0
 
 
 def test_serve_stream_obs_epilogue_dumps_and_explains(tmp_path):
