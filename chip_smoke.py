@@ -156,13 +156,31 @@ each) run in three worker processes from the start of the run, which the
 script ends before it exits.
 
 Phase 2 holds ``seg_mm`` against its plain version on CPU copies, bitwise,
-at float32 and float64, d = 8, 128 and 602, with and without the layout's
-tile spans, on the trainer's format at the ``minibatch_lg`` shape (as
-built, with padding blocks, with its slots shuffled within each tile), on
-a tile with only padding blocks and a tile with none; its backward against
-the plain gather.
+at float32 and float64, d = 8, 128, 602, 75, 32, 96 and 160, with and
+without the layout's tile spans, on the trainer's format at the
+``minibatch_lg`` shape (as built, with padding blocks, with its slots
+shuffled within each tile), on a tile with only padding blocks and a tile
+with none, and on the ``full_graph_sm`` and ``molecule`` formats at d = 75,
+32, 96, 160 and 6,272; its backward against the plain gather.
 
-Phases 3 to 8, ``paper``, ``push``, ``stream``, ``driver`` and ``chaos``
+* ``gnn_families`` (after ``gnn_train``): PNA, NequIP and EquiformerV2
+  at full width through ``repro_torch.launch.train`` — ``--arch pna
+  --shape full_graph_sm --steps 10``, ``--arch nequip --shape molecule
+  --steps 10``, ``--arch equiformer-v2 --shape molecule --steps 5`` (every
+  loss finite; each arch's loss must fall over 10 steps on its fixed batch
+  from a fresh init); one full-width step of each at float32 on the card
+  against the same step at float64 on the card, both through ``seg_mm``
+  (``GNN_FAMILY_LIMITS``); rotation invariance of NequIP and EquiformerV2
+  at full width (max|o₁ − o₂| / max|o₁| ≤ 1e-3 at f32, ≤ 1e-9 at f64);
+  ``sharded_sage_apply`` on a world-1 NCCL mesh against ``sage.apply`` on
+  full_graph_sm's graph (rel ≤ 1e-5); one ``sgd`` and one ``adafactor``
+  update of the EquiformerV2 tree on the card against CPU float64 copies
+  (the parameters rel ≤ 1e-6, the step ≤ ``OPT_STEP_REL``); each arch's
+  step ms (CUDA events), busy share (profiler), seg_mm launches a step and
+  peak memory.
+
+Phases 3 to 8, ``gnn_families``, ``paper``, ``push``, ``stream``,
+``driver`` and ``chaos``
 are the main paths (the auto phase is two: model-only and microbench): every
 launch
 counter is set to 0 just before each path and read just after, and each
@@ -170,6 +188,7 @@ kernel of a path must have launched there. The last line of standard output is `
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing
 import subprocess
@@ -201,6 +220,27 @@ BSR_TOL = {"float32": (2e-5, 2e-6), "float64": (1e-12, 1e-14)}
 # and atomic gather-backward sums in another order).
 GNN_LOSS_RTOL = 1e-5
 GNN_GRAD_REL_L2 = 1e-4
+# seg_mm's widths in phase 2: on the GraphSAGE cell's layouts (its own and
+# the other families'), and on the families' own formats
+SEG_MM_WIDTHS = (8, 128, 602, 75, 32, 96, 160)
+SEG_MM_FAMILY_WIDTHS = (75, 32, 96, 160, 6272)
+SEG_MM_FAMILY_LAYOUTS = {"full_graph_sm": "pna", "molecule": "equiformer-v2"}
+# The gnn_families path: each arch's CLI run (arch, shape, steps), and the
+# limits of its full-width f32 step against the same step at f64 on the card
+# (loss rel, gradient rel L2 a leaf): GraphSAGE's for PNA; ten times looser
+# for the equivariant nets, whose Wigner matrices and CG products round at
+# f32 through deep stacks of small matmuls.
+GNN_FAMILY_RUNS = (("pna", "full_graph_sm", 10), ("nequip", "molecule", 10),
+                   ("equiformer-v2", "molecule", 5))
+GNN_FAMILY_LIMITS = {"pna": (1e-5, 1e-4), "nequip": (1e-4, 1e-3),
+                     "equiformer-v2": (1e-4, 1e-3)}
+# An optimizer update on the card against CPU float64 copies: the updated
+# parameters within rel 1e-6 a leaf, and the step itself (new − old) within
+# OPT_STEP_REL: both sides compute in float32 (the optimizers' master
+# arithmetic), so the step differs by the rounding of reductions over rows
+# of up to 1,792 entries summed in another order (1.04e-6 seen for
+# adafactor on the card).
+OPT_STEP_REL = 1e-5
 # the model-only plan the cost model gives both graphs (computed on the
 # host in the run as well; the two must agree)
 AUTO_MODEL_LABEL = "edge_tile(tile=512,e1=8,e2=128)"
@@ -839,6 +879,14 @@ def _seg_mm_variants(report) -> dict:
     out["idle tile"] = (s2, d2, f.block_tile, f.num_tiles, small.n)
     k = f.block_tile != 1
     out["empty tile"] = (s2[k], d2[k], f.block_tile[k], f.num_tiles, small.n)
+    # the gnn_families path's formats: PNA's full_graph_sm batch and the
+    # equivariant nets' molecule batch
+    for name, arch in SEG_MM_FAMILY_LAYOUTS.items():
+        cfg = train.cell(arch, name)[0]
+        ff = train.shape_batch(arch, name, cfg, "cpu").agg.fmt
+        out[name] = (ff.src_idx.numpy().reshape(-1, eblk),
+                     ff.dst_local.numpy().reshape(-1, eblk),
+                     ff.block_tile.numpy(), ff.num_tiles, ff.n)
     return out
 
 
@@ -863,9 +911,12 @@ def seg_mm_cases(report: dict) -> None:
     plain version adds every slot in slot order, the kernel a row's slots in
     slot order and no padding past the tile span: held bitwise, since a sum
     from +0.0 is unchanged by a zero row), twice on the same inputs with the
-    layout's tile span and once without it (all bitwise), at f32 and f64
-    and d = 8, 128, 602, on every layout of :func:`_seg_mm_variants`; then
-    the backward against the plain gather."""
+    layout's tile span and once without it (all bitwise), at f32 and f64,
+    on every layout of :func:`_seg_mm_variants` at the GraphSAGE cell's d =
+    8, 128, 602 and the other families' 75 (PNA) and 32, 96, 160 (NequIP's
+    (2l+1)·32), and on the families' own formats at 75, 32, 96, 160 and
+    6,272 (EquiformerV2's 49·128); then the backward against the plain
+    gather."""
     import torch
     from repro_torch.kernels.formats import tile_spans
     from repro_torch.kernels.seg_mm import SegMM, seg_mm_call, seg_mm_plain
@@ -879,9 +930,11 @@ def seg_mm_cases(report: dict) -> None:
         src, _, bt, num_tiles, n = layout
         span = torch.as_tensor(tile_spans(src, n, bt, num_tiles),
                                device="cuda")
+        widths = (SEG_MM_FAMILY_WIDTHS if name in SEG_MM_FAMILY_LAYOUTS
+                  else SEG_MM_WIDTHS)
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
-            for d in (8, 128, 602):
+            for d in widths:
                 args = _seg_mm_args(layout, d, dtype, gen)
                 o1 = seg_mm_call(*args, tile=tile, tile_span=span)
                 o2 = seg_mm_call(*args, tile=tile, tile_span=span)
@@ -901,14 +954,18 @@ def seg_mm_cases(report: dict) -> None:
                 if name == "empty tile":
                     check(bool((o1[tile:2 * tile] == 0).all()),
                           f"{tag}: the tile without blocks is not zero")
-                if name == "minibatch" and dname == "float32" and d > 8:
+                if name == "minibatch" and dname == "float32" and d in (
+                        128, 602):
                     errs["seg_mm" if d == 602 else "seg_mm_d128"] = err
+                if name == "molecule" and dname == "float32" and d == 6272:
+                    errs["seg_mm_d6272"] = err
                 n_cases += 1
                 del args, o1, o2, o3, host, op
         say(f"seg_mm {name:18s}: {layout[0].shape[0]} blocks, {layout[3]} "
             f"tiles, {int(span.sum())} slots in the tile spans of "
-            f"{src.size}; f32/f64 x d 8/128/602 bitwise equal to the plain "
-            f"version, with and without the span, and run to run")
+            f"{src.size}; f32/f64 x d {'/'.join(map(str, widths))} bitwise "
+            f"equal to the plain version, with and without the span, and "
+            f"run to run")
     # the backward: dM = dY at each slot's row, against the plain gather
     args = _seg_mm_args(layouts["minibatch+pad"], 128, torch.float32, gen)
     msgs = args[0].clone().requires_grad_()
@@ -1270,6 +1327,336 @@ def phase_gnn_train(report: dict) -> None:
                          loss_rel=loss_rel, grad_rel=max(grad_rel))
     report["gnn_step"] = (fparams, state, batch, cfg, opt)
     del run, data, params, p64, loss64
+
+
+# --------------------------------------------------------------------- #
+# The other GNN families (PNA, NequIP, EquiformerV2) and 2-D sharded
+# message passing
+# --------------------------------------------------------------------- #
+def _rel_err(a, b, total: float, floor: float = 1e-3) -> float:
+    """‖a − b‖ over the larger of ‖b‖ and ``floor`` of the whole tree's
+    norm ``total``: a leaf whose true gradient is 0 (EquiformerV2's last
+    attention bias: the segment softmax ignores a shift of a head's logits)
+    holds f32 rounding noise alone, so it is held in absolute terms."""
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    return float((a - b).norm()) / max(float(b.norm()), floor * total)
+
+
+@contextlib.contextmanager
+def extreme_selections(record: list, replay: list | None = None):
+    """Within: every segment max / min of the GNN substrate
+    (``common._scatter_extreme``) appends the mask of the edges that take
+    it to ``record``; with ``replay``, it takes instead the mean of the
+    edges of the next recorded mask (the edges tied at the extreme share
+    its gradient evenly, as ``scatter_reduce`` does). Run an f64 pass on
+    the masks of an f32 pass to take the gradient of the branch the f32
+    pass took: where two edges' values lie within f32 rounding of each
+    other the two passes may pick different ones, and the gradient of a
+    max jumps there."""
+    import torch
+    from repro_torch.models.gnn import common
+    orig = common._scatter_extreme
+    masks = iter(replay or ())
+
+    def patched(values, dst, n, reduce):
+        idx = dst.long().reshape((-1,) + (1,) * (values.dim() - 1)
+                                 ).expand_as(values)
+        if replay is None:
+            out = orig(values, dst, n, reduce)
+            record.append(values.detach() == out.detach().gather(0, idx))
+            return out
+        mask = next(masks).to(values.dtype)
+        record.append(mask.bool())
+        shape = (n + 1,) + values.shape[1:]
+        num = values.new_zeros(shape).scatter_add(0, idx, values * mask)
+        cnt = values.new_zeros(shape).scatter_add(0, idx, mask)
+        return num / torch.clamp(cnt, min=1)
+
+    common._scatter_extreme = patched
+    try:
+        yield
+    finally:
+        common._scatter_extreme = orig
+
+
+def _grads(params):
+    import torch
+    from repro_torch.train.optim import tree_leaves
+    return [p.grad.detach().clone() if p.grad is not None
+            else torch.zeros_like(p) for p in tree_leaves(params)]
+
+
+def _rotation_matrix():
+    """The JAX test's rotation (tests/test_models_gnn.py): R from the l = 1
+    Wigner block at (α, cos β) = (1.1, 0.4), in xyz order."""
+    import torch
+    from repro_torch.models.gnn import so3
+    d1 = so3.wigner_real(1, torch.tensor([1.1], dtype=torch.float64),
+                         torch.tensor([0.4], dtype=torch.float64))[0]
+    m = np.array([[0., -1, 0], [0, 0, 1], [1, 0, 0]])
+    return np.linalg.inv(m) @ d1.numpy() @ m
+
+
+def families_steps(fam, dev: str = "cuda") -> None:
+    """(a) the CLI runs and the fixed-batch runs, (b) one full-width step
+    at f32 against f64 on the card, per arch."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.seg_mm import seg_mm_call
+    from repro_torch.launch import train
+    from repro_torch.launch.specs import _GNN_MODS
+    from repro_torch.train.optim import adamw, cosine_schedule, tree_leaves
+    for arch, shape, steps in GNN_FAMILY_RUNS:
+        mod = _GNN_MODS[arch]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = seg_mm_call.launches, time.perf_counter()
+        run = train.main(["--arch", arch, "--shape", shape, "--steps",
+                          str(steps), "--device", dev])
+        wall = time.perf_counter() - t0
+        per_step = (seg_mm_call.launches - before) / steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses, cfg, batch = run["losses"], run["cfg"], run["batch"]
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"gnn_families {arch}: CLI losses {losses}")
+        # one fixed batch, a fresh init: the loss must fall over 10 steps
+        params = mod.init_params(cfg, 1, device=dev)
+        opt = adamw(cosine_schedule(1e-3, 10_000, 100))
+        state = opt.init(params)
+        fixed = []
+        for _ in range(10):
+            params, state, loss = train.train_step(params, state, batch,
+                                                   cfg, opt, mod)
+            fixed.append(float(loss))
+        check(all(np.isfinite(fixed)) and fixed[-1] < fixed[0],
+              f"gnn_families {arch}: the loss did not fall on a fixed batch:"
+              f" {fixed}")
+        step_ms = float(np.median(run["device_ms"][1:]))
+        say(f"gnn_families {arch} --shape {shape}: {steps} CLI steps in "
+            f"{wall:.2f} s (data set-up included), losses "
+            f"{[round(x, 4) for x in losses]}, device ms a step "
+            f"{[round(x, 2) for x in run['device_ms']]} (median after the "
+            f"first {step_ms:.2f}), {per_step:g} seg_mm launches a step, "
+            f"peak memory {peak:.2f} GiB; fixed batch, 10 steps: "
+            f"{fixed[0]:.6g} -> {fixed[-1]:.6g}")
+        # (b) one full-width step, f32 against f64, both on the card
+        limits = GNN_FAMILY_LIMITS[arch]
+        cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+        p32 = mod.init_params(cfg, 2, device=dev)
+        sel32, sel64, fixed64 = [], [], []
+        with extreme_selections(sel32):
+            loss32 = mod.loss_fn(p32, batch, cfg)
+            loss32.backward()
+        loss32, g32 = float(loss32), _grads(p32)
+
+        def step64(*sel):
+            tree64 = _retree(p32, iter([p.detach().double().requires_grad_()
+                                        for p in tree_leaves(p32)]))
+            with extreme_selections(*sel):
+                loss64 = mod.loss_fn(tree64, batch, cfg64)
+                loss64.backward()
+            return float(loss64), _grads(tree64)
+
+        # the f64 step as it runs, then on the f32 step's max/min branches
+        loss_raw, g_raw = step64(sel64)
+        flips = sum(int((a != b).sum()) for a, b in zip(sel32, sel64))
+        loss64, g64 = step64(fixed64, sel32) if flips else (loss_raw, g_raw)
+        total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g64)))
+        loss_rel = abs(loss32 - loss64) / abs(loss64)
+        grad_rel = [_rel_err(a, b, total) for a, b in zip(g32, g64)]
+        raw_rel = max(_rel_err(a, b, total) for a, b in zip(g32, g_raw))
+        share = (loss_rel / limits[0], max(grad_rel) / limits[1])
+        check(share[0] <= 1.0, f"gnn_families {arch} f32 vs f64: loss rel "
+              f"{loss_rel:.3e} > {limits[0]}")
+        check(share[1] <= 1.0, f"gnn_families {arch} f32 vs f64: gradient "
+              f"rel L2 {max(grad_rel):.3e} > {limits[1]}")
+        say(f"gnn_families {arch} full-width step, f32 vs f64 on the card: "
+            f"loss {loss32:.7g} vs {loss64:.7g} (rel {loss_rel:.3e}, "
+            f"{share[0]:.3f} of {limits[0]}), gradient rel L2 max "
+            f"{max(grad_rel):.3e} over {len(grad_rel)} leaves ({share[1]:.3f} "
+            f"of {limits[1]}); {len(sel32)} segment max/min, {flips} edge "
+            f"selections of them differ between f32 and f64"
+            + (f" (the f64 step held on the f32 step's selections; as it "
+               f"runs, gradient rel L2 max {raw_rel:.3e})" if flips else ""))
+        fam[arch] = dict(shape=shape, losses=losses, fixed=fixed,
+                         step_ms=step_ms, device_ms=run["device_ms"],
+                         per_step=per_step, peak_gib=peak, loss_rel=loss_rel,
+                         grad_rel=max(grad_rel), share=share, flips=flips,
+                         raw_grad_rel=raw_rel,
+                         run=(run["params"], run["state"], batch, cfg,
+                              run["opt"]))
+        if arch == "equiformer-v2":
+            fam["eq_grads"] = (p32, g32)
+        del run, g64, g_raw, sel32, sel64, fixed64
+        torch.cuda.empty_cache()
+
+
+def _retree(tree, it):
+    """``tree`` with its leaves replaced, in order, from ``it``."""
+    if isinstance(tree, dict):
+        return {k: _retree(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_retree(t, it) for t in tree]
+    return next(it)
+
+
+def families_rotation(fam, dev: str = "cuda") -> None:
+    """(c) rotation invariance of NequIP and EquiformerV2 at full width on
+    the molecule batch, f32 and f64."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.specs import _GNN_MODS
+    from repro_torch.train.optim import tree_leaves
+    rot = _rotation_matrix()
+    for arch in ("nequip", "equiformer-v2"):
+        mod = _GNN_MODS[arch]
+        params, _, batch, cfg, _ = fam[arch]["run"]
+        for dtype, limit in ((torch.float32, 1e-3), (torch.float64, 1e-9)):
+            pos = batch.pos.double()
+            b2 = dataclasses.replace(batch, pos=(pos @ torch.as_tensor(
+                rot, device=dev).T).to(dtype))
+            b1 = dataclasses.replace(batch, pos=pos.to(dtype))
+            p = _retree(params, iter([t.detach().to(dtype)
+                                      for t in tree_leaves(params)]))
+            c = dataclasses.replace(cfg, dtype=dtype)
+            with torch.no_grad():
+                o1, o2 = mod.apply(p, b1, c), mod.apply(p, b2, c)
+            err = float((o1 - o2).abs().max() / o1.abs().max())
+            name = str(dtype).removeprefix("torch.")
+            check(np.isfinite(err) and err <= limit, f"gnn_families {arch} "
+                  f"{name}: rotation changes the output by {err:.3e} "
+                  f"(limit {limit})")
+            say(f"gnn_families {arch} rotation invariance ({name}, full "
+                f"width, molecule batch): max|o1 - o2| / max|o1| = "
+                f"{err:.3e} ({err / limit:.3f} of {limit})")
+            fam[f"rot_{arch}_{name}"] = err
+        torch.cuda.empty_cache()
+
+
+def families_sharded(fam, dev: str = "cuda") -> None:
+    """(d) ``sharded_sage_apply`` on a world-1 NCCL mesh against
+    ``sage.apply`` on full_graph_sm's synthetic graph."""
+    import torch
+    from repro_torch.graphs import erdos_renyi
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import sage
+    from repro_torch.models.gnn.common import batch_from_graph
+    from repro_torch.models.gnn.sharded_mp import (build_sharded_graph,
+                                                   features_from_src_layout,
+                                                   features_to_src_layout,
+                                                   sharded_sage_apply)
+    g = erdos_renyi(train.CORA_NODES, train.CORA_EDGES, seed=1)
+    cfg = sage.SageConfig(d_feat=1433, d_hidden=128, n_classes=7)
+    x = np.random.default_rng(5).standard_normal((g.n, 1433),
+                                                 dtype=np.float32)
+    params = sage.init_params(cfg, 0, device=dev)
+    with torch.no_grad():
+        ref = sage.apply(params, batch_from_graph(g, x, device=dev), cfg)
+    mesh = make_mesh((1, 1), device=dev)
+    try:
+        t0 = time.perf_counter()
+        part, sg = build_sharded_graph(g, mesh)
+        out = sharded_sage_apply(params, torch.as_tensor(
+            features_to_src_layout(part, x)[mesh.row], device=dev), part,
+            sg, mesh, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mesh.close()
+    got = features_from_src_layout(part, out.cpu().numpy()[None])
+    want = ref.cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(rel <= 1e-5, f"gnn_families sharded_sage_apply (world 1, NCCL): "
+          f"rel err {rel:.3e} against sage.apply (limit 1e-5)")
+    say(f"gnn_families sharded_sage_apply on a world-1 NCCL mesh "
+        f"(n={g.n}, {2 * g.m} directed edges, d_feat 1433): max rel err "
+        f"{rel:.3e} against sage.apply (limit 1e-5), {wall * 1e3:.1f} ms "
+        f"with the partition")
+    fam["sharded_rel"] = rel
+
+
+def _worst_leaf(card, host) -> float:
+    """The largest :func:`_rel_err` of a leaf, with a floor of 1e-6 of the
+    host tree's norm (a zero leaf stays zero)."""
+    import torch
+    total = float(torch.sqrt(sum((u.double() ** 2).sum() for u in host)))
+    return max(_rel_err(a, b, total, floor=1e-6) for a, b in zip(card, host))
+
+
+def families_optimizers(fam, dev: str = "cuda") -> None:
+    """(e) one ``sgd`` and one ``adafactor`` update of the EquiformerV2
+    tree on the card against the same update on CPU float64 copies."""
+    import torch
+    from repro_torch.train import optim
+    params, grads = fam.pop("eq_grads")
+    leaves = optim.tree_leaves(params)
+    for name in ("sgd", "adafactor"):
+        make = getattr(optim, name)
+        out = {}
+        for where, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+            p = _retree(params, iter([t.detach().to(where, dtype).clone()
+                                      for t in leaves]))
+            g = _retree(params, iter([t.to(where, dtype) for t in grads]))
+            opt = make(optim.constant_schedule(1e-3))
+            before = [t.clone() for t in optim.tree_leaves(p)]
+            opt.apply(g, opt.init(p), p)
+            after = optim.tree_leaves(p)
+            out[dtype] = (after, [a - b for a, b in zip(after, before)])
+        (p32, d32), (p64, d64) = out[torch.float32], out[torch.float64]
+        rel, d_rel = _worst_leaf(p32, p64), _worst_leaf(d32, d64)
+        check(rel <= 1e-6, f"gnn_families {name} update on the card vs CPU "
+              f"f64 copies: the parameters' rel L2 {rel:.3e} (limit 1e-6)")
+        check(d_rel <= OPT_STEP_REL, f"gnn_families {name} update on the "
+              f"card vs CPU f64 copies: the step's rel L2 {d_rel:.3e} "
+              f"(limit {OPT_STEP_REL})")
+        say(f"gnn_families {name} update of the EquiformerV2 tree "
+            f"({len(leaves)} leaves, "
+            f"{sum(t.numel() for t in leaves) / 1e6:.2f}M parameters), the "
+            f"card against CPU f64 copies: parameters max leaf rel L2 "
+            f"{rel:.3e} (limit 1e-6), the step itself {d_rel:.3e} (limit "
+            f"{OPT_STEP_REL})")
+        fam[f"{name}_rel"], fam[f"{name}_step_rel"] = rel, d_rel
+
+
+def phase_gnn_families(report: dict) -> None:
+    """PNA (full_graph_sm), NequIP and EquiformerV2 (molecule) through the
+    trainer's CLI, a fixed-batch run and one f32 step against f64 on the
+    card each; rotation invariance at full width; the 2-D sharded GraphSAGE
+    forward on a world-1 NCCL mesh; one sgd and one adafactor update; the
+    step times, busy shares and peak memory."""
+    import torch
+    from repro_torch.kernels.seg_mm import seg_mm_call
+    from repro_torch.launch import train
+    from repro_torch.launch.specs import _GNN_MODS
+    t0 = time.perf_counter()
+    fam = report["gnn_families"] = {}
+    families_steps(fam)
+    families_rotation(fam)
+    families_sharded(fam)
+    families_optimizers(fam)
+    # (f) each arch's step under the profiler: busy share, seg_mm's share
+    for arch, _, _ in GNN_FAMILY_RUNS:
+        params, state, batch, cfg, opt = fam[arch]["run"]
+        before = seg_mm_call.launches
+        fam[arch]["busy"], fam[arch]["seg_mm_share"] = profile_run(
+            f"gnn_families {arch} train step", lambda: float(train.train_step(
+                params, state, batch, cfg, opt, _GNN_MODS[arch])[2]),
+            kernel="seg_mm")
+        check(seg_mm_call.launches > before, f"gnn_families {arch}: the "
+              "profiled step launched no seg_mm")
+    report["gnn_families_batch"] = fam["equiformer-v2"]["run"][2]
+    for arch, _, _ in GNN_FAMILY_RUNS:
+        del fam[arch]["run"]
+    fam["path_s"] = time.perf_counter() - t0
+    say(f"gnn_families: path {fam['path_s']:.1f} s; "
+        + "; ".join(f"{a} step {fam[a]['step_ms']:.2f} ms, busy "
+                    f"{(fam[a]['busy'] or 0):.1%}, seg_mm "
+                    f"{fam[a]['per_step']:g} a step, peak "
+                    f"{fam[a]['peak_gib']:.2f} GiB"
+                    for a, _, _ in GNN_FAMILY_RUNS))
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -3028,28 +3415,34 @@ def phase_times(report: dict) -> list[dict]:
 
 
 def seg_mm_times(report: dict) -> list[dict]:
-    """seg_mm at the trainer's shapes — the fixed minibatch_lg sample's
-    format, layer 1 (d = 602) and layer 2 (d = 128), f32 — beside its plain
+    """seg_mm at the trainers' shapes — the fixed minibatch_lg sample's
+    format, layer 1 (d = 602) and layer 2 (d = 128), and the molecule
+    batch's format at EquiformerV2's d = 6,272, f32 — beside its plain
     version, the library's CSR sum of the same real rows and its bound; then
     one GraphSAGE train step under the profiler."""
     import torch
     from repro_torch.kernels.seg_mm import seg_mm_call, seg_mm_plain
     from repro_torch.launch import train
     params, state, batch, cfg, opt = report.pop("gnn_step")
-    agg, fmt = batch.agg, batch.agg.fmt
     gen = torch.Generator("cuda").manual_seed(3)
-    e_real = agg.edge_ids.numel()
-    crow = torch.zeros(batch.n + 1, dtype=torch.int64, device="cuda")
-    crow[1:] = torch.cumsum(agg.in_degree, 0)
-    # receivers' rows of the real edges, in slot (= dst) order: CSR of ones
-    csr = torch.sparse_csr_tensor(
-        crow, torch.arange(e_real, device="cuda"),
-        torch.ones(e_real, device="cuda"), size=(batch.n, e_real),
-        check_invariants=True)
     rows = []
-    for d in (602, 128):
-        x = torch.randn(batch.n + 1, d, generator=gen, device="cuda")
-        x[batch.n] = 0.0
+    launches = {k: report["launches"][k]["seg_mm"]
+                for k in ("gnn_train", "gnn_families")}
+    # the GraphSAGE cell's two layers, then EquiformerV2's aggregation
+    for d, b in ((602, batch), (128, batch),
+                 (6272, report.pop("gnn_families_batch"))):
+        agg, fmt = b.agg, b.agg.fmt
+        e_real = agg.edge_ids.numel()
+        crow = torch.zeros(b.n + 1, dtype=torch.int64, device="cuda")
+        crow[1:] = torch.cumsum(agg.in_degree, 0)
+        # receivers' rows of the real edges, in slot (= dst) order: CSR of
+        # ones
+        csr = torch.sparse_csr_tensor(
+            crow, torch.arange(e_real, device="cuda"),
+            torch.ones(e_real, device="cuda"), size=(b.n, e_real),
+            check_invariants=True)
+        x = torch.randn(b.n + 1, d, generator=gen, device="cuda")
+        x[b.n] = 0.0
         msgs = x.index_select(0, fmt.src_idx.reshape(-1)).reshape(
             fmt.src_idx.shape[0], -1, d)
         args = (msgs, fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
@@ -3073,28 +3466,31 @@ def seg_mm_times(report: dict) -> list[dict]:
         flops = e_real * d
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
         padded_bound = padded / HBM_BYTES_PER_S * 1e3
-        name = "seg_mm" if d == 602 else "seg_mm_d128"
+        name = {602: "seg_mm", 128: "seg_mm_d128", 6272: "seg_mm_d6272"}[d]
         rows.append(dict(
             name="seg_mm", d=d, route="cuda",
             source="src/repro_torch/kernels/csrc/seg_mm.cu",
             replaces="src/repro/kernels/seg_mm.py:43",
-            launches=report["launches"]["gnn_train"]["seg_mm"],
+            launches=sum(launches.values()), launches_by_path=launches,
             max_abs_err=report["max_abs_err"][name], ms=ms,
             plain_ms=plain_ms, bound_ms=bound,
             bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                       >= flops / F32_FLOP_PER_S else "operations"),
             library_ms=lib_ms, device_ms=dev_ms,
             library_device_ms=lib_dev_ms, padded_bound_ms=padded_bound))
-        say(f"seg_mm (minibatch_lg, d={d}, f32): {ms:.4f} ms/launch "
+        per_step = (report["gnn"]["per_step"] if d != 6272 else
+                    report["gnn_families"]["equiformer-v2"]["per_step"])
+        say(f"seg_mm ({'molecule' if d == 6272 else 'minibatch_lg'}, d={d}, "
+            f"f32): {ms:.4f} ms/launch "
             f"({dev_ms:.4f} ms of device time), "
-            f"{report['gnn']['per_step']:g} launches a train step, bound "
+            f"{per_step:g} launches a train step, bound "
             f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s: {e_real} "
             f"real message rows and the output), with every padded slot's "
             f"row {padded_bound:.4f} ms ({padded / 1e6:.1f} MB, "
             f"{fmt.src_idx.numel()} slots), plain {plain_ms:.4f} ms, "
             f"torch.sparse.mm CSR sum {lib_ms:.4f} ms ({lib_dev_ms:.4f} ms "
             f"of device time)")
-        del x, msgs, args, real
+        del x, msgs, args, real, csr
     # the new kernel at the trainer's other aggregation tiles (d = 602,
     # device time): the tile moves no bit, only the padding and the grid
     from repro_torch.models.gnn.common import edge_agg
@@ -3358,7 +3754,11 @@ def summary(report: dict) -> str:
     the fixed minibatch, seg_mm
     launches a step, slots per real edge, the median step split, the f32
     step's error against f64, the step's ms and busy share and seg_mm's ms
-    (events and device) at d = 602 and 128 and device ms by tile; for the
+    (events and device) at d = 602, 128 and 6,272 and device ms by tile;
+    for the other GNN families each arch's step ms, busy share, seg_mm
+    launches a step, peak GiB, first and last CLI loss and the f32 step's
+    shares of its limits, the rotation errors, the sharded forward's and
+    the two optimizer updates' errors and the path's seconds; for the
     fleet its lanes' counts, the largest rel L1 of a lane's ψ from the solo
     cuda engine's, each bucket's cold solve (steps, ms, busy share) and the
     lane-batched kernels' times at the facebook bucket; for the paper
@@ -3406,6 +3806,19 @@ def summary(report: dict) -> str:
                 **{key: {k: g(v) for k, v in report[key].items()}
                    for key in ("seg_mm_ms", "seg_mm_device_ms",
                                "seg_mm_device_ms_by_tile")}},
+        "gnn_families": {
+            **{a: {k: (g(v) if isinstance(v, float) else v) for k, v in (
+                ("step_ms", report["gnn_families"][a]["step_ms"]),
+                ("busy", report["gnn_families"][a]["busy"]),
+                ("seg_mm_per_step", report["gnn_families"][a]["per_step"]),
+                ("peak_gib", report["gnn_families"][a]["peak_gib"]),
+                ("loss", [g(report["gnn_families"][a]["losses"][0]),
+                          g(report["gnn_families"][a]["losses"][-1])]),
+                ("share_of_limits", [g(x) for x in
+                                     report["gnn_families"][a]["share"]]))}
+               for a, _, _ in GNN_FAMILY_RUNS},
+            **{k: g(v) for k, v in report["gnn_families"].items()
+               if isinstance(v, float)}},
         "fleet": {"iters": [i for i, _ in report["fixed_points"]
                             [len(FIXED_POINT_ITERS):]],
                   "max_rel_solo": g(max(report["fleet_rel_solo"])),
@@ -3486,6 +3899,7 @@ def main() -> int:
               lambda r: ("edge_spmv", "bsr_spmv") + picked(r)),
              ("accelerate", phase_accelerate, ("power_step",)),
              ("gnn_train", phase_gnn_train, ("seg_mm",)),
+             ("gnn_families", phase_gnn_families, ("seg_mm",)),
              ("fleet", phase_fleet, ("power_step_lanes", "edge_spmv_lanes")),
              ("paper", phase_paper, ("power_step",)),
              ("push", phase_push, ()),

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` → config + shapes + family glue.
 
 The JAX package's registry, with the archs this package runs: the paper's
-``psi-score`` and ``graphsage-reddit``. Every other arch id of the JAX
-package raises ``KeyError`` naming the ROADMAP item that brings it.
+``psi-score`` and the GNN family (``pna``, ``equiformer-v2``, ``nequip``,
+``graphsage-reddit``). Every other arch id of the JAX package raises
+``KeyError`` naming the ROADMAP item that brings it.
 ``reduced=True`` returns the CPU-smoke variant of the same family.
 """
 from __future__ import annotations
@@ -61,6 +62,10 @@ _PSI_SHAPES = (
 
 ARCHS: dict[str, ArchEntry] = {
     e.arch_id: e for e in [
+        ArchEntry("pna", "gnn", "repro_torch.configs.pna", _GNN_SHAPES),
+        ArchEntry("equiformer-v2", "gnn",
+                  "repro_torch.configs.equiformer_v2", _GNN_SHAPES),
+        ArchEntry("nequip", "gnn", "repro_torch.configs.nequip", _GNN_SHAPES),
         ArchEntry("graphsage-reddit", "gnn",
                   "repro_torch.configs.graphsage_reddit", _GNN_SHAPES),
         ArchEntry("psi-score", "psi", "repro_torch.configs.psi_score",
@@ -74,9 +79,6 @@ UNPORTED: dict[str, str] = {
     **{a: "ROADMAP queue 1, \"The LM family\" (models/transformer)"
        for a in ("tinyllama-1.1b", "yi-9b", "nemotron-4-340b",
                  "mixtral-8x22b", "mixtral-8x7b")},
-    **{a: "ROADMAP queue 1, \"The other GNN families\" (models/gnn: pna, "
-          "nequip, equiformer_v2, so3)"
-       for a in ("pna", "nequip", "equiformer-v2")},
     "mind": "ROADMAP queue 1, \"The recsys family\" (models/recsys)",
 }
 

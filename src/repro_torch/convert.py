@@ -24,7 +24,8 @@ from .kernels.formats import BsrFormat, EdgeTileFormat
 from .kernels.ops import DeviceBsr, DeviceEdgeTiles
 
 __all__ = ["operators_from_numpy", "edge_tiles_from_numpy", "bsr_from_numpy",
-           "warm_start_from_numpy", "sage_params_from_numpy",
+           "warm_start_from_numpy", "gnn_params_from_numpy",
+           "sage_params_from_numpy",
            "dist_arrays_from_numpy", "chunk_args_from_numpy"]
 
 
@@ -87,22 +88,32 @@ def warm_start_from_numpy(s: np.ndarray, *, dtype: torch.dtype = torch.float32,
     return _vec(s, dtype, resolve_device(device))
 
 
+def gnn_params_from_numpy(tree, *, dtype: torch.dtype | None = None,
+                          device: str | torch.device = "cuda"):
+    """Any GNN parameter tree of the JAX package as numpy
+    (``jax.tree.map(np.asarray, params)`` of ``sage``, ``pna``, ``nequip``
+    or ``equiformer_v2``'s ``init_params``): the same nesting of dicts and
+    lists and the same ``w[d_in, d_out]`` layout, so nothing is transposed.
+    Every leaf becomes a tensor that requires grad; ``dtype`` defaults to
+    the arrays' own."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return torch.tensor(np.asarray(t), dtype=dtype,
+                            device=dev).requires_grad_()
+
+    return conv(tree)
+
+
 def sage_params_from_numpy(tree, *, dtype: torch.dtype | None = None,
                            device: str | torch.device = "cuda") -> dict:
     """GraphSAGE parameters from the JAX package's ``sage.init_params`` tree
-    as numpy (``jax.tree.map(np.asarray, params)``): the same nesting
-    (``layers`` list of ``w_self`` / ``w_neigh``, ``head``) and the same
-    ``w[d_in, d_out]`` layout, so nothing is transposed. Every leaf becomes
-    a tensor that requires grad; ``dtype`` defaults to the arrays' own."""
-    dev = resolve_device(device)
-
-    def leaf(a):
-        return torch.tensor(np.asarray(a), dtype=dtype,
-                            device=dev).requires_grad_()
-
-    return dict(layers=[{k: {kk: leaf(vv) for kk, vv in v.items()}
-                         for k, v in lyr.items()} for lyr in tree["layers"]],
-                head={k: leaf(v) for k, v in tree["head"].items()})
+    as numpy: :func:`gnn_params_from_numpy`."""
+    return gnn_params_from_numpy(tree, dtype=dtype, device=device)
 
 
 def dist_arrays_from_numpy(fields: Mapping, *, row: int, col: int,

@@ -4,7 +4,9 @@ GNN section without its sharding and lowering (TPU dry-run machinery).
 ``_gnn_shape_dims`` turns a registry shape into the static padded dims of a
 train step, ``_gnn_cfg_for`` fits the arch's config to them and
 ``_gnn_model_flops`` counts the step's dominant matmul FLOPs, so the trainer
-sizes a cell from the same code as the JAX package.
+sizes a cell from the same code as the JAX package. ``_GNN_MODS`` maps each
+GNN arch to its model module and ``_GEOMETRIC`` names the archs that read
+positions.
 """
 from __future__ import annotations
 
@@ -12,6 +14,11 @@ import dataclasses
 
 from ..configs.registry import ArchEntry, ShapeCfg
 from ..graphs.sampler import subgraph_budget
+from ..models.gnn import equiformer_v2, nequip, pna, sage
+
+_GNN_MODS = {"pna": pna, "graphsage-reddit": sage, "nequip": nequip,
+             "equiformer-v2": equiformer_v2}
+_GEOMETRIC = {"nequip", "equiformer-v2"}
 
 
 def _pad_to(x: int, mult: int = 2048) -> int:
@@ -57,5 +64,19 @@ def _gnn_model_flops(arch: str, cfg, n: int, e: int) -> int:
         h = cfg.d_hidden
         per = 2 * n * (cfg.d_feat * h + h * h)
         return 3 * L * (per + e * h)
-    raise KeyError(f"no FLOP count for {arch!r} in this package yet: "
-                   "ROADMAP queue 1 item 12")
+    if arch == "pna":
+        h = cfg.d_hidden
+        return 3 * L * (2 * n * (13 * h) * h + 4 * e * h)
+    if arch == "nequip":
+        C = cfg.d_hidden
+        n_paths = len(nequip.paths_for(cfg.l_max))
+        per_edge = n_paths * (2 * cfg.l_max + 1) ** 2 * C * 2
+        return 3 * L * e * per_edge
+    # equiformer-v2
+    C = cfg.d_hidden
+    lm_, mm = cfg.l_max, cfg.m_max
+    n0 = lm_ + 1
+    so2 = 2 * ((n0 * C) ** 2 + 2 * sum(
+        ((lm_ - m + 1) * C) ** 2 * 2 for m in range(1, mm + 1)))
+    wigner = sum(2 * (2 * l + 1) ** 2 * C for l in range(lm_ + 1))
+    return 3 * cfg.n_layers * e * (so2 + 2 * wigner)

@@ -1,30 +1,49 @@
-"""Training launcher: ``--arch graphsage-reddit`` → a GraphSAGE train loop.
+"""Training launcher: ``--arch <gnn arch>`` → a GNN train loop.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch graphsage-reddit --reduced --device cpu
+        --arch pna --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch graphsage-reddit --shape minibatch_lg --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch equiformer-v2 --shape molecule --steps 5
 
-The GNN branch of the JAX package's trainer, in two modes:
+The GNN branch of the JAX package's trainer for ``graphsage-reddit``,
+``pna``, ``nequip`` and ``equiformer-v2``, in two modes:
 
 * ``--reduced`` (the default, as the JAX trainer's GNN branch): the reduced
-  config, full-batch on ``erdos_renyi(200, 1200, seed=1)`` with
-  ``adamw(cosine_schedule(3e-3, steps, 2))``;
-* ``--shape minibatch_lg``: the full-width config on a fanout-sampled
-  minibatch per step (1,024 seeds, fanout (15, 10), padded to the cell's
-  static dims from :mod:`repro_torch.launch.specs`) with the cell's
-  ``adamw(cosine_schedule(1e-3, 10_000, 100))``. The data is synthetic: a
-  Reddit-sized ``erdos_renyi(232_965, 11_461_589, seed=1)`` (Reddit's node
-  count and one tenth of its 114,615,892 edges; the sampler draws a fixed
-  fanout with replacement, so the step's work does not depend on the edge
-  count), float32 features ``[232_965, 602]`` and labels in ``[0, 41)`` from
-  numpy seeds, kept on the device. On a card each step prints the split of
-  its time: host sampling, building the aggregation format, the copy to the
-  card and the device time (CUDA events).
+  config, full-batch on ``erdos_renyi(200, 1200, seed=1)`` (positions for
+  the geometric archs, one graph-level label for ``out_kind == "graph"``)
+  with ``adamw(cosine_schedule(3e-3, steps, 2))``;
+* ``--shape``: the full-width config of the registry's cell with the cell's
+  ``adamw(cosine_schedule(1e-3, 10_000, 100))``, on synthetic data from
+  numpy seeds:
 
-Both layers' neighbour sums run through the ``seg_mm`` kernel. ``--device
-cuda`` (the default) needs a card; ``--device cpu`` runs the kernels' plain
-versions.
+  - ``minibatch_lg`` (``graphsage-reddit``, ``pna``): a fanout-sampled
+    minibatch per step (1,024 seeds, fanout (15, 10), padded to the cell's
+    static dims from :mod:`repro_torch.launch.specs`) of a Reddit-sized
+    ``erdos_renyi(232_965, 11_461_589, seed=1)`` (Reddit's node count and
+    one tenth of its 114,615,892 edges; the sampler draws a fixed fanout
+    with replacement, so the step's work does not depend on the edge
+    count), float32 features ``[232_965, 602]`` and labels in ``[0, 41)``,
+    kept on the device. On a card each step prints the split of its time:
+    host sampling, building the aggregation format, the copy to the card
+    and the device time (CUDA events);
+  - ``full_graph_sm``: a Cora-sized ``erdos_renyi(2_708, 10_556, seed=1)``
+    (both directions: 21,112 edges) padded to the cell's (4,096, 22,528),
+    features ``[2_708, 1_433]``, 7 classes (positions for the geometric
+    archs), full-batch;
+  - ``molecule``: 128 molecules of 30 atoms and 64 bonds each (both
+    directions: 16,384 edges; 3,840 atoms padded to 4,096), atoms at least
+    1.0 apart in a ball of radius 3.0 and each molecule's 64 shortest pairs
+    bonded (every bond well inside the 5.0 cutoff), width-16 species
+    features, one float32 energy label a molecule, full-batch;
+  - ``ogb_products`` does not fit one card and raises.
+
+  On a card each full-batch step prints its device ms (CUDA events).
+
+Every sum and mean of a neighbourhood runs through the ``seg_mm`` kernel.
+``--device cuda`` (the default) needs a card; ``--device cpu`` runs the
+kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -42,20 +61,31 @@ from ..graphs import Graph, erdos_renyi
 from ..graphs.sampler import fanout_sample
 from ..models.gnn import sage
 from ..models.gnn.common import (EdgeAgg, GraphBatch, batch_from_graph,
-                                 edge_agg, tensors_to)
+                                 edge_agg, pad_graph_batch, tensors_to)
 from ..train.optim import adamw, cosine_schedule, tree_leaves, tree_map
-from .specs import _gnn_cfg_for, _gnn_shape_dims
+from .specs import _GEOMETRIC, _GNN_MODS, _gnn_cfg_for, _gnn_shape_dims
 
 REDDIT_NODES = 232_965
 REDDIT_EDGES_CUT = 11_461_589      # one tenth of Reddit's 114,615,892
+CORA_NODES, CORA_EDGES = 2_708, 10_556
+# ogb_products on one card: 2,449,029 nodes, 123.7M directed edges; PNA's
+# per-edge messages alone are [123.7M, 75] f32 = 37 GB each
+OGB_PRODUCTS_REFUSAL = (
+    "ogb_products does not fit one card: 2,449,029 nodes and 123.7M "
+    "directed edges, and a layer's per-edge messages alone take "
+    "[123.7M, 75] f32 = 37 GB each (PNA); it waits for a multi-card run")
 
 
-def train_step(params: dict, state: dict, batch: GraphBatch, cfg, opt):
-    """One AdamW step on ``batch``: → (params, state, loss)."""
-    loss = sage.loss_fn(params, batch, cfg)
+def train_step(params: dict, state: dict, batch: GraphBatch, cfg, opt,
+               mod=sage):
+    """One optimizer step of ``mod.loss_fn`` on ``batch``: → (params,
+    state, loss). A leaf the loss does not reach gets a zero gradient, as
+    under ``jax.value_and_grad``."""
+    loss = mod.loss_fn(params, batch, cfg)
     loss.backward()
-    params, state = opt.apply(tree_map(lambda p: p.grad, params), state,
-                              params)
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), params)
+    params, state = opt.apply(grads, state, params)
     for p in tree_leaves(params):
         p.grad = None
     return params, state, loss.detach()
@@ -64,29 +94,35 @@ def train_step(params: dict, state: dict, batch: GraphBatch, cfg, opt):
 # --------------------------------------------------------------------- #
 # Reduced: the JAX trainer's own GNN path
 # --------------------------------------------------------------------- #
-def reduced_batch(cfg, device) -> GraphBatch:
-    """The JAX trainer's batch: the same graph, labels and features."""
+def reduced_batch(cfg, device, *, geometric: bool = False) -> GraphBatch:
+    """The JAX trainer's batch: the same graph, labels, features and (for
+    the geometric archs) positions."""
     rng = np.random.default_rng(0)
     g = erdos_renyi(200, 1200, seed=1)
-    labels = rng.integers(0, cfg.n_classes, g.n)
+    labels = (np.zeros(1, np.float32)
+              if getattr(cfg, "out_kind", "node") == "graph"
+              else rng.integers(0, cfg.n_classes, g.n))
     x = rng.normal(size=(g.n, cfg.d_feat)).astype(np.float32)
-    return batch_from_graph(g, x, labels=labels, device=device)
+    pos = (rng.normal(size=(g.n, 3)).astype(np.float32) if geometric
+           else None)
+    return batch_from_graph(g, x, labels=labels, pos=pos, device=device)
 
 
-def train_reduced(steps: int, device, *, params: dict | None = None,
-                  log=print) -> list[float]:
-    """``steps`` full-batch steps of the reduced config; → the losses.
-    ``params`` (e.g. the JAX package's, converted) replaces the seeded
-    init."""
-    cfg = get_arch("graphsage-reddit").config(reduced=True)
-    batch = reduced_batch(cfg, device)
+def train_reduced(steps: int, device, *, arch: str = "graphsage-reddit",
+                  params: dict | None = None, log=print) -> list[float]:
+    """``steps`` full-batch steps of ``arch``'s reduced config; → the
+    losses. ``params`` (e.g. the JAX package's, converted) replaces the
+    seeded init."""
+    mod = _GNN_MODS[arch]
+    cfg = get_arch(arch).config(reduced=True)
+    batch = reduced_batch(cfg, device, geometric=arch in _GEOMETRIC)
     if params is None:
-        params = sage.init_params(cfg, 0, device=device)
+        params = mod.init_params(cfg, 0, device=device)
     opt = adamw(cosine_schedule(3e-3, steps, 2))
     state = opt.init(params)
     losses = []
     for step in range(steps):
-        params, state, loss = train_step(params, state, batch, cfg, opt)
+        params, state, loss = train_step(params, state, batch, cfg, opt, mod)
         losses.append(float(loss))
         log(f"[train] step {step} loss {losses[-1]:.4f}")
     return losses
@@ -168,26 +204,32 @@ def sample_minibatch(graph: Graph, seeds: np.ndarray, fanout, *, n: int,
     return mb, {"sample": t1 - t0, "format": time.perf_counter() - t1}
 
 
-def cell():
-    """(config, shape params, padded dims) of the ``graphsage-reddit``
-    ``minibatch_lg`` cell."""
-    entry = get_arch("graphsage-reddit")
-    spec = entry.shape("minibatch_lg")
+def cell(arch: str = "graphsage-reddit", shape: str = "minibatch_lg"):
+    """(config, shape params, padded dims) of the cell ``arch`` × ``shape``
+    (the ``graphsage-reddit`` ``minibatch_lg`` cell by default)."""
+    entry = get_arch(arch)
+    spec = entry.shape(shape)
     dims = _gnn_shape_dims(spec)
     return _gnn_cfg_for(entry, dims), spec.params, dims
 
 
-def train_minibatch(steps: int, device, *, data: NodeData | None = None,
-                    params: dict | None = None, log=print) -> dict:
+def train_minibatch(steps: int, device, *, arch: str = "graphsage-reddit",
+                    data: NodeData | None = None, params: dict | None = None,
+                    log=print) -> dict:
     """``steps`` steps of the ``minibatch_lg`` cell, a fresh sample each.
     → {"losses", "splits" (per step, seconds), "padding" (slots per real
     edge, per step), "data", "params"}."""
+    if arch in _GEOMETRIC:
+        raise SystemExit(f"--arch {arch} --shape minibatch_lg: a sampled "
+                         "subgraph of the Reddit-sized graph has no "
+                         "positions; use full_graph_sm or molecule")
     dev = resolve_device(device)
-    cfg, p, dims = cell()
+    mod = _GNN_MODS[arch]
+    cfg, p, dims = cell(arch)
     if data is None:
         data = synthetic_reddit(cfg, dev)
     if params is None:
-        params = sage.init_params(cfg, 0, device=dev)
+        params = mod.init_params(cfg, 0, device=dev)
     opt = adamw(cosine_schedule(1e-3, 10_000, 100))
     state = opt.init(params)
     out = dict(losses=[], splits=[], padding=[], data=data, params=params)
@@ -205,7 +247,7 @@ def train_minibatch(steps: int, device, *, data: NodeData | None = None,
             start.record()
         split["h2d"] = time.perf_counter() - t0
         params, state, loss = train_step(params, state, mb.batch(data), cfg,
-                                         opt)
+                                         opt, mod)
         loss = float(loss)
         line = f"[train] step {step} loss {loss:.4f}"
         if dev.type == "cuda":
@@ -224,12 +266,129 @@ def train_minibatch(steps: int, device, *, data: NodeData | None = None,
     return out
 
 
+# --------------------------------------------------------------------- #
+# full_graph_sm and molecule: one fixed full batch
+# --------------------------------------------------------------------- #
+def synthetic_cora(cfg, device, *, geometric: bool = False) -> GraphBatch:
+    """The ``full_graph_sm`` cell's batch: a Cora-sized random graph, its
+    features and labels (and positions) from numpy seeds, padded to the
+    cell's (n, e)."""
+    _, _, dims = cell("graphsage-reddit", "full_graph_sm")
+    g = erdos_renyi(CORA_NODES, CORA_EDGES, seed=1)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((g.n, cfg.d_feat), dtype=np.float32)
+    labels = np.concatenate([rng.integers(0, dims["n_classes"], g.n),
+                             np.full(dims["n"] - g.n, -1)])
+    pos = (rng.standard_normal((g.n, 3), dtype=np.float32) if geometric
+           else None)
+    b = batch_from_graph(g, x, labels=labels, pos=pos, device=device)
+    return pad_graph_batch(b, dims["n"], dims["e"])
+
+
+def molecule_positions(rng, n_atoms: int, radius: float = 3.0,
+                       min_dist: float = 1.0) -> np.ndarray:
+    """f32[n_atoms, 3]: points in a ball of ``radius``, each at least
+    ``min_dist`` from every earlier one (rejection sampling)."""
+    pos = []
+    while len(pos) < n_atoms:
+        p = rng.uniform(-radius, radius, 3)
+        if np.linalg.norm(p) <= radius and all(
+                np.linalg.norm(p - q) >= min_dist for q in pos):
+            pos.append(p)
+    return np.asarray(pos, np.float32)
+
+
+def molecule_batch(n_mol: int, n_atoms: int, n_bonds: int, d_feat: int,
+                   device, *, n_pad: int, e_pad: int,
+                   seed: int = 3) -> GraphBatch:
+    """``n_mol`` molecules of ``n_atoms`` atoms, each bonding its
+    ``n_bonds`` closest pairs (both directions), with width-``d_feat``
+    species features, positions (:func:`molecule_positions`) and one
+    energy label a molecule from ``numpy`` seed ``seed``, padded to
+    (``n_pad``, ``e_pad``)."""
+    rng = np.random.default_rng(seed)
+    iu = np.triu_indices(n_atoms, 1)
+    pos, src, dst = [], [], []
+    for k in range(n_mol):
+        xyz = molecule_positions(rng, n_atoms)
+        d = np.linalg.norm(xyz[iu[0]] - xyz[iu[1]], axis=-1)
+        bonds = np.argsort(d, kind="stable")[:n_bonds]
+        pos.append(xyz)
+        src.append(iu[0][bonds] + k * n_atoms)
+        dst.append(iu[1][bonds] + k * n_atoms)
+    g = Graph(n_atoms * n_mol, np.concatenate(src), np.concatenate(dst))
+    x = rng.standard_normal((g.n, d_feat), dtype=np.float32)
+    energy = rng.standard_normal(n_mol, dtype=np.float32)
+    b = batch_from_graph(g, x, labels=energy, pos=np.concatenate(pos),
+                         device=device)
+    b = dataclasses.replace(
+        b, n_graphs=n_mol, graph_ids=torch.as_tensor(
+            np.repeat(np.arange(n_mol, dtype=np.int32), n_atoms),
+            device=b.device))
+    return pad_graph_batch(b, n_pad, e_pad)
+
+
+def synthetic_molecules(cfg, device) -> GraphBatch:
+    """The ``molecule`` cell's batch (:func:`molecule_batch` at the
+    registry's 128 molecules of 30 atoms and 64 bonds, padded to the
+    cell's (n, e))."""
+    _, p, dims = cell("nequip", "molecule")
+    return molecule_batch(p["batch"], p["n_nodes"], p["n_edges"], cfg.d_feat,
+                          device, n_pad=dims["n"], e_pad=dims["e"])
+
+
+def shape_batch(arch: str, shape: str, cfg, device) -> GraphBatch:
+    """The fixed full batch of the cell ``arch`` × ``shape``."""
+    if shape == "full_graph_sm":
+        return synthetic_cora(cfg, device, geometric=arch in _GEOMETRIC)
+    if shape == "molecule":
+        return synthetic_molecules(cfg, device)
+    if shape == "ogb_products":
+        raise SystemExit(f"--shape ogb_products: {OGB_PRODUCTS_REFUSAL}")
+    raise ValueError(f"{shape} is not a full-batch shape")
+
+
+def train_full_batch(arch: str, shape: str, steps: int, device, *,
+                     params: dict | None = None, log=print) -> dict:
+    """``steps`` steps of the cell ``arch`` × ``shape`` on its fixed
+    batch. → {"losses", "device_ms" (per step, on a card), "batch",
+    "params", "state", "cfg", "opt"}."""
+    dev = resolve_device(device)
+    mod = _GNN_MODS[arch]
+    cfg, _, _ = cell(arch, shape)
+    batch = shape_batch(arch, shape, cfg, dev)
+    if params is None:
+        params = mod.init_params(cfg, 0, device=dev)
+    opt = adamw(cosine_schedule(1e-3, 10_000, 100))
+    state = opt.init(params)
+    out = dict(losses=[], device_ms=[], batch=batch, cfg=cfg, opt=opt)
+    for step in range(steps):
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        params, state, loss = train_step(params, state, batch, cfg, opt, mod)
+        loss = float(loss)
+        line = f"[train] step {step} loss {loss:.4f}"
+        if dev.type == "cuda":
+            end.record()
+            end.synchronize()
+            out["device_ms"].append(start.elapsed_time(end))
+            line += f" (device {out['device_ms'][-1]:.2f} ms)"
+        log(line)
+        out["losses"].append(loss)
+    out.update(params=params, state=state)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config, full batch (the default)")
-    ap.add_argument("--shape", choices=("minibatch_lg",), default=None,
+    ap.add_argument("--shape", default=None,
+                    choices=("minibatch_lg", "full_graph_sm", "molecule",
+                             "ogb_products"),
                     help="run the full-width cell of this shape instead")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--device", default="cuda",
@@ -244,9 +403,12 @@ def main(argv=None):
                          "repro_torch.launch.serve")
     if args.reduced and args.shape:
         raise SystemExit("--reduced and --shape exclude each other")
+    if args.shape == "minibatch_lg":
+        return train_minibatch(args.steps, args.device, arch=args.arch)
     if args.shape:
-        return train_minibatch(args.steps, args.device)
-    return train_reduced(args.steps, args.device)
+        return train_full_batch(args.arch, args.shape, args.steps,
+                                args.device)
+    return train_reduced(args.steps, args.device, arch=args.arch)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
-from .common import GraphBatch, dense_init, graph_pool, neighbor_agg
+from .common import (GraphBatch, dense_init, graph_pool, neighbor_agg,
+                     node_xent, params_to)
 
 __all__ = ["SageConfig", "init_params", "apply", "loss_fn"]
 
@@ -52,10 +53,7 @@ def init_params(cfg: SageConfig, seed: int = 0, *,
             w_neigh=dense_init(gen, d_in, cfg.d_hidden, cfg.dtype)))
         d_in = cfg.d_hidden
     head = dense_init(gen, cfg.d_hidden, cfg.n_classes, cfg.dtype)
-    for part in [p for lyr in layers for p in lyr.values()] + [head]:
-        for k in part:
-            part[k] = part[k].to(dev).requires_grad_()
-    return dict(layers=layers, head=head)
+    return params_to(dict(layers=layers, head=head), dev)
 
 
 def _layer(h: torch.Tensor, lyr: dict, batch: GraphBatch,
@@ -82,13 +80,5 @@ def loss_fn(params: dict, batch: GraphBatch, cfg: SageConfig) -> torch.Tensor:
     if cfg.out_kind == "graph":
         pooled = graph_pool(logits, batch, "mean")
         return torch.mean(torch.square(pooled[:, 0] - batch.labels))
-    mask = (batch.seed_mask if batch.seed_mask is not None
-            else batch.node_mask)
-    mask = (mask if mask is not None else
-            torch.ones(batch.n, dtype=torch.bool, device=logits.device)
-            ).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, 1,
-                        torch.clamp(batch.labels.long(), min=0)[:, None])[:, 0]
-    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                          min=1.0)
+    return node_xent(logits, batch.labels, batch.seed_mask
+                     if batch.seed_mask is not None else batch.node_mask)

@@ -1,6 +1,7 @@
 """Optimizers and learning-rate schedules with the JAX package's update rules.
 
-A port of ``train/optim.py`` with its interface::
+A port of ``train/optim.py`` (``sgd``, ``adamw``, ``adafactor``) with its
+interface::
 
     opt = adamw(schedule, ...)
     state = opt.init(params)
@@ -10,7 +11,11 @@ A port of ``train/optim.py`` with its interface::
 (dict keys visited in sorted order, as JAX flattens them). ``adamw`` keeps
 float32 masters, clips by the global norm, reads the schedule at
 ``step + 1`` and decays as ``master − lr·(u + wd·master)`` — not
-``torch.optim.AdamW``, whose eps placement and decay order differ. Unlike the
+``torch.optim.AdamW``, whose eps placement and decay order differ. ``sgd``
+reads the schedule at ``step`` (as the JAX package does) and keeps a float32
+momentum; ``adafactor`` keeps the JAX package's state tree (``vr``/``vc``
+for a factored leaf, else ``v``), β = 1 − t^(−0.8) and the RMS update clip,
+in float32. Unlike the
 JAX package's pure functions, ``apply`` writes the new values into the
 parameter tensors in place (they stay the leaves autograd differentiates)
 and returns them. Schedules return a float32 0-d tensor on the CPU.
@@ -23,7 +28,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["Optimizer", "adamw", "global_norm", "clip_by_global_norm",
+__all__ = ["Optimizer", "sgd", "adamw", "adafactor", "global_norm", "clip_by_global_norm",
            "cosine_schedule", "linear_schedule", "constant_schedule",
            "tree_leaves", "tree_map"]
 
@@ -104,6 +109,34 @@ class Optimizer:
     name: str = "opt"
 
 
+def _write(params, new):
+    """Copy each new value into its parameter tensor (in its dtype)."""
+    tree_map(lambda p, x: p.copy_(x.to(p.dtype)), params, new)
+
+
+# --------------------------------------------------------------------- #
+# SGD (+momentum)
+# --------------------------------------------------------------------- #
+def sgd(schedule: Schedule, momentum: float = 0.9,
+        clip_norm: float | None = None) -> Optimizer:
+    def init(params):
+        return dict(step=0, m=tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params))
+
+    @torch.no_grad()
+    def apply(grads, state, params):
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        lr = schedule(state["step"])
+        m = tree_map(lambda m_, g: momentum * m_ + g.float(), state["m"],
+                     grads)
+        _write(params, tree_map(lambda p, m_: p.float() - lr * m_, params, m))
+        return params, dict(step=state["step"] + 1, m=m)
+
+    return Optimizer(init, apply, "sgd")
+
+
 # --------------------------------------------------------------------- #
 # AdamW with fp32 master weights
 # --------------------------------------------------------------------- #
@@ -151,3 +184,62 @@ def adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.95,
 
     return Optimizer(init, apply, "adamw")
 
+
+
+# --------------------------------------------------------------------- #
+# Adafactor (factored second moment)
+# --------------------------------------------------------------------- #
+def _is_factored(p) -> bool:
+    return p.dim() >= 2 and p.shape[-1] >= 8 and p.shape[-2] >= 8
+
+
+def adafactor(schedule: Schedule, eps: float = 1e-30,
+              clip_threshold: float = 1.0, decay: float = 0.8,
+              weight_decay: float = 0.0,
+              clip_norm: float | None = 1.0) -> Optimizer:
+    def init(params):
+        def per_param(p):
+            def z(shape):
+                return torch.zeros(shape, dtype=torch.float32,
+                                   device=p.device)
+            if _is_factored(p):
+                return dict(vr=z(p.shape[:-1]),
+                            vc=z(p.shape[:-2] + p.shape[-1:]))
+            return dict(v=z(p.shape))
+        return dict(step=0, stats=tree_map(per_param, params))
+
+    @torch.no_grad()
+    def apply(grads, state, params):
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step = state["step"] + 1
+        lr = schedule(step)
+        beta = 1.0 - _f32(step) ** (-decay)
+
+        def upd(g, stats, p):
+            g = g.float()
+            g2 = g * g + eps
+            if "vr" in stats:
+                vr = beta * stats["vr"] + (1 - beta) * g2.mean(dim=-1)
+                vc = beta * stats["vc"] + (1 - beta) * g2.mean(dim=-2)
+                denom = torch.sqrt(
+                    vr[..., None] * vc[..., None, :]
+                    / (vr.mean(dim=-1, keepdim=True)[..., None] + eps))
+                new_stats = dict(vr=vr, vc=vc)
+            else:
+                v = beta * stats["v"] + (1 - beta) * g2
+                denom = torch.sqrt(v)
+                new_stats = dict(v=v)
+            u = g / torch.clamp(denom, min=eps)
+            # update clipping (Adafactor's RMS rule)
+            rms_u = torch.sqrt(torch.mean(u * u) + eps)
+            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
+            p32 = p.float()
+            return (p32 - lr * (u + weight_decay * p32), new_stats)
+
+        out = tree_map(upd, grads, state["stats"], params)
+        _write(params, tree_map(lambda o: o[0], out))
+        return params, dict(step=step,
+                            stats=tree_map(lambda o: o[1], out))
+
+    return Optimizer(init, apply, "adafactor")

@@ -666,6 +666,131 @@ def test_sage_reduced_train_step_on_card_matches_cpu(card):
     assert seg_mm_call.launches - before == 2 * cfg.n_layers
 
 
+# The other GNN families' aggregation widths: PNA's d = 75, NequIP's
+# (2l+1)·32 for l = 1, 2 (96, 160) and EquiformerV2's 49·128 = 6,272; held
+# bitwise like the GraphSAGE widths (6,272 on two layouts: its message rows
+# are ~2 GB at f64).
+@pytest.mark.parametrize("kind", ["plain", "padded", "shuffled", "idle tile",
+                                  "empty tile"])
+@pytest.mark.parametrize("d", [75, 96, 160])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_mm_kernel_matches_plain_at_family_widths_on_card(card, kind, d,
+                                                              dtype):
+    from repro_torch.kernels.seg_mm import seg_mm_call, seg_mm_plain
+    n, tile, src, _, block_tile, _, count = _seg_mm_format(kind)
+    span = torch.as_tensor(tile_spans(src, n, block_tile, count.shape[0]),
+                           device=card)
+    args, tile, n = _seg_mm_args(kind, d, dtype, card)
+    o1 = seg_mm_call(*args, tile=tile, tile_span=span)
+    o2 = seg_mm_call(*args, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    host = [a.cpu() for a in args]
+    assert torch.equal(o1.cpu(), seg_mm_plain(
+        host[0], host[1], host[2], tile=tile, num_tiles=host[3].shape[0]))
+
+
+@pytest.mark.parametrize("kind", ["plain", "shuffled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_mm_kernel_matches_plain_at_equiformer_width_on_card(card, kind,
+                                                                 dtype):
+    from repro_torch.kernels.seg_mm import seg_mm_call, seg_mm_plain
+    args, tile, _ = _seg_mm_args(kind, 6272, dtype, card)
+    out = seg_mm_call(*args, tile=tile).cpu()
+    host = [a.cpu() for a in args]
+    del args
+    assert torch.equal(out, seg_mm_plain(host[0], host[1], host[2], tile=tile,
+                                         num_tiles=host[3].shape[0]))
+
+
+def _family_batch(arch, cfg, dev):
+    from repro_torch.launch import train
+    if arch == "pna":
+        return train.reduced_batch(cfg, dev)
+    return train.molecule_batch(6, 10, 16, cfg.d_feat, dev, n_pad=64,
+                                e_pad=200, seed=4)
+
+
+@pytest.mark.parametrize("arch", ["pna", "nequip", "equiformer-v2"])
+def test_family_reduced_train_step_on_card_matches_cpu(card, arch):
+    """One step of the reduced config on the card (seg_mm) against the CPU
+    (its plain version): loss rel 1e-5, gradients rel L2 1e-4, each leaf
+    against the larger of its own norm and 1e-3 of the whole gradient's (a
+    leaf whose true gradient is 0, EquiformerV2's last attention bias,
+    holds f32 rounding noise alone), and the parameters after an AdamW step
+    rel L2 1e-3 — except on the leaves under that floor, whose rounding
+    Adam's g/√v can turn into a full step of either sign; and seg_mm
+    launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.seg_mm import seg_mm_call
+    from repro_torch.launch import train
+    from repro_torch.launch.specs import _GNN_MODS
+    from repro_torch.train.optim import (adamw, cosine_schedule, tree_leaves,
+                                         tree_map)
+    mod = _GNN_MODS[arch]
+    cfg = get_arch(arch).config(reduced=True)
+    out = {}
+    for dev in ("cpu", card):
+        batch = _family_batch(arch, cfg, dev)
+        params = mod.init_params(cfg, 0, device=dev)
+        opt = adamw(cosine_schedule(3e-3, 5, 2))
+        state = opt.init(params)
+        before = seg_mm_call.launches
+        loss = mod.loss_fn(params, batch, cfg)
+        loss.backward()
+        launched = seg_mm_call.launches - before
+        grads = [p.grad.clone() if p.grad is not None
+                 else torch.zeros_like(p) for p in tree_leaves(params)]
+        opt.apply(tree_map(lambda p: p.grad if p.grad is not None
+                           else torch.zeros_like(p), params), state, params)
+        out[str(dev)] = (loss.item(), grads,
+                         [p.detach().clone() for p in tree_leaves(params)],
+                         launched)
+    loss_c, grads_c, params_c, launched_c = out["cpu"]
+    loss_g, grads_g, params_g, launched_g = out[str(card)]
+    assert launched_c == 0 and launched_g > 0
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    total = float(torch.sqrt(sum((w.double() ** 2).sum() for w in grads_c)))
+    noise = [0 < float(b.norm()) < 1e-3 * total for b in grads_c]
+    for a, b in zip(grads_g, grads_c):
+        assert float((a.cpu() - b).norm()) <= 1e-4 * max(float(b.norm()),
+                                                         1e-3 * total)
+    for a, b, skip in zip(params_g, params_c, noise):
+        assert skip or float((a.cpu() - b).norm()) <= 1e-3 * float(b.norm())
+
+
+@pytest.mark.parametrize("arch", ["nequip", "equiformer-v2"])
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-4),
+                                         (torch.float64, 1e-10)])
+def test_family_rotation_invariance_on_card(card, arch, dtype, limit):
+    """The JAX test's rotation (tests/test_models_gnn.py) on the reduced
+    config, on the card."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.specs import _GNN_MODS
+    from repro_torch.models.gnn import so3
+    from repro_torch.models.gnn.common import batch_from_graph
+    mod = _GNN_MODS[arch]
+    cfg = dataclasses.replace(get_arch(arch).config(reduced=True),
+                              dtype=dtype)
+    rng = np.random.default_rng(2)
+    g = tg.erdos_renyi(40, 160, seed=3)
+    x = rng.normal(size=(g.n, cfg.d_feat))
+    pos = rng.normal(size=(g.n, 3)) * 2
+    d1 = so3.wigner_real(1, torch.tensor([1.1], dtype=torch.float64),
+                         torch.tensor([0.4], dtype=torch.float64))[0].numpy()
+    m = np.array([[0., -1, 0], [0, 0, 1], [1, 0, 0]])
+    rot = np.linalg.inv(m) @ d1 @ m
+    params = mod.init_params(cfg, 4, device=card)
+    with torch.no_grad():
+        o1, o2 = (mod.apply(params, batch_from_graph(
+            g, x, labels=np.zeros(1), pos=p, device=card), cfg)
+            for p in (pos, pos @ rot.T))
+    assert bool(torch.isfinite(o1).all())
+    scale = max(1e-3, float(o1.abs().max()))
+    assert float((o1 - o2).abs().max()) / scale < limit
+
+
 # --------------------------------------------------------------------- #
 # The paper's comparison path and the push backend's device rounds. None
 # of these runs a hand-written kernel: they are PyTorch segment sums in a

@@ -434,6 +434,26 @@ for name, shape, axes in CASES:
     arrays[name + "/psi"] = psi
     for f in FIELDS:
         arrays[name + "/" + f] = np.asarray(getattr(dp.arrays, f))
+# the 2-D sharded GraphSAGE forward at float32 (tests/test_distributed.py's
+# test_sharded_2d_sage_matches_serial): its input, parameters and output
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.models.gnn import sage
+from repro.models.gnn.sharded_mp import build_sharded_graph, sharded_sage_apply
+gs = erdos_renyi(600, 4200, seed=2)
+scfg = sage.SageConfig(d_feat=16, n_classes=5, d_hidden=32, n_layers=2)
+sx = np.random.default_rng(0).normal(size=(gs.n, 16)).astype(np.float32)
+sparams = sage.init_params(scfg, jax.random.PRNGKey(0))
+smesh = jax.make_mesh((2, 4), ("data", "model"))
+part, sg = build_sharded_graph(gs, smesh, bidirectional=True)
+x_shard = jax.device_put(
+    np.stack([part.to_src_layout(sx[:, j]) for j in range(16)], -1),
+    NamedSharding(smesh, P(("data",), None, None)))
+sout = np.asarray(sharded_sage_apply(sparams, x_shard, part, sg, smesh, scfg))
+arrays["sage/x"] = sx
+arrays["sage/out"] = np.stack([part.from_src_layout(sout[..., j])
+                               for j in range(sout.shape[-1])], -1)
+for i, leaf in enumerate(jax.tree_util.tree_leaves(sparams)):
+    arrays["sage/p%d" % i] = np.asarray(leaf)
 np.savez(sys.argv[1], **arrays)
 print(json.dumps(out))
 """
@@ -521,6 +541,26 @@ def rank_main(rank, world, tmp):
     psi4 = ops.psi_epilogue(s[:g4.n]).numpy()
     res["1d"] = dict(err=float(np.abs(psi4 - exact_psi(g4, act4)[0]).max()))
     m4.close()
+    # the 2-D sharded GraphSAGE forward on (2, 4), with the JAX package's
+    # input and parameters (the JAX subprocess ran first)
+    from repro_torch.models.gnn import sage
+    from repro_torch.models.gnn.sharded_mp import (build_sharded_graph,
+                                                   features_to_src_layout,
+                                                   sharded_sage_apply)
+    from repro_torch.train.optim import tree_leaves
+    scfg = sage.SageConfig(d_feat=16, n_classes=5, d_hidden=32, n_layers=2)
+    sparams = sage.init_params(scfg, 0, device="cpu")
+    with np.load(tmp + "/jax.npz") as z:
+        sx = z["sage/x"]
+        for i, p in enumerate(tree_leaves(sparams)):
+            p.data.copy_(torch.as_tensor(z["sage/p%d" % i]))
+    m5 = make_mesh((2, 4), device="cpu")
+    part, sg = build_sharded_graph(erdos_renyi(600, 4200, seed=2), m5)
+    sx_local = torch.as_tensor(features_to_src_layout(part, sx)[m5.row])
+    arrays["sage/out"] = sharded_sage_apply(sparams, sx_local, part, sg, m5,
+                                            scfg).numpy()
+    res["sage"] = dict(row=m5.row, col=m5.col)
+    m5.close()
     np.savez(tmp + "/rank%d.npz" % rank, **arrays)
     with open(tmp + "/rank%d.json" % rank, "w") as fh:
         json.dump(res, fh)
@@ -635,3 +675,36 @@ def test_gloo8_driver_restart(gloo8):
 def test_gloo8_1d_baseline_matches_exact(gloo8):
     for res, _ in gloo8[2]:
         assert res["1d"]["err"] <= 1e-6
+
+
+def test_gloo8_sharded_sage_matches_serial_and_jax(gloo8):
+    """``sharded_sage_apply`` on 8 gloo ranks, mesh (2, 4), float32, with
+    the JAX package's input and parameters: every rank of a row holds the
+    same rows, and the assembled logits equal the serial ``sage.apply`` and
+    JAX's ``shard_map`` forward within 1e-5 (sums in another order)."""
+    from repro_torch.models.gnn import sage
+    from repro_torch.models.gnn.common import batch_from_graph
+    from repro_torch.models.gnn.sharded_mp import features_from_src_layout
+    from repro_torch.train.optim import tree_leaves
+    _, jarr, per_rank = gloo8
+    cfg = sage.SageConfig(d_feat=16, n_classes=5, d_hidden=32, n_layers=2)
+    params = sage.init_params(cfg, 0, device="cpu")
+    for i, p in enumerate(tree_leaves(params)):
+        p.data.copy_(torch.as_tensor(jarr["sage/p%d" % i]))
+    g = tg.erdos_renyi(600, 4200, seed=2)
+    ref = sage.apply(params, batch_from_graph(g, jarr["sage/x"],
+                                              device="cpu"), cfg)
+    ref = ref.detach().numpy()
+    rows = {}
+    for res, arr in per_rank:
+        r = res["sage"]["row"]
+        if r in rows:
+            assert np.array_equal(rows[r], arr["sage/out"])
+        rows[r] = arr["sage/out"]
+    both = Graph(g.n, np.concatenate([g.src, g.dst]),
+                 np.concatenate([g.dst, g.src]))
+    part = partition_2d(both, 2, 4)
+    got = features_from_src_layout(part, np.stack([rows[0], rows[1]]))
+    assert got.shape == ref.shape == jarr["sage/out"].shape
+    assert np.abs(got - ref).max() < 1e-5
+    assert np.abs(got - jarr["sage/out"]).max() < 1e-5

@@ -74,14 +74,34 @@ def _edges(n=60, m=300, seed=3, sentinels=7):
 @pytest.mark.parametrize("kind", ["sum", "mean", "max", "min", "std"])
 @pytest.mark.parametrize("width", [None, 8])
 def test_segment_agg_matches_jax(kind, width):
+    """Every kind at f32 against JAX's at f32, except ``std``: the port
+    takes the two-pass variance, the JAX package mean(x²) − mean², the same
+    function; so ``std`` is held at f64 against JAX at x64 (1e-12) and at
+    f32 against that f64 value (JAX's own f32 misses it by 3.5e-3 relative
+    where a node's messages nearly agree)."""
     n, _, dst = _edges()
     shape = (dst.shape[0],) if width is None else (dst.shape[0], width)
     vals = np.random.default_rng(1).normal(size=shape).astype(np.float32)
     got = common.segment_agg(torch.as_tensor(vals), torch.as_tensor(dst), n,
                              kind)
-    want = jcommon.segment_agg(jnp.asarray(vals), jnp.asarray(dst), n, kind)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    if kind != "std":
+        want = jcommon.segment_agg(jnp.asarray(vals), jnp.asarray(dst), n,
+                                   kind)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+        return
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = np.asarray(jcommon.segment_agg(
+            jnp.asarray(vals, jnp.float64), jnp.asarray(dst), n, kind))
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+    got64 = common.segment_agg(torch.as_tensor(vals, dtype=torch.float64),
+                               torch.as_tensor(dst), n, kind)
+    assert got.shape == got64.shape == want.shape
+    np.testing.assert_allclose(got64.numpy(), want, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
 def test_segment_agg_sum_differentiates_through_seg_mm():
@@ -299,8 +319,9 @@ def test_registry_and_cell_dims_match_jax():
                                   169_984) == jspecs._gnn_model_flops(
         "graphsage-reddit", j_cfg, 169_984, 169_984)
     assert get_arch("psi-score").config().dataset == "twitter"
-    with pytest.raises(KeyError, match='"The other GNN families"'):
-        get_arch("pna")
+    assert get_arch("pna").family == "gnn"
+    with pytest.raises(KeyError, match='"The LM family"'):
+        get_arch("tinyllama-1.1b")
 
 
 def test_unported_archs_name_their_roadmap_item_by_title():

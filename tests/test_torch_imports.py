@@ -55,6 +55,10 @@ SLICE_MODULES = [
     "repro_torch.obs.slo", "repro_torch.obs.profile",
     "repro_torch.obs.watch", "repro_torch.obs.regress",
     "repro_torch.obs.check",
+    "repro_torch.models.gnn.so3", "repro_torch.models.gnn.pna",
+    "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.equiformer_v2",
+    "repro_torch.models.gnn.sharded_mp", "repro_torch.configs.pna",
+    "repro_torch.configs.nequip", "repro_torch.configs.equiformer_v2",
 ]
 
 
