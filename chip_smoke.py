@@ -78,7 +78,7 @@ on the first check that does not hold:
    beside as many single-lane launches, their bound, the plain version and
    a block-diagonal ``torch.sparse.mm``.
 
-Five more main paths run after the fleet, before the times:
+Six more main paths run after the fleet, before the times:
 
 * ``paper``: the paper's comparison (Exp. 1-2) on the DBLP stand-in at
   float64: Power-ψ through the ``cuda`` engine (``power_step``), Power-NF
@@ -151,6 +151,27 @@ Five more main paths run after the fleet, before the times:
   subprocesses (exit 0; the watch's pre-emption, an SLO verdict, a
   folded-stacks file).
 
+* ``lm``: the LM family (``train`` and ``serve --arch <lm>``) at full
+  width; no kernel of the port runs on it. (a) ``tinyllama-1.1b`` whole:
+  ``repro_torch.launch.train --arch tinyllama-1.1b --shape train_4k --steps
+  5`` (seq 4,096, batch cut from 256 to 8, 4 microbatches, AdamW; every loss
+  finite), 5 steps on one fixed batch (8 × 1,024; the loss must fall), one
+  step at f32 against f64 on the card (2 × 256: loss rel ≤ 1e-5, every
+  gradient leaf rel L2 ≤ 1e-4) and the bf16 loss against the f32 one (rel ≤
+  1e-2). (b) ``tinyllama-1.1b`` whole: ``repro_torch.launch.serve --arch
+  tinyllama-1.1b --shape prefill_32k --gen-len 33 --requests 1`` (a bf16
+  prefill of 1 × 32,768, batch cut from 32, and 32 greedy decode steps;
+  prefill ms, decode ms a token, cache bytes; one more decode step
+  profiled); at f32 a
+  prefill of 1 × 2,048 and 32 decode steps against ``forward`` (2e-3).
+  (c) ``mixtral-8x7b`` at full width, 2 layers: a bf16 prefill of 1 ×
+  10,240 (the banded schedule; each expert's dropped tokens printed), 16
+  decode steps past the 4,096 window on the rolling cache, the same at f32
+  against ``forward`` (2e-3, capacity E/K so nothing drops), one bf16 AdamW
+  step at 1 layer (1 × 2,048). (d) ``yi-9b``, ``nemotron-4-340b``,
+  ``mixtral-8x22b`` at full width, 1 layer each: a bf16 prefill of 1 × 512
+  and one decode step (finite logits, peak memory).
+
 Their exact solves (``exact_psi``, a host sparse LU of tens of seconds
 each) run in three worker processes from the start of the run, which the
 script ends before it exits.
@@ -180,7 +201,7 @@ with none, and on the ``full_graph_sm`` and ``molecule`` formats at d = 75,
   peak memory.
 
 Phases 3 to 8, ``gnn_families``, ``paper``, ``push``, ``stream``,
-``driver`` and ``chaos``
+``driver``, ``chaos`` and ``lm``
 are the main paths (the auto phase is two: model-only and microbench): every
 launch
 counter is set to 0 just before each path and read just after, and each
@@ -325,6 +346,45 @@ CHAOS_FAULTS = ("crash", "stale_read", "torn_ckpt", "poison", "dup",
 CHAOS_SIZE = (465_017, 834_797)
 CHAOS_EVENTS = 20_000
 CHAOS_SOLVER_TOL = 1e-13
+
+# The lm path (phase_lm). (a) tinyllama-1.1b whole: the trainer CLI at
+# train_4k for LM_CLI_STEPS steps; LM_FIXED_STEPS steps on one fixed batch of
+# LM_FIXED (batch, seq: the dense schedule, so the profiled step stays small)
+# at a constant LM_FIXED_LR (a step moves the bf16 weights by more than half
+# an ulp; the reduced trainer's 3e-3 diverges at full width);
+# one step at f32 against f64 at LM_F64 (loss rel LM_LOSS_RTOL, each gradient
+# leaf rel L2 LM_GRAD_REL_L2: f32 rounding through 22 layers; the f64 step's
+# attention scores and logits are f32 too, as in the JAX package) and the bf16
+# loss against the f32 one (LM_BF16_LOSS_RTOL: bf16 weights and activations).
+# (b) tinyllama-1.1b through the serve CLI at prefill_32k (1 x LM_PREFILL,
+# batch cut from 32), LM_DECODE_STEPS decode steps after the prefill's
+# token; at f32, prefill of LM_CHECK_PROMPT and
+# LM_DECODE_STEPS steps against forward over LM_CHECK_FORWARD tokens within
+# LM_LOGIT_TOL (rtol, atol: the JAX test's tests/test_models_lm.py:58-65).
+# (c) mixtral-8x7b at 2 layers: prefill of MOE_PREFILL (> 2·(4096 + 512): the
+# banded schedule) and MOE_DECODE steps past the window; f32 against forward
+# over MOE_FORWARD (a multiple of the 512 q block, as the banded schedule
+# needs); one AdamW step at 1 layer, batch 1 x MOE_TRAIN_SEQ. (d) one layer
+# each of LM_WIDE_ARCHS at full width: prefill 1 x LM_WIDE_PROMPT, one decode.
+LM_CLI_STEPS = 5
+LM_FIXED = (8, 1024)
+LM_FIXED_STEPS = 5
+LM_FIXED_LR = 1e-5
+LM_F64 = (2, 256)
+LM_LOSS_RTOL = 1e-5
+LM_GRAD_REL_L2 = 1e-4
+LM_BF16_LOSS_RTOL = 1e-2
+LM_LOGIT_TOL = (2e-3, 2e-3)
+LM_PREFILL = 32768
+LM_DECODE_STEPS = 32
+LM_CHECK_PROMPT = 2048
+LM_CHECK_FORWARD = 2560
+MOE_PREFILL = 10240
+MOE_DECODE = 16
+MOE_FORWARD = 10752
+MOE_TRAIN_SEQ = 2048
+LM_WIDE_ARCHS = ("yi-9b", "nemotron-4-340b", "mixtral-8x22b")
+LM_WIDE_PROMPT = 512
 
 
 class SmokeFailure(Exception):
@@ -3142,6 +3202,363 @@ def phase_chaos(report: dict) -> None:
     report["chaos"] = out
 
 
+# --------------------------------------------------------------------- #
+# The LM family: training, prefill and decode at full width
+# --------------------------------------------------------------------- #
+def _lm_cfg(arch: str, **kw):
+    """The full config of ``arch`` with the fields in ``kw`` replaced."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch).config(), **kw)
+
+
+def _lm_batch(vocab: int, batch: int, seq: int, seed: int, dev) -> dict:
+    """A ``TokenPipeline`` batch (step 0 of ``seed``) on ``dev``."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    b = TokenPipeline(vocab=vocab, seq_len=seq, global_batch=batch,
+                      seed=seed).batch(0)
+    return {k: torch.from_numpy(v).to(dev, torch.long) for k, v in b.items()}
+
+
+def _timed(fn):
+    """(result, ms) of one call of ``fn`` by CUDA events."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _cast(params, dtype):
+    """A copy of ``params`` in ``dtype``, without autograd."""
+    from repro_torch.train.optim import tree_map
+    return tree_map(lambda t: t.detach().to(dtype), params)
+
+
+def _hold_logits(tag, got, want, out) -> None:
+    """``got`` within LM_LOGIT_TOL of ``want`` (the JAX test's rtol = atol);
+    the worst share of the limit kept in ``out``."""
+    err, share = _compare(tag, got, want, *LM_LOGIT_TOL)
+    out["logit_share"] = max(out.get("logit_share", 0.0), share)
+    out["logit_err"] = max(out.get("logit_err", 0.0), err)
+
+
+def lm_train(out: dict, dev: str = "cuda") -> None:
+    """(a) ``tinyllama-1.1b`` at full width and depth: the trainer CLI at
+    ``train_4k`` (seq 4,096, batch cut to 8, 4 microbatches a step), then
+    LM_FIXED_STEPS steps on one fixed batch at LM_FIXED_LR (the loss must
+    fall; the last step under the profiler), then one step's loss and
+    gradients at f32 against f64 and the bf16 loss of the same batch
+    against the f32 one."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import (init_params, loss_fn,
+                                                make_train_step)
+    from repro_torch.models.transformer.model import _value_and_grad
+    from repro_torch.train.optim import adamw, constant_schedule, tree_leaves
+    _free()
+    run = train.main(["--arch", "tinyllama-1.1b", "--shape", "train_4k",
+                      "--steps", str(LM_CLI_STEPS), "--device", dev])
+    check(all(np.isfinite(run["losses"])),
+          f"lm train_4k: a loss is not finite: {run['losses']}")
+    ms = float(np.median(run["step_ms"][1:]))
+    out["train_4k"] = dict(losses=run["losses"], step_ms=ms,
+                           tokens_s=run["tokens"] / ms * 1e3,
+                           peak_gib=_peak_gib())
+    say(f"lm train_4k: {run['tokens']} tokens a step, median step "
+        f"{ms:.1f} ms ({run['tokens'] / ms * 1e3:.0f} tokens/s), peak "
+        f"{_peak_gib():.2f} GiB; losses {run['losses']}")
+    del run
+    _free()
+
+    cfg = _lm_cfg("tinyllama-1.1b")
+    batch, seq = LM_FIXED
+    params = init_params(cfg, 1, device=dev)
+    opt = adamw(constant_schedule(LM_FIXED_LR))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    b = _lm_batch(cfg.vocab, batch, seq, 1, dev)
+    losses, times = [], []
+
+    def one():
+        nonlocal params, state
+        params, state, loss = step(params, state, b)
+        losses.append(float(loss))
+
+    for _ in range(LM_FIXED_STEPS - 1):
+        times.append(_timed(one)[1])
+    busy, _ = profile_run("lm fixed-batch step", one)   # float(loss) syncs
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"lm fixed batch: the loss did not fall: {losses}")
+    ms = float(np.median(times[1:]))
+    out["fixed"] = dict(losses=losses, step_ms=ms, busy=busy,
+                        tokens_s=batch * seq / ms * 1e3,
+                        peak_gib=_peak_gib())
+    say(f"lm fixed batch {batch} x {seq}: losses {losses}; step {ms:.1f} "
+        f"ms ({batch * seq / ms * 1e3:.0f} tokens/s), busy "
+        f"{(busy or 0):.1%}, peak {_peak_gib():.2f} GiB")
+    del params, state, step, opt
+    _free()
+
+    cfg32 = _lm_cfg("tinyllama-1.1b", dtype=torch.float32,
+                    param_dtype=torch.float32)
+    cfg64 = _lm_cfg("tinyllama-1.1b", dtype=torch.float64,
+                    param_dtype=torch.float64)
+    p32 = init_params(cfg32, 2, device=dev)
+    p64 = _cast(p32, torch.float64)
+    for t in tree_leaves(p64):
+        t.requires_grad_()
+    b = _lm_batch(cfg.vocab, *LM_F64, 2, dev)
+    l32, g32 = _value_and_grad(p32, b, cfg32)
+    l64, g64 = _value_and_grad(p64, b, cfg64)
+    loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    grad_rel = max(float((a.double() - c).norm() / c.norm().clamp(min=1e-30))
+                   for a, c in zip(tree_leaves(g32), tree_leaves(g64)))
+    del p64, g32, g64
+    with torch.no_grad():
+        l16 = float(loss_fn(_cast(p32, torch.bfloat16), b, cfg))
+    bf16_rel = abs(l16 - float(l32)) / abs(float(l32))
+    out.update(f64_loss_rel=loss_rel, f64_grad_rel=grad_rel,
+               bf16_loss_rel=bf16_rel)
+    say(f"lm f32 step vs f64 (batch {LM_F64[0]} x {LM_F64[1]}): loss "
+        f"{float(l32):.6f} vs {float(l64):.6f} (rel {loss_rel:.2e}), worst "
+        f"gradient leaf rel L2 {grad_rel:.2e}; bf16 loss {l16:.6f} (rel "
+        f"{bf16_rel:.2e})")
+    check(loss_rel <= LM_LOSS_RTOL, f"lm f32 loss vs f64: {loss_rel:.3e}")
+    check(grad_rel <= LM_GRAD_REL_L2, f"lm f32 grads vs f64: {grad_rel:.3e}")
+    check(bf16_rel <= LM_BF16_LOSS_RTOL,
+          f"lm bf16 loss vs f32: {bf16_rel:.3e}")
+    del p32
+    _free()
+
+
+def lm_serve(out: dict, dev: str = "cuda") -> None:
+    """(b) ``tinyllama-1.1b`` at full width and depth through the serving
+    CLI, ``--shape prefill_32k``: a bf16 prefill of 1 × LM_PREFILL tokens
+    (batch cut from 32) and LM_DECODE_STEPS greedy decode steps on its
+    cache, then one more decode step on that cache under the profiler; at
+    f32 the prefill of 1 × LM_CHECK_PROMPT and LM_DECODE_STEPS decode steps
+    (teacher-forced) against ``forward`` over LM_CHECK_FORWARD tokens (the
+    blocked schedule; causal, so the tail beyond the decoded positions does
+    not reach them)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import (forward, init_params,
+                                                make_decode_step,
+                                                make_prefill)
+    cfg = _lm_cfg("tinyllama-1.1b")
+    _free()
+    run = serve.main(["--arch", "tinyllama-1.1b", "--shape", "prefill_32k",
+                      "--gen-len", str(LM_DECODE_STEPS + 1), "--requests",
+                      "1", "--device", dev])
+    cache, logits = run["cache"], run["logits"]
+    check(bool(torch.isfinite(logits).all()), "lm prefill_32k: non-finite "
+          "logits")
+    check(run["tokens"][0].shape == (1, LM_DECODE_STEPS + 1)
+          and cache["t"] == LM_PREFILL + LM_DECODE_STEPS,
+          f"lm prefill_32k: generated {run['tokens'][0].shape}, cache at "
+          f"{cache['t']}")
+    decode = make_decode_step(run["cfg"])
+    busy, _ = profile_run("lm decode step", lambda: (
+        decode(run["params"], cache, torch.argmax(logits, -1)),
+        torch.cuda.synchronize()))
+    pre_ms, dec_ms = run["prefill_ms"][0], run["decode_ms"][0]
+    out["prefill_32k"] = dict(prefill_ms=pre_ms,
+                              tokens_s=LM_PREFILL / pre_ms * 1e3,
+                              decode_ms=dec_ms, decode_busy=busy,
+                              cache_mb=run["cache_bytes"] / 1e6,
+                              peak_gib=_peak_gib())
+    say(f"lm prefill_32k (serve CLI): prefill 1 x {LM_PREFILL} {pre_ms:.1f} "
+        f"ms ({LM_PREFILL / pre_ms * 1e3:.0f} tokens/s); decode {dec_ms:.2f}"
+        f" ms a token (busy {(busy or 0):.1%}), cache "
+        f"{run['cache_bytes'] / 1e6:.1f} MB, peak {_peak_gib():.2f} GiB; "
+        f"generated {run['tokens'][0][0].tolist()[:8]}...")
+    del run, cache, logits
+    _free()
+
+    cfg32 = _lm_cfg("tinyllama-1.1b", dtype=torch.float32,
+                    param_dtype=torch.float32)
+    p32 = init_params(cfg32, 3, device=dev)
+    rng = np.random.default_rng(3)
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CHECK_FORWARD))
+                           ).to(dev)
+    n = LM_CHECK_PROMPT
+    with torch.no_grad():
+        full = forward(p32, seq, cfg32)
+    prefill = make_prefill(cfg32, max_len=n + LM_DECODE_STEPS)
+    decode = make_decode_step(cfg32)
+    cache, lg = prefill(p32, seq[:, :n])
+    _hold_logits("lm prefill f32", lg, full[:, n - 1], out)
+    for t in range(n, n + LM_DECODE_STEPS):
+        cache, lg = decode(p32, cache, seq[:, t])
+        _hold_logits(f"lm decode f32 t={t}", lg, full[:, t], out)
+    say(f"lm f32 prefill 1 x {n} + {LM_DECODE_STEPS} decode steps against "
+        f"forward over {LM_CHECK_FORWARD}: max abs err "
+        f"{out['logit_err']:.2e} ({out['logit_share']:.3f} of the limit)")
+    del full, cache, p32
+    _free()
+
+
+def lm_moe(out: dict, dev: str = "cuda") -> None:
+    """(c) ``mixtral-8x7b`` at full width, depth cut to 2: a bf16 prefill of
+    1 × MOE_PREFILL tokens (the banded schedule) with the config's
+    capacity factor, each expert's dropped tokens per layer, MOE_DECODE
+    greedy steps past the window on the rolling cache; at f32 with capacity
+    factor E/K (capacity = tokens: nothing can drop) the prefill and
+    MOE_DECODE teacher-forced decode steps against ``forward`` over
+    MOE_FORWARD tokens; then one bf16 AdamW step at depth 1, seq
+    MOE_TRAIN_SEQ, batch 1."""
+    import dataclasses
+    import torch
+    from repro_torch.models.transformer import (MoECfg, forward, init_params,
+                                                make_decode_step,
+                                                make_prefill,
+                                                make_train_step)
+    from repro_torch.train.optim import adamw, cosine_schedule
+    cfg = _lm_cfg("mixtral-8x7b", n_layers=2)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    p32 = init_params(cfg32, 4, device=dev)
+    p16 = _cast(p32, torch.bfloat16)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, MOE_PREFILL))
+                            ).to(dev)
+    drops: list = []
+    prefill = make_prefill(cfg, max_len=MOE_PREFILL + MOE_DECODE + 1,
+                           moe_drops=drops)
+    decode = make_decode_step(cfg)
+    _free()
+    (cache, logits), pre_ms = _timed(lambda: prefill(p16, toks))
+    dropped = [d.tolist() for d in drops]
+    gen = [torch.argmax(logits, -1)]
+
+    def steps():
+        nonlocal cache, logits
+        for _ in range(MOE_DECODE):
+            cache, logits = decode(p16, cache, gen[-1])
+            gen.append(torch.argmax(logits, -1))
+
+    _, dec_ms = _timed(steps)
+    dec_ms /= MOE_DECODE
+    check(bool(torch.isfinite(logits).all()), "lm mixtral: non-finite logits")
+    check(cache["k"].shape[2] == cfg.sliding_window and cache["t"] ==
+          MOE_PREFILL + MOE_DECODE, "lm mixtral: not the rolling cache")
+    busy, _ = profile_run("lm mixtral prefill", lambda: (
+        prefill(p16, toks), torch.cuda.synchronize()))
+    drops.clear()
+    out["mixtral"] = dict(prefill_ms=pre_ms, tokens_s=MOE_PREFILL / pre_ms
+                          * 1e3, prefill_busy=busy, decode_ms=dec_ms,
+                          dropped=dropped, peak_gib=_peak_gib())
+    say(f"lm mixtral-8x7b (2 layers) prefill 1 x {MOE_PREFILL}: {pre_ms:.1f}"
+        f" ms ({MOE_PREFILL / pre_ms * 1e3:.0f} tokens/s, busy "
+        f"{(busy or 0):.1%}); decode {dec_ms:.2f} ms a token; dropped "
+        f"tokens per layer per expert (capacity factor "
+        f"{cfg.moe.capacity_factor}): {dropped}; peak {_peak_gib():.2f} GiB")
+    del cache, logits, p16
+    _free()
+
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    cfg32 = dataclasses.replace(cfg32, moe=MoECfg(E, K, E / K))
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (1, MOE_FORWARD))
+                           ).to(dev)
+    n = MOE_PREFILL
+    fdrops: list = []
+    with torch.no_grad():
+        full = forward(p32, seq, cfg32, moe_drops=fdrops)
+    check(sum(int(d.sum()) for d in fdrops) == 0, "lm mixtral f32: dropped")
+    cache, lg = make_prefill(cfg32, max_len=n + MOE_DECODE)(p32, seq[:, :n])
+    decode = make_decode_step(cfg32)
+    moe = {}
+    _hold_logits("lm mixtral prefill f32", lg, full[:, n - 1], moe)
+    for t in range(n, n + MOE_DECODE):
+        cache, lg = decode(p32, cache, seq[:, t])
+        _hold_logits(f"lm mixtral decode f32 t={t}", lg, full[:, t], moe)
+    out["mixtral"].update(logit_err=moe["logit_err"],
+                          logit_share=moe["logit_share"])
+    say(f"lm mixtral f32 prefill 1 x {n} + {MOE_DECODE} decode steps past the"
+        f" window against forward over {MOE_FORWARD}: max abs err "
+        f"{moe['logit_err']:.2e} ({moe['logit_share']:.3f} of the limit)")
+    del full, cache, p32
+    _free()
+
+    cfg1 = _lm_cfg("mixtral-8x7b", n_layers=1, accum_steps=1)
+    params = init_params(cfg1, 5, device=dev)
+    opt = adamw(cosine_schedule(3e-3, 1, 1))
+    state = opt.init(params)
+    b = _lm_batch(cfg1.vocab, 1, MOE_TRAIN_SEQ, 5, dev)
+    (_, _, loss), ms = _timed(lambda: make_train_step(cfg1, opt)(
+        params, state, b))
+    check(bool(np.isfinite(float(loss))), "lm mixtral train step: loss")
+    out["mixtral"].update(train_ms=ms, train_loss=float(loss),
+                          train_peak_gib=_peak_gib())
+    say(f"lm mixtral-8x7b (1 layer) AdamW step, batch 1 x {MOE_TRAIN_SEQ}: "
+        f"loss {float(loss):.4f}, {ms:.1f} ms, peak {_peak_gib():.2f} GiB")
+    del params, state, opt
+    _free()
+
+
+def lm_widths(out: dict, dev: str = "cuda") -> None:
+    """(d) ``yi-9b``, ``nemotron-4-340b`` and ``mixtral-8x22b`` at full
+    width, one layer each: a bf16 prefill of 1 × LM_WIDE_PROMPT and one
+    decode step; finite logits, peak memory."""
+    import torch
+    from repro_torch.models.transformer import (init_params,
+                                                make_decode_step,
+                                                make_prefill)
+    out["widths"] = {}
+    for arch in LM_WIDE_ARCHS:
+        _free()
+        cfg = _lm_cfg(arch, n_layers=1)
+        params = init_params(cfg, 6, device=dev)
+        toks = torch.from_numpy(np.random.default_rng(6).integers(
+            0, cfg.vocab, (1, LM_WIDE_PROMPT))).to(dev)
+        (cache, logits), pre_ms = _timed(lambda: make_prefill(
+            cfg, max_len=LM_WIDE_PROMPT + 1)(params, toks))
+        (cache, logits2), dec_ms = _timed(lambda: make_decode_step(cfg)(
+            params, cache, torch.argmax(logits, -1)))
+        check(bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(logits2).all()),
+              f"lm {arch}: non-finite logits")
+        out["widths"][arch] = dict(prefill_ms=pre_ms, decode_ms=dec_ms,
+                                   peak_gib=_peak_gib())
+        say(f"lm {arch} (1 layer, d {cfg.d_model}, vocab {cfg.vocab}): "
+            f"prefill 1 x {LM_WIDE_PROMPT} {pre_ms:.1f} ms, a decode step "
+            f"{dec_ms:.1f} ms, peak {_peak_gib():.2f} GiB")
+        del params, cache, logits, logits2
+    _free()
+
+
+def phase_lm(report: dict) -> None:
+    """The LM family on the card (no kernel of the port runs on it):
+    :func:`lm_train`, :func:`lm_serve`, :func:`lm_moe`, :func:`lm_widths`."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    _free()
+    lm_train(out)
+    lm_serve(out)
+    lm_moe(out)
+    lm_widths(out)
+    out["path_s"] = time.perf_counter() - t0
+    say(f"lm: path {out['path_s']:.1f} s")
+    report["lm"] = out
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -3769,7 +4186,9 @@ def summary(report: dict) -> str:
     the jit run (ms, rounds, device rounds and their share of the wall)
     and the device round's ms; for the chaos path each gate's parity,
     oracle and chaos walls, overhead, MTTR, ladder deadline and restarts,
-    the guard's rollback ms and the path's seconds."""
+    the guard's rollback ms and the path's seconds; for the lm path its
+    steps', prefills' and decodes' ms, tokens/s, busy shares, peaks, the
+    f32-vs-f64 and logit errors and the dropped tokens."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -3858,7 +4277,22 @@ def summary(report: dict) -> str:
                      for tag in ("gate", "twitter-size")},
                   "rollback_ms": g(report["chaos"]["guard"]["rollback_s"]
                                    * 1e3),
-                  "path_s": g(report["chaos"]["path_s"])}})
+                  "path_s": g(report["chaos"]["path_s"])},
+        "lm": _lm_summary(report["lm"], g)})
+
+
+def _lm_summary(lm: dict, g) -> dict:
+    """The lm path's numbers, rounded by ``g`` (lists of numbers and the
+    dropped-token counts kept as they are)."""
+    def r(v):
+        if isinstance(v, dict):
+            return {k: r(x) for k, x in v.items()}
+        if isinstance(v, float):
+            return g(v)
+        if isinstance(v, list) and v and isinstance(v[0], float):
+            return [g(x) for x in v]
+        return v
+    return r(lm)
 
 
 def main() -> int:
@@ -3907,7 +4341,8 @@ def main() -> int:
               ("power_step", "power_step_lanes", "edge_spmv_lanes")),
              ("driver", phase_driver, ()),
              ("chaos", phase_chaos, ("power_step", "edge_spmv",
-                                     "power_step_lanes", "edge_spmv_lanes"))]
+                                     "power_step_lanes", "edge_spmv_lanes")),
+             ("lm", phase_lm, ())]
     pool = None
     try:
         phase_device(report)

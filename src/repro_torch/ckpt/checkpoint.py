@@ -10,7 +10,10 @@ tuples; leaves are tensors, numpy arrays or scalars) flattens to
 ``/``-joined paths (dict keys in sorted order, sequence indices), so a
 checkpoint written by either package restores in the other. Leaves are
 written as host numpy arrays; :func:`restore` returns numpy leaves in the
-template's structure.
+template's structure. A bfloat16 tensor is written as the JAX package
+writes an ``ml_dtypes.bfloat16`` array: a 2-byte void (``|V2``) array with
+the same bits; such a leaf restores as a bfloat16 CPU tensor (numpy has no
+bfloat16), bit for bit.
 
 Corruption + concurrency hardening:
 
@@ -36,6 +39,7 @@ import zipfile
 import numpy as np
 import torch
 
+from ..device import host_array, host_tensor
 from ..obs import log as obs_log
 
 __all__ = ["save", "restore", "restore_latest", "latest_step", "all_steps",
@@ -62,8 +66,16 @@ def _leaves(tree, path=()):
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        return host_array(leaf)
     return np.asarray(leaf)
+
+
+def _from_host(arr: np.ndarray):
+    """A stored leaf: a ``|V2`` array (bfloat16 bits) as a bfloat16 CPU
+    tensor, any other as the numpy array."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return host_tensor(arr)
+    return arr
 
 
 def _flatten(tree) -> dict[str, np.ndarray]:
@@ -85,7 +97,7 @@ def _rebuild(template, data, path=()):
         else np.shape(template)
     if tuple(arr.shape) != want:
         raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {want}")
-    return arr
+    return _from_host(arr)
 
 
 def save(directory: str, step: int, tree, *, host: int = 0,
@@ -170,10 +182,11 @@ def load_arrays(directory: str, step: int, *, host: int = 0
                 ) -> dict[str, np.ndarray]:
     """The flat ``key → array`` mapping of one host shard, template-free
     (keys are the ``/``-joined tree paths :func:`save` flattened): for a
-    reader whose shapes are data, not a template."""
+    reader whose shapes are data, not a template. bfloat16 leaves come back
+    as bfloat16 CPU tensors."""
     path = os.path.join(directory, f"step_{step:08d}", f"host_{host}.npz")
     with np.load(path) as data:
-        return {k: data[k].copy() for k in data.files}
+        return {k: _from_host(data[k].copy()) for k in data.files}
 
 
 def restore(directory: str, step: int, template, *, host: int = 0):

@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` → config + shapes + family glue.
 
 The JAX package's registry, with the archs this package runs: the paper's
-``psi-score`` and the GNN family (``pna``, ``equiformer-v2``, ``nequip``,
-``graphsage-reddit``). Every other arch id of the JAX package raises
-``KeyError`` naming the ROADMAP item that brings it.
+``psi-score``, the GNN family (``pna``, ``equiformer-v2``, ``nequip``,
+``graphsage-reddit``) and the LM family (``tinyllama-1.1b``, ``yi-9b``,
+``nemotron-4-340b``, ``mixtral-8x22b``, ``mixtral-8x7b``). The one other arch
+id of the JAX package, ``mind``, raises ``KeyError`` naming the ROADMAP item
+that brings it.
 ``reduced=True`` returns the CPU-smoke variant of the same family.
 """
 from __future__ import annotations
@@ -18,8 +20,8 @@ __all__ = ["ShapeCfg", "ArchEntry", "get_arch", "ARCHS"]
 @dataclasses.dataclass(frozen=True)
 class ShapeCfg:
     name: str
-    kind: str                  # full_graph | minibatch | molecule |
-    #                            psi_iterate
+    kind: str                  # train | prefill | decode | full_graph |
+    #                            minibatch | molecule | psi_iterate
     params: dict[str, Any]
     skip: str | None = None    # reason, if this (arch, shape) is skipped
 
@@ -27,7 +29,7 @@ class ShapeCfg:
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
     arch_id: str
-    family: str                # gnn | psi
+    family: str                # lm | gnn | psi
     module: str                # configs module defining config(reduced)
     shapes: tuple[ShapeCfg, ...]
 
@@ -41,6 +43,21 @@ class ArchEntry:
                 return s
         raise KeyError(f"{self.arch_id} has no shape {name!r}; have "
                        f"{[s.name for s in self.shapes]}")
+
+
+def _lm_shapes(*, full_attention: bool) -> tuple[ShapeCfg, ...]:
+    skip = ("pure full-attention arch: 500k dense decode excluded per "
+            "assignment; sub-quadratic (SWA) archs run it"
+            if full_attention else None)
+    return (
+        ShapeCfg("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+        ShapeCfg("prefill_32k", "prefill",
+                 dict(seq_len=32768, global_batch=32)),
+        ShapeCfg("decode_32k", "decode",
+                 dict(seq_len=32768, global_batch=128)),
+        ShapeCfg("long_500k", "decode",
+                 dict(seq_len=524288, global_batch=1), skip=skip),
+    )
 
 
 _GNN_SHAPES = (
@@ -62,6 +79,17 @@ _PSI_SHAPES = (
 
 ARCHS: dict[str, ArchEntry] = {
     e.arch_id: e for e in [
+        ArchEntry("tinyllama-1.1b", "lm", "repro_torch.configs.tinyllama_1_1b",
+                  _lm_shapes(full_attention=True)),
+        ArchEntry("yi-9b", "lm", "repro_torch.configs.yi_9b",
+                  _lm_shapes(full_attention=True)),
+        ArchEntry("nemotron-4-340b", "lm",
+                  "repro_torch.configs.nemotron_4_340b",
+                  _lm_shapes(full_attention=True)),
+        ArchEntry("mixtral-8x22b", "lm", "repro_torch.configs.mixtral_8x22b",
+                  _lm_shapes(full_attention=False)),
+        ArchEntry("mixtral-8x7b", "lm", "repro_torch.configs.mixtral_8x7b",
+                  _lm_shapes(full_attention=False)),
         ArchEntry("pna", "gnn", "repro_torch.configs.pna", _GNN_SHAPES),
         ArchEntry("equiformer-v2", "gnn",
                   "repro_torch.configs.equiformer_v2", _GNN_SHAPES),
@@ -76,9 +104,6 @@ ARCHS: dict[str, ArchEntry] = {
 # arch ids of the JAX package not ported yet, and the ROADMAP item (queue
 # 1, named by its title: the numbers move as items land) that brings each
 UNPORTED: dict[str, str] = {
-    **{a: "ROADMAP queue 1, \"The LM family\" (models/transformer)"
-       for a in ("tinyllama-1.1b", "yi-9b", "nemotron-4-340b",
-                 "mixtral-8x22b", "mixtral-8x7b")},
     "mind": "ROADMAP queue 1, \"The recsys family\" (models/recsys)",
 }
 

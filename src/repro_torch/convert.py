@@ -19,13 +19,14 @@ import numpy as np
 import torch
 
 from .core.operators import PsiOperators, _edge_tensors
-from .device import numpy_dtype, resolve_device
+from .device import host_array, host_tensor, numpy_dtype, resolve_device
 from .kernels.formats import BsrFormat, EdgeTileFormat
 from .kernels.ops import DeviceBsr, DeviceEdgeTiles
 
 __all__ = ["operators_from_numpy", "edge_tiles_from_numpy", "bsr_from_numpy",
            "warm_start_from_numpy", "gnn_params_from_numpy",
-           "sage_params_from_numpy",
+           "sage_params_from_numpy", "lm_params_from_numpy",
+           "lm_params_to_numpy",
            "dist_arrays_from_numpy", "chunk_args_from_numpy"]
 
 
@@ -114,6 +115,38 @@ def sage_params_from_numpy(tree, *, dtype: torch.dtype | None = None,
     """GraphSAGE parameters from the JAX package's ``sage.init_params`` tree
     as numpy: :func:`gnn_params_from_numpy`."""
     return gnn_params_from_numpy(tree, dtype=dtype, device=device)
+
+
+def lm_params_from_numpy(tree, *, dtype: torch.dtype | None = None,
+                         device: str | torch.device = "cuda") -> dict:
+    """LM parameters from the JAX package's ``transformer.init_params``
+    tree as numpy (``jax.tree.map(np.asarray, params)``): the same dict of
+    stacked ``[L, …]`` leaves in the same ``w[d_in, d_out]`` layout, nothing
+    transposed; bfloat16 leaves bit for bit (:func:`~repro_torch.device.
+    host_tensor`).
+    Every leaf becomes a tensor that requires grad; ``dtype`` defaults to
+    the arrays' own."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return host_tensor(t).to(device=dev, dtype=dtype).requires_grad_()
+
+    return conv(tree)
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The tree of :func:`lm_params_from_numpy` back as numpy arrays, for
+    the JAX package; a bfloat16 leaf as a 2-byte void array with the same
+    bits (as the checkpoint stores it: ``.view(ml_dtypes.bfloat16)`` reads
+    it)."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return host_array(t)
+
+    return conv(params)
 
 
 def dist_arrays_from_numpy(fields: Mapping, *, row: int, col: int,

@@ -1,4 +1,5 @@
-"""Serving launcher: batched ψ-score queries on one graph or a fleet.
+"""Serving launcher: batched ψ-score queries on one graph or a fleet, and
+LM generation.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch psi-score \
         --backend auto --microbench --requests 4
@@ -7,15 +8,35 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch psi-score \
         --executor sync --device cpu
 
-The single-tenant loop of the JAX package's launcher, on the same graph and
-seeds, printing the same lines: a cold solve, the top-k, ``--requests``
-batches of ``rank_of`` + ``scores_batch``, and a live activity update
-mid-traffic. ``--backend auto`` lets the autotuner pick the kernel regime
-(``--microbench`` times every candidate instead of trusting the cost
-model) and prints the plan; ``--accelerate`` wraps any backend's step in
-the Aitken-extrapolated loop; ``--backend push`` serves from the local
-residual-push engine, whose solves carry a certified error bound. ``--device cuda`` (the default) needs a card;
-``--device cpu`` runs the plain PyTorch versions of the kernels.
+``--arch <lm arch>`` (``tinyllama-1.1b``, ``yi-9b``, ``nemotron-4-340b``,
+``mixtral-8x22b``, ``mixtral-8x7b``) serves the JAX launcher's LM loop
+(:func:`serve_lm`): ``--requests`` batches of ``--batch`` random 16-token
+prompts (numpy seed 1), each prefilled and then decoded greedily (argmax) to
+``--gen-len`` tokens, on the reduced config, each request's prefill ms and
+decode ms a token printed; ``--shape prefill_32k | decode_32k`` runs the
+full config with prompts of the cell's 32,768 tokens instead, cuts the
+cell's global batch to ``--batch`` (1 by default), prints the cut and
+prints the cell's metric a request: the prefill's time (``prefill_32k``)
+or the decode's time a token at the 32k context (``decode_32k``). The
+cache holds the prompt and the generated tokens (the JAX launcher sizes it
+to the prompt alone, so its decode overwrites the oldest positions of a
+full-attention model's cache). A prompt longer than 2,048 tokens is best a
+multiple of 512: the attention schedule's blocks are the greatest common
+divisors of 512 and 1,024 with its length, as in the JAX package.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --requests 1 --device cpu
+
+For ``psi-score``: the single-tenant loop of the JAX package's launcher, on
+the same graph and seeds, printing the same lines: a cold solve, the top-k,
+``--requests`` batches of ``rank_of`` + ``scores_batch``, and a live
+activity update mid-traffic. ``--backend auto`` lets the autotuner pick the
+kernel regime (``--microbench`` times every candidate instead of trusting
+the cost model) and prints the plan; ``--accelerate`` wraps any backend's
+step in the Aitken-extrapolated loop; ``--backend push`` serves from the
+local residual-push engine, whose solves carry a certified error bound.
+``--device cuda`` (the default) needs a card; ``--device cpu`` runs the
+plain PyTorch versions of the kernels.
 
 ``--tenants K`` (K > 1) serves K independent tenants from one
 :class:`~repro_torch.serving.TenantFleet` instead — the JAX launcher's fleet
@@ -536,12 +557,103 @@ def _obs_epilogue(args) -> None:
               f"live on port {args.metrics_port} until the process exits")
 
 
-def main(argv=None) -> None:
+LM_PROMPT = 16
+
+
+def serve_lm(arch: str, requests: int, device, *, shape: str | None = None,
+             batch: int | None = None, gen_len: int = 8, log=print) -> dict:
+    """The JAX launcher's LM loop: ``requests`` batches of ``batch`` random
+    prompts (numpy seed 1), each prefilled and decoded greedily (argmax) to
+    ``gen_len`` tokens, on the reduced config (prompts of LM_PROMPT tokens,
+    ``batch`` 4 by default). ``shape`` runs the full config with prompts of
+    the cell's length instead, its global batch cut to ``batch`` (1 by
+    default), and prints the cell's metric a request: the prefill's ms and
+    tokens/s (``prefill_32k``) or the decode's ms a token and tokens/s at
+    that context (``decode_32k``); the reduced run prints both. The cache
+    holds the prompt and the generated tokens. → {"tokens" (each request's
+    i64[batch, gen_len] as numpy), "prefill_ms", "decode_ms" (each
+    request's prefill, and its decode a token; host clock, synchronised on
+    a card), "cache_bytes", "cfg", "params", and the last request's
+    "cache" and "logits" (one more decode step fits the cache)}."""
+    import torch
+    from ..configs import get_arch
+    from ..device import resolve_device
+    from ..models.transformer import (init_params, make_decode_step,
+                                      make_prefill)
+    dev = resolve_device(device)
+    entry = get_arch(arch)
+    if shape is None:
+        cfg, batch, prompt, kind = (entry.config(reduced=True), batch or 4,
+                                    LM_PROMPT, None)
+    else:
+        spec = entry.shape(shape)
+        cfg, batch, prompt, kind = (entry.config(), batch or 1,
+                                    spec.params["seq_len"], spec.kind)
+        log(f"[serve] {cfg.name} at {shape}: batch {batch} x prompt {prompt}"
+            f" + {gen_len} generated; cut: global batch "
+            f"{spec.params['global_batch']} -> {batch}")
+
+    def clock():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    params = init_params(cfg, 0, device=dev)
+    prefill = make_prefill(cfg, max_len=prompt + gen_len)
+    decode = make_decode_step(cfg)
+    rng = np.random.default_rng(1)
+    out = dict(tokens=[], prefill_ms=[], decode_ms=[], cfg=cfg,
+               params=params)
+    for r in range(requests):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
+                                ).to(dev)
+        t0 = clock()
+        cache, logits = prefill(params, toks)
+        t1 = clock()
+        gen = [torch.argmax(logits, -1)]
+        for _ in range(gen_len - 1):
+            cache, logits = decode(params, cache, gen[-1])
+            gen.append(torch.argmax(logits, -1))
+        t2 = clock()
+        pre_ms = (t1 - t0) * 1e3
+        dec_ms = ((t2 - t1) * 1e3 / (gen_len - 1) if gen_len > 1
+                  else float("nan"))
+        toks_out = torch.stack(gen, 1).cpu().numpy()
+        metric = dict(
+            prefill=f"prefill {pre_ms:.1f} ms, "
+                    f"{batch * prompt / pre_ms * 1e3:.0f} tokens/s",
+            decode=f"decode {dec_ms:.2f} ms a token, "
+                   f"{batch / dec_ms * 1e3:.0f} tokens/s at context {prompt}")
+        log(f"[serve] req {r}: generated {toks_out.shape} in {t2 - t0:.2f}s "
+            f"({metric[kind] if kind else '; '.join(metric.values())}); "
+            f"sample={toks_out[0].tolist()}")
+        out["tokens"].append(toks_out)
+        out["prefill_ms"].append(pre_ms)
+        out["decode_ms"].append(dec_ms)
+    out.update(cache=cache, logits=logits,
+               cache_bytes=sum(cache[k].numel() * cache[k].element_size()
+                               for k in ("k", "v", "pos")))
+    return out
+
+
+def main(argv=None):
+    from ..configs import ARCHS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True, choices=("psi-score",),
-                    help="model family; this package serves psi-score")
+    ap.add_argument("--arch", required=True,
+                    choices=[a for a, e in ARCHS.items()
+                             if e.family in ("psi", "lm")],
+                    help="psi-score, or an LM arch (prefill + greedy decode)")
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="users a request (psi-score, default 4); prompts a "
+                         "request (LM: 4 reduced, 1 with --shape)")
+    ap.add_argument("--gen-len", type=int, default=8,
+                    help="LM: tokens generated a request")
+    ap.add_argument("--shape", default=None,
+                    choices=("prefill_32k", "decode_32k"),
+                    help="LM: the full config with prompts of this "
+                         "cell's length, printing its metric (prefill or "
+                         "decode time)")
     ap.add_argument("--top-k", type=int, default=3)
     ap.add_argument("--backend", default=None,
                     help="ψ solver backend: reference (default) | cuda "
@@ -631,6 +743,11 @@ def main(argv=None) -> None:
                          "stream to this path (+ hotspot/critical-path "
                          "epilogue)")
     args = ap.parse_args(argv)
+    if ARCHS[args.arch].family == "lm":
+        return serve_lm(args.arch, args.requests, args.device,
+                        shape=args.shape, batch=args.batch,
+                        gen_len=args.gen_len)
+    args.batch = args.batch or 4
     if args.explain_out:
         args.explain = True
     args._svc = None

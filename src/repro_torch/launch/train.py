@@ -1,4 +1,4 @@
-"""Training launcher: ``--arch <gnn arch>`` → a GNN train loop.
+"""Training launcher: ``--arch <gnn or lm arch>`` → a train loop.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch pna --reduced --device cpu
@@ -6,6 +6,26 @@
         --arch graphsage-reddit --shape minibatch_lg --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch equiformer-v2 --shape molecule --steps 5
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch tinyllama-1.1b --reduced --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch tinyllama-1.1b --shape train_4k --steps 5
+
+The LM branch of the JAX package's trainer for ``tinyllama-1.1b``,
+``yi-9b``, ``nemotron-4-340b``, ``mixtral-8x22b`` and ``mixtral-8x7b``
+(:func:`train_lm`): ``TokenPipeline`` batches (seed 0, ``--batch`` ×
+``--seq``), the config's optimizer (``adamw`` or ``adafactor``) over
+``cosine_schedule(3e-3, steps, max(1, steps // 10))``, ``cfg.accum_steps``
+microbatches a step, ``--ckpt-dir``/``--ckpt-every``/``--resume`` through
+``ckpt/`` (the state saved as ``dict(p=params, o=opt_state)`` in the JAX
+tree layout, so either package resumes the other's run) and the straggler
+flag. ``--reduced`` (the default) runs the reduced config at ``--batch 8
+--seq 64``; ``--shape train_4k`` runs the full config at the cell's sequence
+length, its global batch of 256 cut to ``--batch`` (8 by default), with the
+JAX package's LM cells' ``cosine_schedule(3e-4, 10_000, 200)``
+(``launch/specs.py``; the reduced run's 3e-3 diverges at full width), and
+prints the cuts.
 
 The GNN branch of the JAX package's trainer for ``graphsage-reddit``,
 ``pna``, ``nequip`` and ``equiformer-v2``, in two modes:
@@ -55,14 +75,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ckpt import checkpoint
 from ..configs import get_arch
+from ..data import TokenPipeline
 from ..device import resolve_device
 from ..graphs import Graph, erdos_renyi
 from ..graphs.sampler import fanout_sample
 from ..models.gnn import sage
 from ..models.gnn.common import (EdgeAgg, GraphBatch, batch_from_graph,
                                  edge_agg, pad_graph_batch, tensors_to)
-from ..train.optim import adamw, cosine_schedule, tree_leaves, tree_map
+from ..models import transformer
+from ..train.optim import (adafactor, adamw, cosine_schedule, tree_leaves,
+                           tree_map)
 from .specs import _GEOMETRIC, _GNN_MODS, _gnn_cfg_for, _gnn_shape_dims
 
 REDDIT_NODES = 232_965
@@ -381,16 +405,132 @@ def train_full_batch(arch: str, shape: str, steps: int, device, *,
     return out
 
 
+# --------------------------------------------------------------------- #
+# The LM family
+# --------------------------------------------------------------------- #
+# the JAX package's schedule for the LM cells (launch/specs.py, _opt_for)
+LM_CELL_SCHEDULE = (3e-4, 10_000, 200)
+
+
+def lm_cell(arch: str, shape: str | None = None, *, batch: int | None = None,
+            seq: int | None = None):
+    """(config, batch, seq, cuts) of ``arch``: the reduced config at batch
+    8 × seq 64 when ``shape`` is None, else the full config at the train
+    cell's sequence length and batch 8, each overridden by ``batch`` /
+    ``seq``; ``cuts`` lists what differs from the cell."""
+    entry = get_arch(arch)
+    if shape is None:
+        return entry.config(reduced=True), batch or 8, seq or 64, []
+    spec = entry.shape(shape)
+    if spec.kind != "train":
+        raise SystemExit(f"--shape {shape} is a {spec.kind} cell; serve it "
+                         "with repro_torch.launch.serve")
+    full_batch, full_seq = spec.params["global_batch"], spec.params["seq_len"]
+    batch, seq = batch or 8, seq or full_seq
+    cuts = [f"{name} {full} -> {val}" for name, full, val in (
+        ("global batch", full_batch, batch), ("seq", full_seq, seq))
+        if full != val]
+    return entry.config(), batch, seq, cuts
+
+
+def _load_tree(template, restored):
+    """``restored`` (``checkpoint.restore``'s numpy leaves and bfloat16
+    tensors) written into ``template``'s tensors in place; a non-tensor
+    leaf (an optimizer's step count) becomes an int."""
+    if isinstance(template, dict):
+        return {k: _load_tree(v, restored[k]) for k, v in template.items()}
+    if isinstance(template, torch.Tensor):
+        with torch.no_grad():
+            template.copy_(torch.as_tensor(restored))
+        return template
+    return int(restored)
+
+
+def train_lm(arch: str, steps: int, device, *, shape: str | None = None,
+             batch: int | None = None, seq: int | None = None,
+             ckpt_dir: str | None = None, ckpt_every: int = 10,
+             resume: bool = False, params: dict | None = None,
+             log=print) -> dict:
+    """``steps`` steps of the LM ``arch`` (:func:`lm_cell` picks the config
+    and sizes), as the JAX package's trainer runs them. ``params`` (e.g.
+    the JAX package's, converted) replaces the seeded init. → {"losses",
+    "step_ms" (a step's host ms to the loss, CUDA events on a card),
+    "params", "state", "cfg", "tokens" (a step's)}."""
+    dev = resolve_device(device)
+    cfg, batch, seq, cuts = lm_cell(arch, shape, batch=batch, seq=seq)
+    if batch % cfg.accum_steps:
+        raise SystemExit(f"--batch {batch} does not split into "
+                         f"{cfg.accum_steps} microbatches")
+    if shape is not None:
+        log(f"[train] {cfg.name} at {shape}: batch {batch} x seq {seq}, "
+            f"{cfg.accum_steps} microbatches a step; cut: "
+            f"{'; '.join(cuts) or 'nothing'}")
+    if params is None:
+        params = transformer.init_params(cfg, 0, device=dev)
+    sched = (cosine_schedule(3e-3, steps, max(1, steps // 10))
+             if shape is None else cosine_schedule(*LM_CELL_SCHEDULE))
+    opt = (adafactor if cfg.optimizer == "adafactor" else adamw)(sched)
+    state = opt.init(params)
+    step_fn = transformer.make_train_step(cfg, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                         seed=0)
+    start = (checkpoint.latest_step(ckpt_dir) if resume and ckpt_dir
+             else None) or 0
+    if start:
+        data = checkpoint.restore(ckpt_dir, start, dict(p=params, o=state))
+        params = _load_tree(params, data["p"])
+        state = _load_tree(state, data["o"])
+        log(f"[train] resumed at step {start}")
+    out = dict(losses=[], step_ms=[], cfg=cfg, tokens=batch * seq)
+    durations = []
+    for step in range(start, steps):
+        b = {k: torch.from_numpy(v).to(dev, torch.long)
+             for k, v in pipe.batch(step).items()}
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        params, state, loss = step_fn(params, state, b)
+        loss = float(loss)
+        dt = time.perf_counter() - t0
+        if dev.type == "cuda":
+            ev[1].record()
+            ev[1].synchronize()
+        ms = ev[0].elapsed_time(ev[1]) if dev.type == "cuda" else dt * 1e3
+        if durations and dt > 3.0 * float(np.median(durations)):
+            log(f"[train] straggler flag at step {step}: "
+                f"{dt:.2f}s vs median {np.median(durations):.2f}s")
+        durations.append(dt)
+        out["step_ms"].append(ms)
+        out["losses"].append(loss)
+        log(f"[train] step {step} loss {loss:.4f} ({dt:.2f}s"
+            + (f"; {ms:.1f} ms by events, {batch * seq / ms * 1e3:.0f} "
+               "tokens/s)" if dev.type == "cuda" else ")"))
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            checkpoint.save(ckpt_dir, step + 1, dict(p=params, o=state))
+    out.update(params=params, state=state)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
-                    help="CPU-sized config, full batch (the default)")
+                    help="CPU-sized config (the default)")
     ap.add_argument("--shape", default=None,
-                    choices=("minibatch_lg", "full_graph_sm", "molecule",
-                             "ogb_products"),
-                    help="run the full-width cell of this shape instead")
+                    help="run the full-width cell of this shape instead: "
+                         "minibatch_lg, full_graph_sm, molecule or "
+                         "ogb_products (GNN), train_4k (LM)")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="LM: sequences a step (default 8)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="LM: tokens a sequence (default 64 reduced, the "
+                         "cell's with --shape)")
+    ap.add_argument("--ckpt-dir", default=None, help="LM: checkpoint dir")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true",
+                    help="LM: resume from the newest step in --ckpt-dir")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -398,11 +538,21 @@ def main(argv=None):
         entry = get_arch(args.arch)
     except KeyError as exc:
         raise SystemExit(f"--arch {args.arch}: {exc.args[0]}") from None
-    if entry.family != "gnn":
+    if entry.family == "psi":
         raise SystemExit(f"--arch {args.arch}: the psi family serves; use "
                          "repro_torch.launch.serve")
     if args.reduced and args.shape:
         raise SystemExit("--reduced and --shape exclude each other")
+    if args.shape:
+        try:
+            entry.shape(args.shape)
+        except KeyError as exc:
+            raise SystemExit(f"--shape {args.shape}: {exc.args[0]}") from None
+    if entry.family == "lm":
+        return train_lm(args.arch, args.steps, args.device, shape=args.shape,
+                        batch=args.batch, seq=args.seq,
+                        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                        resume=args.resume)
     if args.shape == "minibatch_lg":
         return train_minibatch(args.steps, args.device, arch=args.arch)
     if args.shape:

@@ -1,1 +1,1 @@
-"""Model zoo of the port: so far the GNN family's GraphSAGE."""
+"""Model zoo of the port: the GNN family and the LM family."""

@@ -320,8 +320,8 @@ def test_registry_and_cell_dims_match_jax():
         "graphsage-reddit", j_cfg, 169_984, 169_984)
     assert get_arch("psi-score").config().dataset == "twitter"
     assert get_arch("pna").family == "gnn"
-    with pytest.raises(KeyError, match='"The LM family"'):
-        get_arch("tinyllama-1.1b")
+    with pytest.raises(KeyError, match='"The recsys family"'):
+        get_arch("mind")
 
 
 def test_unported_archs_name_their_roadmap_item_by_title():
@@ -361,8 +361,8 @@ def test_train_cli_on_cpu_and_refusals(capsys):
     out = capsys.readouterr().out
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert out.count("[train] step") == 3
-    with pytest.raises(SystemExit, match='"The LM family"'):
-        train.main(["--arch", "tinyllama-1.1b", "--device", "cpu"])
+    with pytest.raises(SystemExit, match='"The recsys family"'):
+        train.main(["--arch", "mind", "--device", "cpu"])
     with pytest.raises(SystemExit, match="launch.serve"):
         train.main(["--arch", "psi-score", "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -59,6 +59,12 @@ SLICE_MODULES = [
     "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.equiformer_v2",
     "repro_torch.models.gnn.sharded_mp", "repro_torch.configs.pna",
     "repro_torch.configs.nequip", "repro_torch.configs.equiformer_v2",
+    "repro_torch.models.transformer",
+    "repro_torch.models.transformer.attention",
+    "repro_torch.models.transformer.model", "repro_torch.data",
+    "repro_torch.data.tokens", "repro_torch.configs.tinyllama_1_1b",
+    "repro_torch.configs.yi_9b", "repro_torch.configs.nemotron_4_340b",
+    "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.mixtral_8x22b",
 ]
 
 
