@@ -78,7 +78,7 @@ on the first check that does not hold:
    beside as many single-lane launches, their bound, the plain version and
    a block-diagonal ``torch.sparse.mm``.
 
-Six more main paths run after the fleet, before the times:
+Seven more main paths run after the fleet, before the times:
 
 * ``paper``: the paper's comparison (Exp. 1-2) on the DBLP stand-in at
   float64: Power-ψ through the ``cuda`` engine (``power_step``), Power-NF
@@ -172,6 +172,21 @@ Six more main paths run after the fleet, before the times:
   ``mixtral-8x22b`` at full width, 1 layer each: a bf16 prefill of 1 × 512
   and one decode step (finite logits, peak memory).
 
+* ``recsys``: MIND (the recsys family) at the JAX config's full width
+  (4,194,304 × 64 item table, 131,072 × 64 profile table, 4 interests, 3
+  routing iterations, history 50, 8 tags a user, 1,024 negatives), every
+  profile bag summed by ``seg_mm``. (a) ``repro_torch.launch.train --arch
+  mind --shape train_batch --steps 5`` (65,536 users a step, AdamW; every
+  loss finite; the median step by CUDA events, users/s, peak memory, one
+  more step under the profiler). (b) One step on the first 4,096 users of
+  its last batch at f32 against f64 on the card (loss rel ≤ 1e-5, every
+  gradient leaf rel L2 ≤ 1e-4, ``b_init``'s gradient 0). (c) 10 steps on
+  that slice at a constant 1e-2: the loss must fall. (d) ``serve --shape
+  serve_p99`` and ``serve_bulk`` (512 and 262,144 users): the interests of
+  the first 512 users within 1e-5 of f64. (e) ``serve --shape
+  retrieval_cand``: 10⁶ candidates scored, held against the max of the
+  per-interest products (1e-5), the top-5 against a sort.
+
 Their exact solves (``exact_psi``, a host sparse LU of tens of seconds
 each) run in three worker processes from the start of the run, which the
 script ends before it exits.
@@ -182,7 +197,10 @@ without the layout's tile spans, on the trainer's format at the
 ``minibatch_lg`` shape (as built, with padding blocks, with its slots
 shuffled within each tile), on a tile with only padding blocks and a tile
 with none, and on the ``full_graph_sm`` and ``molecule`` formats at d = 75,
-32, 96, 160 and 6,272; its backward against the plain gather.
+32, 96, 160 and 6,272, and on the recsys path's profile bags (the
+``train_batch`` cell's 524,288 ids, sentinel ids, empty bags) at d = 64;
+its backward against the plain gather. Phase 9 times the bag sum there
+(the gather and ``seg_mm``) beside ``torch.nn.functional.embedding_bag``.
 
 * ``gnn_families`` (after ``gnn_train``): PNA, NequIP and EquiformerV2
   at full width through ``repro_torch.launch.train`` — ``--arch pna
@@ -201,7 +219,7 @@ with none, and on the ``full_graph_sm`` and ``molecule`` formats at d = 75,
   peak memory.
 
 Phases 3 to 8, ``gnn_families``, ``paper``, ``push``, ``stream``,
-``driver``, ``chaos`` and ``lm``
+``driver``, ``chaos``, ``lm`` and ``recsys``
 are the main paths (the auto phase is two: model-only and microbench): every
 launch
 counter is set to 0 just before each path and read just after, and each
@@ -385,6 +403,35 @@ MOE_FORWARD = 10752
 MOE_TRAIN_SEQ = 2048
 LM_WIDE_ARCHS = ("yi-9b", "nemotron-4-340b", "mixtral-8x22b")
 LM_WIDE_PROMPT = 512
+
+# The recsys path (phase_recsys), MIND at the JAX config's full width. (a)
+# the trainer CLI at train_batch for RECSYS_CLI_STEPS steps; (b) one step on
+# the first RECSYS_SLICE users of its last batch at f32 against f64 on the
+# card (loss rel RECSYS_LOSS_RTOL, each gradient leaf rel L2
+# RECSYS_GRAD_REL_L2: GraphSAGE's limits); (c) RECSYS_FIXED_STEPS steps on
+# that slice at a constant RECSYS_FIXED_LR (the loss must fall); (d) the
+# serve CLI at serve_p99 and serve_bulk (RECSYS_SERVE_REQUESTS requests
+# each), the interests of the first RECSYS_CHECK_USERS users against f64
+# within RECSYS_INTEREST_TOL (max abs); (e) retrieval_cand: the scores
+# against the max of the per-interest products (RECSYS_SCORE_TOL, rtol and
+# atol: the JAX test's) and the top-5 against a sort. Phase 2 holds seg_mm
+# bitwise on the profile bags' layout at d = RECSYS_BAG_D (the train_batch
+# cell's 65,536 users x 8 tags over the 131,072-row table, one id in
+# RECSYS_BAG_SENTINEL_EVERY the sentinel and every RECSYS_BAG_EMPTY_EVERY-th
+# user's bag all sentinels); phase 9 times the bag sum on it.
+RECSYS_CLI_STEPS = 5
+RECSYS_SLICE = 4096
+RECSYS_FIXED_STEPS = 10
+RECSYS_FIXED_LR = 1e-2
+RECSYS_LOSS_RTOL = 1e-5
+RECSYS_GRAD_REL_L2 = 1e-4
+RECSYS_SERVE_REQUESTS = 5
+RECSYS_CHECK_USERS = 512
+RECSYS_INTEREST_TOL = 1e-5
+RECSYS_SCORE_TOL = 1e-5
+RECSYS_BAG_D = 64
+RECSYS_BAG_SENTINEL_EVERY = 16
+RECSYS_BAG_EMPTY_EVERY = 97
 
 
 class SmokeFailure(Exception):
@@ -950,6 +997,37 @@ def _seg_mm_variants(report) -> dict:
     return out
 
 
+def recsys_bag_case() -> tuple:
+    """The train_batch cell's profile bags on the host: (ids, bag_ids,
+    n_bags, vocab) for its 65,536 users x 8 tags over the 131,072-row
+    profile table (numpy seed 11), one id in RECSYS_BAG_SENTINEL_EVERY the
+    sentinel and every RECSYS_BAG_EMPTY_EVERY-th user's bag all sentinels
+    (an empty bag of the layout)."""
+    from repro_torch.configs import get_arch
+    entry = get_arch("mind")
+    cfg = entry.config()
+    users = entry.shape("train_batch").params["batch"]
+    bags = np.repeat(np.arange(users), cfg.profile_tags)
+    ids = np.random.default_rng(11).integers(0, cfg.n_profile, bags.size)
+    ids[::RECSYS_BAG_SENTINEL_EVERY] = cfg.n_profile
+    ids[bags % RECSYS_BAG_EMPTY_EVERY == 0] = cfg.n_profile
+    return ids, bags, users, cfg.n_profile
+
+
+def _bag_seg_mm_layout(ids, bags, n_bags, vocab) -> tuple:
+    """The bag layout of :func:`recsys_bag_case` as a seg_mm layout tuple:
+    each real slot's source a row below ``n_bags`` (its id mod n_bags), the
+    padding slots' the sentinel ``n_bags``."""
+    from repro_torch.models.recsys.embedding import bag_layout
+    lay = bag_layout(ids, bags, n_bags, vocab, device="cpu")
+    fmt = lay.fmt
+    eblk = fmt.e1 * fmt.e2
+    src = np.full(lay.num_slots, n_bags, np.int32)
+    src[lay.slots.numpy()] = ids[lay.edge_ids.numpy()] % n_bags
+    return (src.reshape(-1, eblk), fmt.dst_local.numpy().reshape(-1, eblk),
+            fmt.block_tile.numpy(), fmt.num_tiles, n_bags)
+
+
 def _seg_mm_args(layout, d, dtype, gen):
     """seg_mm_call's inputs on the card: random rows x[n + 1, d] (the
     sentinel row n zero) gathered into the layout, and the int32 arrays."""
@@ -975,22 +1053,27 @@ def seg_mm_cases(report: dict) -> None:
     on every layout of :func:`_seg_mm_variants` at the GraphSAGE cell's d =
     8, 128, 602 and the other families' 75 (PNA) and 32, 96, 160 (NequIP's
     (2l+1)·32), and on the families' own formats at 75, 32, 96, 160 and
-    6,272 (EquiformerV2's 49·128); then the backward against the plain
-    gather."""
+    6,272 (EquiformerV2's 49·128), and on the recsys path's profile bags
+    (:func:`recsys_bag_case`: sentinel ids, empty bags) at d =
+    RECSYS_BAG_D; then the backward against the plain gather."""
     import torch
     from repro_torch.kernels.formats import tile_spans
     from repro_torch.kernels.seg_mm import SegMM, seg_mm_call, seg_mm_plain
     from repro_torch.models.gnn.common import DEFAULT_TILES
     tile = DEFAULT_TILES[0]
     layouts = _seg_mm_variants(report)
+    report["bag_case"] = recsys_bag_case()
+    layouts["profile bags"] = _bag_seg_mm_layout(*report["bag_case"])
     gen = torch.Generator("cuda").manual_seed(0)
     errs = report["max_abs_err"]
     n_cases = 0
     for name, layout in layouts.items():
+        t_layout = time.perf_counter()
         src, _, bt, num_tiles, n = layout
         span = torch.as_tensor(tile_spans(src, n, bt, num_tiles),
                                device="cuda")
-        widths = (SEG_MM_FAMILY_WIDTHS if name in SEG_MM_FAMILY_LAYOUTS
+        widths = ((RECSYS_BAG_D,) if name == "profile bags" else
+                  SEG_MM_FAMILY_WIDTHS if name in SEG_MM_FAMILY_LAYOUTS
                   else SEG_MM_WIDTHS)
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).removeprefix("torch.")
@@ -1019,13 +1102,15 @@ def seg_mm_cases(report: dict) -> None:
                     errs["seg_mm" if d == 602 else "seg_mm_d128"] = err
                 if name == "molecule" and dname == "float32" and d == 6272:
                     errs["seg_mm_d6272"] = err
+                if name == "profile bags" and dname == "float32":
+                    errs["seg_mm_d64"] = err
                 n_cases += 1
                 del args, o1, o2, o3, host, op
         say(f"seg_mm {name:18s}: {layout[0].shape[0]} blocks, {layout[3]} "
             f"tiles, {int(span.sum())} slots in the tile spans of "
             f"{src.size}; f32/f64 x d {'/'.join(map(str, widths))} bitwise "
             f"equal to the plain version, with and without the span, and "
-            f"run to run")
+            f"run to run ({time.perf_counter() - t_layout:.1f} s)")
     # the backward: dM = dY at each slot's row, against the plain gather
     args = _seg_mm_args(layouts["minibatch+pad"], 128, torch.float32, gen)
     msgs = args[0].clone().requires_grad_()
@@ -3559,6 +3644,188 @@ def phase_lm(report: dict) -> None:
     report["lm"] = out
 
 
+# --------------------------------------------------------------------- #
+# The recsys family: MIND training, serving and retrieval at full width
+# --------------------------------------------------------------------- #
+def _tensor_rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp(min=1e-300))
+
+
+def recsys_train(out: dict, dev: str = "cuda") -> None:
+    """(a) ``repro_torch.launch.train --arch mind --shape train_batch`` for
+    RECSYS_CLI_STEPS steps (every loss finite; the median step of 2 on),
+    then one more step of the run under the profiler. (b) One step on the
+    first RECSYS_SLICE users of the run's last batch at f32 against f64 on
+    the card, both through seg_mm: loss rel RECSYS_LOSS_RTOL, each gradient
+    leaf rel L2 RECSYS_GRAD_REL_L2, ``b_init``'s gradient 0. (c)
+    RECSYS_FIXED_STEPS steps on that slice at a constant RECSYS_FIXED_LR:
+    the loss must fall."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.seg_mm import seg_mm_call
+    from repro_torch.launch import train
+    from repro_torch.models.recsys import mind
+    from repro_torch.train.optim import adamw, constant_schedule
+    _free()
+    run = train.main(["--arch", "mind", "--shape", "train_batch", "--steps",
+                      str(RECSYS_CLI_STEPS), "--device", dev])
+    check(all(np.isfinite(run["losses"])),
+          f"recsys train_batch: a loss is not finite: {run['losses']}")
+    cfg, users = run["cfg"], run["users"]
+    ms = float(np.median(run["step_ms"][1:]))
+    peak = _peak_gib()
+    params, state, batch = run["params"], run["state"], run["batch"]
+    before = seg_mm_call.launches
+    busy, share = profile_run("recsys train_batch step", lambda: float(
+        train.recsys_step(params, state, batch, cfg, run["opt"])[2]),
+        kernel="seg_mm")
+    check(seg_mm_call.launches > before, "recsys: the profiled step "
+          "launched no seg_mm")
+    out["train_batch"] = dict(losses=run["losses"], step_ms=ms,
+                              users_s=users / ms * 1e3, busy=busy,
+                              seg_mm_share=share, peak_gib=peak,
+                              per_step=(seg_mm_call.launches - before))
+    say(f"recsys train_batch (CLI): {users} users a step, median step "
+        f"{ms:.1f} ms ({users / ms * 1e3:.0f} users/s), busy "
+        f"{(busy or 0):.1%}, seg_mm {(share or 0):.2%} of device time, "
+        f"peak {peak:.2f} GiB; losses {run['losses']}")
+    host = train.slice_users(run["host"], 0, RECSYS_SLICE)
+    del run, params, state, batch
+    _free()
+
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    p32 = mind.init_params(cfg, 1, device=dev)
+    p64 = {k: v.detach().double().requires_grad_() for k, v in p32.items()}
+    b = train.recsys_device_batch(host, cfg, dev)
+    l32, g32 = mind.loss_and_grads(p32, b, cfg)
+    l64, g64 = mind.loss_and_grads(p64, b, cfg64)
+    loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    rels = {k: _tensor_rel_l2(g32[k], g64[k]) for k in g32
+            if k != "b_init"}
+    check(not g32["b_init"].any() and not g64["b_init"].any(),
+          "recsys: b_init has a gradient")
+    out.update(f64_loss_rel=loss_rel, f64_grad_rel=max(rels.values()))
+    say(f"recsys f32 step vs f64 ({RECSYS_SLICE} users, full tables): loss "
+        f"{float(l32):.6f} vs {float(l64):.6f} (rel {loss_rel:.2e}); "
+        f"gradient rel L2 {', '.join(f'{k} {v:.2e}' for k, v in rels.items())}"
+        f"; b_init 0")
+    check(loss_rel <= RECSYS_LOSS_RTOL, f"recsys f32 loss vs f64: "
+          f"{loss_rel:.3e}")
+    check(max(rels.values()) <= RECSYS_GRAD_REL_L2,
+          f"recsys f32 grads vs f64: {rels}")
+    del p64, g32, g64
+    _free()
+
+    opt = adamw(constant_schedule(RECSYS_FIXED_LR))
+    state = opt.init(p32)
+    losses, times = [], []
+
+    def one():
+        nonlocal p32, state
+        p32, state, loss = train.recsys_step(p32, state, b, cfg, opt)
+        losses.append(float(loss))
+
+    for _ in range(RECSYS_FIXED_STEPS):
+        times.append(_timed(one)[1])
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"recsys fixed batch: the loss did not fall: {losses}")
+    out["fixed"] = dict(losses=losses, step_ms=float(np.median(times[1:])))
+    say(f"recsys fixed batch ({RECSYS_SLICE} users, lr {RECSYS_FIXED_LR}): "
+        f"losses {[round(x, 4) for x in losses]}; step "
+        f"{out['fixed']['step_ms']:.1f} ms")
+    del p32, state, opt, b
+    _free()
+
+
+def _interests_f64(run, users, cfg) -> object:
+    """The f64 interests of the first ``users`` users of a serve run's last
+    batch, from its parameters cast to f64 on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.models.recsys import mind
+    b = run["batch"]
+    p64 = _cast(run["params"], torch.float64)
+    n = int(torch.searchsorted(b["profile_bags"], torch.tensor(
+        users, device=b["profile_bags"].device)))
+    with torch.no_grad():
+        return mind.user_interests(
+            p64, b["hist_ids"][:users], b["hist_mask"][:users],
+            b["profile_ids"][:n], b["profile_bags"][:n],
+            dataclasses.replace(cfg, dtype=torch.float64))
+
+
+def recsys_serve(out: dict, dev: str = "cuda") -> None:
+    """(d) ``repro_torch.launch.serve --arch mind --shape serve_p99`` and
+    ``serve_bulk`` (RECSYS_SERVE_REQUESTS requests each): the first
+    RECSYS_CHECK_USERS users' interests against f64 (max abs
+    RECSYS_INTEREST_TOL). (e) ``--shape retrieval_cand``: the scores of the
+    10⁶ candidates against the max of the per-interest products and the
+    top-5 against a sort."""
+    import torch
+    from repro_torch.launch import serve
+    for shape in ("serve_p99", "serve_bulk"):
+        _free()
+        run = serve.main(["--arch", "mind", "--shape", shape, "--requests",
+                          str(RECSYS_SERVE_REQUESTS), "--device", dev])
+        peak = _peak_gib()
+        u = run["interests"]
+        check(bool(torch.isfinite(u).all()) and u.shape == (
+            run["users"], run["cfg"].n_interests, run["cfg"].embed_dim),
+            f"recsys {shape}: interests {tuple(u.shape)} not finite")
+        err = float((u[:RECSYS_CHECK_USERS].double() - _interests_f64(
+            run, RECSYS_CHECK_USERS, run["cfg"])).abs().max())
+        ms = float(np.median(run["ms"][1:]))
+        out[shape] = dict(ms=ms, max_ms=max(run["ms"][1:]),
+                          users_s=run["users"] / ms * 1e3,
+                          prep_ms=float(np.median(run["prep_ms"][1:])),
+                          f64_err=err, peak_gib=peak)
+        say(f"recsys {shape} (serve CLI): {run['users']} users, interests "
+            f"median {ms:.3f} ms (max {out[shape]['max_ms']:.3f}; "
+            f"{out[shape]['users_s']:.0f} users/s), batch prepared in "
+            f"{out[shape]['prep_ms']:.1f} ms, peak {peak:.2f} GiB; "
+            f"{RECSYS_CHECK_USERS} users vs f64 max abs err {err:.2e}")
+        check(err <= RECSYS_INTEREST_TOL, f"recsys {shape}: interests vs "
+              f"f64 {err:.3e}")
+        del run, u
+    _free()
+    run = serve.main(["--arch", "mind", "--shape", "retrieval_cand",
+                      "--requests", str(RECSYS_SERVE_REQUESTS), "--device",
+                      dev])
+    scores, u = run["scores"], run["interests"][0]
+    with torch.no_grad():
+        per = run["params"]["item_emb"].index_select(
+            0, run["cand_ids"]) @ u.T
+    want = per.amax(dim=-1)
+    err = float((scores - want).abs().max())
+    _compare("recsys retrieval_cand scores", scores, want, RECSYS_SCORE_TOL,
+             RECSYS_SCORE_TOL)
+    best = torch.sort(scores, descending=True).values[:5]
+    check(torch.equal(scores[torch.as_tensor(run["top"], device=dev)], best),
+          "recsys retrieval_cand: the top-5 differs from a sort")
+    ms = float(np.median(run["ms"][1:]))
+    out["retrieval_cand"] = dict(ms=ms, max_ms=max(run["ms"][1:]),
+                                 err=err)
+    say(f"recsys retrieval_cand (serve CLI): {scores.numel()} candidates "
+        f"scored in {ms:.3f} ms median (max {max(run['ms'][1:]):.3f}); "
+        f"max abs err vs the per-interest max {err:.2e}; top-5 "
+        f"{run['top'].tolist()} as a sort")
+    del run, scores, per, want
+    _free()
+
+
+def phase_recsys(report: dict) -> None:
+    """The recsys family on the card: :func:`recsys_train`,
+    :func:`recsys_serve`; every bag sum through ``seg_mm``."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    recsys_train(out)
+    recsys_serve(out)
+    out["path_s"] = time.perf_counter() - t0
+    say(f"recsys: path {out['path_s']:.1f} s")
+    report["recsys"] = out
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -3844,7 +4111,7 @@ def seg_mm_times(report: dict) -> list[dict]:
     gen = torch.Generator("cuda").manual_seed(3)
     rows = []
     launches = {k: report["launches"][k]["seg_mm"]
-                for k in ("gnn_train", "gnn_families")}
+                for k in ("gnn_train", "gnn_families", "recsys")}
     # the GraphSAGE cell's two layers, then EquiformerV2's aggregation
     for d, b in ((602, batch), (128, batch),
                  (6272, report.pop("gnn_families_batch"))):
@@ -3936,6 +4203,7 @@ def seg_mm_times(report: dict) -> list[dict]:
     del x
     report["seg_mm_ms"] = {r["d"]: r["ms"] for r in rows}
     report["seg_mm_device_ms"] = {r["d"]: r["device_ms"] for r in rows}
+    rows.append(recsys_bag_times(report, launches))
     # the train step (fixed minibatch, full width) under the profiler
     torch.cuda.synchronize()
     walls = []
@@ -3949,6 +4217,88 @@ def seg_mm_times(report: dict) -> list[dict]:
     report["gnn_busy"], _ = profile_run("gnn train step", lambda: float(
         train.train_step(params, state, batch, cfg, opt)[2]))
     return rows
+
+
+def recsys_bag_times(report: dict, launches: dict) -> dict:
+    """The recsys path's bag sum at the train_batch cell's profile layout
+    (:func:`recsys_bag_case`, 524,288 ids, f32, d = RECSYS_BAG_D): the
+    port's ``embedding_bag(mode="sum")`` (the rows gathered into the
+    layout's slots, then ``seg_mm``) beside ``seg_mm`` alone on those
+    slots, the same with the plain version, its bound and
+    ``torch.nn.functional.embedding_bag(mode="sum")`` on the valid ids."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.seg_mm import seg_mm_call, seg_mm_plain
+    from repro_torch.models.recsys.embedding import bag_layout, embedding_bag
+    t0 = time.perf_counter()
+    ids, bags, n_bags, vocab = report["bag_case"]
+    gen = torch.Generator("cuda").manual_seed(4)
+    d = RECSYS_BAG_D
+    table = torch.randn(vocab, d, generator=gen, device="cuda")
+    ids_t = torch.as_tensor(ids, device="cuda")
+    bags_t = torch.as_tensor(bags, device="cuda")
+    lay = bag_layout(ids, bags, n_bags, vocab, device="cuda")
+    fmt = lay.fmt
+    ms, dev_ms = both_ms(lambda: embedding_bag(
+        table, ids_t, bags_t, n_bags, mode="sum", layout=lay), 50)
+    rows = table.index_select(0, ids_t.index_select(0, lay.edge_ids))
+    msgs = rows.new_zeros(lay.num_slots, d).index_copy(0, lay.slots, rows)
+    msgs = msgs.reshape(fmt.src_idx.shape[0], -1, d)
+    kargs = (msgs, fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
+             fmt.tile_num_blocks)
+    k_ms, k_dev_ms = both_ms(lambda: seg_mm_call(
+        *kargs, tile=fmt.tile, tile_span=lay.tile_span), 50)
+
+    def plain():
+        r = table.index_select(0, ids_t.index_select(0, lay.edge_ids))
+        m = r.new_zeros(lay.num_slots, d).index_copy(0, lay.slots, r)
+        return seg_mm_plain(m.reshape(msgs.shape), fmt.dst_local,
+                            fmt.block_tile, tile=fmt.tile,
+                            num_tiles=fmt.num_tiles)[:n_bags]
+
+    plain_ms = time_ms(plain, 20)
+    valid = ids < vocab
+    lib_ids = torch.as_tensor(ids[valid], device="cuda")
+    offsets = torch.as_tensor(np.concatenate(
+        [[0], np.cumsum(np.bincount(bags[valid], minlength=n_bags))[:-1]]),
+        device="cuda")
+    lib_ms, lib_dev_ms = both_ms(lambda: F.embedding_bag(
+        lib_ids, table, offsets, mode="sum"), 50)
+    got = embedding_bag(table, ids_t, bags_t, n_bags, mode="sum", layout=lay)
+    lib = F.embedding_bag(lib_ids, table, offsets, mode="sum")
+    _compare("recsys bag sum vs F.embedding_bag", got, lib, 1e-5, 1e-6)
+    # the function's bytes, each input once: the ids (int64) and the bag
+    # offsets, the rows of the distinct valid ids, the output; one add per
+    # valid id and column
+    n_valid = int(valid.sum())
+    distinct = np.unique(ids[valid]).size
+    nbytes = 8 * ids.size + 8 * n_bags + 4 * d * (distinct + n_bags)
+    flops = n_valid * d
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+    report["recsys_bag"] = dict(ms=ms, device_ms=dev_ms, seg_mm_ms=k_ms,
+                                seg_mm_device_ms=k_dev_ms, plain_ms=plain_ms,
+                                bound_ms=bound, library_ms=lib_ms,
+                                library_device_ms=lib_dev_ms)
+    say(f"seg_mm on the profile bags (train_batch: {ids.size} ids, "
+        f"{n_valid} valid, {distinct} distinct, {n_bags} bags, d={d}, f32): "
+        f"the bag sum (gather + seg_mm) {ms:.4f} ms ({dev_ms:.4f} ms of "
+        f"device time), seg_mm alone {k_ms:.4f} ms ({k_dev_ms:.4f}), "
+        f"{report['recsys']['train_batch']['per_step']:g} launches a train "
+        f"step; bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+        f"plain {plain_ms:.4f} ms, F.embedding_bag(mode='sum') {lib_ms:.4f} "
+        f"ms ({lib_dev_ms:.4f} ms of device time); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(
+        name="seg_mm", d=d, route="cuda",
+        source="src/repro_torch/kernels/csrc/seg_mm.cu",
+        replaces="src/repro/kernels/seg_mm.py:43",
+        launches=sum(launches.values()), launches_by_path=launches,
+        max_abs_err=report["max_abs_err"]["seg_mm_d64"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= flops / F32_FLOP_PER_S else "operations"),
+        library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+        seg_mm_ms=k_ms, seg_mm_device_ms=k_dev_ms)
 
 
 def fleet_times(report: dict) -> list[dict]:
@@ -4188,7 +4538,12 @@ def summary(report: dict) -> str:
     oracle and chaos walls, overhead, MTTR, ladder deadline and restarts,
     the guard's rollback ms and the path's seconds; for the lm path its
     steps', prefills' and decodes' ms, tokens/s, busy shares, peaks, the
-    f32-vs-f64 and logit errors and the dropped tokens."""
+    f32-vs-f64 and logit errors and the dropped tokens; for the recsys
+    path its train step's ms, users/s, busy share, peak and losses, the
+    f32-vs-f64 errors, the fixed batch's losses, the serve cells' ms,
+    users/s and errors against f64, the retrieval's ms and error, and the
+    bag sum's ms beside seg_mm's, the plain version's, its bound and
+    F.embedding_bag's."""
     def g(x):
         return None if x is None else float(f"{x:.4g}")
     return json.dumps({
@@ -4278,12 +4633,14 @@ def summary(report: dict) -> str:
                   "rollback_ms": g(report["chaos"]["guard"]["rollback_s"]
                                    * 1e3),
                   "path_s": g(report["chaos"]["path_s"])},
-        "lm": _lm_summary(report["lm"], g)})
+        "lm": _lm_summary(report["lm"], g),
+        "recsys": _lm_summary(report["recsys"], g),
+        "recsys_bag_ms": _lm_summary(report["recsys_bag"], g)})
 
 
 def _lm_summary(lm: dict, g) -> dict:
-    """The lm path's numbers, rounded by ``g`` (lists of numbers and the
-    dropped-token counts kept as they are)."""
+    """The lm (or recsys) path's numbers, rounded by ``g`` (lists of
+    numbers rounded too; the dropped-token counts kept as they are)."""
     def r(v):
         if isinstance(v, dict):
             return {k: r(x) for k, x in v.items()}
@@ -4342,7 +4699,8 @@ def main() -> int:
              ("driver", phase_driver, ()),
              ("chaos", phase_chaos, ("power_step", "edge_spmv",
                                      "power_step_lanes", "edge_spmv_lanes")),
-             ("lm", phase_lm, ())]
+             ("lm", phase_lm, ()),
+             ("recsys", phase_recsys, ("seg_mm",))]
     pool = None
     try:
         phase_device(report)

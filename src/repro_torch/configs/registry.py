@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` → config + shapes + family glue.
 
-The JAX package's registry, with the archs this package runs: the paper's
-``psi-score``, the GNN family (``pna``, ``equiformer-v2``, ``nequip``,
-``graphsage-reddit``) and the LM family (``tinyllama-1.1b``, ``yi-9b``,
-``nemotron-4-340b``, ``mixtral-8x22b``, ``mixtral-8x7b``). The one other arch
-id of the JAX package, ``mind``, raises ``KeyError`` naming the ROADMAP item
-that brings it.
+The JAX package's registry, every arch of it: the paper's ``psi-score``,
+the GNN family (``pna``, ``equiformer-v2``, ``nequip``,
+``graphsage-reddit``), the LM family (``tinyllama-1.1b``, ``yi-9b``,
+``nemotron-4-340b``, ``mixtral-8x22b``, ``mixtral-8x7b``) and the recsys
+family (``mind``).
 ``reduced=True`` returns the CPU-smoke variant of the same family.
 """
 from __future__ import annotations
@@ -21,7 +20,8 @@ __all__ = ["ShapeCfg", "ArchEntry", "get_arch", "ARCHS"]
 class ShapeCfg:
     name: str
     kind: str                  # train | prefill | decode | full_graph |
-    #                            minibatch | molecule | psi_iterate
+    #                            minibatch | molecule | serve | retrieval |
+    #                            psi_iterate
     params: dict[str, Any]
     skip: str | None = None    # reason, if this (arch, shape) is skipped
 
@@ -29,7 +29,7 @@ class ShapeCfg:
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
     arch_id: str
-    family: str                # lm | gnn | psi
+    family: str                # lm | gnn | recsys | psi
     module: str                # configs module defining config(reduced)
     shapes: tuple[ShapeCfg, ...]
 
@@ -72,6 +72,14 @@ _GNN_SHAPES = (
              dict(n_nodes=30, n_edges=64, batch=128)),
 )
 
+_RECSYS_SHAPES = (
+    ShapeCfg("train_batch", "train", dict(batch=65536)),
+    ShapeCfg("serve_p99", "serve", dict(batch=512)),
+    ShapeCfg("serve_bulk", "serve", dict(batch=262144)),
+    ShapeCfg("retrieval_cand", "retrieval",
+             dict(batch=1, n_candidates=1_000_000)),
+)
+
 _PSI_SHAPES = (
     ShapeCfg("twitter_scale", "psi_iterate", dict(dataset="twitter")),
     ShapeCfg("rmat24", "psi_iterate", dict(dataset="rmat24")),
@@ -96,22 +104,15 @@ ARCHS: dict[str, ArchEntry] = {
         ArchEntry("nequip", "gnn", "repro_torch.configs.nequip", _GNN_SHAPES),
         ArchEntry("graphsage-reddit", "gnn",
                   "repro_torch.configs.graphsage_reddit", _GNN_SHAPES),
+        ArchEntry("mind", "recsys", "repro_torch.configs.mind",
+                  _RECSYS_SHAPES),
         ArchEntry("psi-score", "psi", "repro_torch.configs.psi_score",
                   _PSI_SHAPES),
     ]
 }
 
-# arch ids of the JAX package not ported yet, and the ROADMAP item (queue
-# 1, named by its title: the numbers move as items land) that brings each
-UNPORTED: dict[str, str] = {
-    "mind": "ROADMAP queue 1, \"The recsys family\" (models/recsys)",
-}
-
 
 def get_arch(arch_id: str) -> ArchEntry:
-    if arch_id in UNPORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported to this package yet: "
-                       f"{UNPORTED[arch_id]}")
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
     return ARCHS[arch_id]

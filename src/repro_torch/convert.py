@@ -26,7 +26,7 @@ from .kernels.ops import DeviceBsr, DeviceEdgeTiles
 __all__ = ["operators_from_numpy", "edge_tiles_from_numpy", "bsr_from_numpy",
            "warm_start_from_numpy", "gnn_params_from_numpy",
            "sage_params_from_numpy", "lm_params_from_numpy",
-           "lm_params_to_numpy",
+           "lm_params_to_numpy", "mind_params_from_jax",
            "dist_arrays_from_numpy", "chunk_args_from_numpy"]
 
 
@@ -134,6 +134,25 @@ def lm_params_from_numpy(tree, *, dtype: torch.dtype | None = None,
         return host_tensor(t).to(device=dev, dtype=dtype).requires_grad_()
 
     return conv(tree)
+
+
+MIND_LEAVES = ("item_emb", "profile_emb", "bilinear", "profile_proj",
+               "b_init")
+
+
+def mind_params_from_jax(tree, *, dtype: torch.dtype | None = None,
+                         device: str | torch.device = "cuda") -> dict:
+    """MIND parameters from the JAX package's ``mind.init_params`` tree as
+    numpy (``jax.tree.map(np.asarray, params)``): the five leaves, same
+    names and layout, bit for bit at their own dtype. Every leaf becomes a
+    tensor that requires grad; ``dtype`` defaults to the arrays' own."""
+    dev = resolve_device(device)
+    if set(tree) != set(MIND_LEAVES):
+        raise ValueError(f"a MIND tree has the leaves {MIND_LEAVES}; got "
+                         f"{sorted(tree)}")
+    return {k: torch.tensor(np.asarray(tree[k]), dtype=dtype,
+                            device=dev).requires_grad_()
+            for k in MIND_LEAVES}
 
 
 def lm_params_to_numpy(params: dict) -> dict:

@@ -12,7 +12,8 @@ what the sharded step needs:
 * the **src group** — the ``d`` ranks of its column, in row order (the
   reduce-scatter of the push and the gap's sum run over it), and the
   **model group** — the ``mo`` ranks of its row, in column order (the
-  all-gather of the new iterate runs over it).
+  all-gather of the new iterate runs over it, and the sum that reassembles
+  a row-sharded embedding lookup).
 
 Every collective the port issues goes through the :class:`Mesh` methods
 below, and only these ``torch.distributed`` names are used:
@@ -120,6 +121,10 @@ class Mesh:
     def all_reduce_src(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of ``x`` over the src group (a new tensor)."""
         return self._all_reduce(x, self.src_group)
+
+    def all_reduce_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of ``x`` over the model group (a new tensor)."""
+        return self._all_reduce(x, self.model_group)
 
     def all_reduce_world(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of ``x`` over every rank (a new tensor)."""

@@ -1,5 +1,5 @@
-"""Serving launcher: batched ψ-score queries on one graph or a fleet, and
-LM generation.
+"""Serving launcher: batched ψ-score queries on one graph or a fleet, LM
+generation, and MIND's interests and retrieval.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch psi-score \
         --backend auto --microbench --requests 4
@@ -26,6 +26,19 @@ divisors of 512 and 1,024 with its length, as in the JAX package.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --requests 1 --device cpu
+
+``--arch mind`` serves the JAX launcher's recsys loop
+(:func:`serve_recsys`): ``--requests`` batches of ``--batch`` users (4; numpy
+seed 2, 4 profile tags a user) on the reduced config, each request's
+interests extracted and the first user's top-5 of 1,000 random candidates
+printed. ``--shape serve_p99 | serve_bulk`` runs the full config at the
+cell's 512 or 262,144 users (8 tags a user) and prints the extraction's ms
+a batch and users/s; ``--shape retrieval_cand`` prints the ms to score 10⁶
+random candidates against one user's interests. Every profile bag's sum
+runs through the ``seg_mm`` kernel.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mind \
+        --device cpu
 
 For ``psi-score``: the single-tenant loop of the JAX package's launcher, on
 the same graph and seeds, printing the same lines: a cold solve, the top-k,
@@ -636,24 +649,122 @@ def serve_lm(arch: str, requests: int, device, *, shape: str | None = None,
     return out
 
 
+RECSYS_CANDIDATES = 1000       # the JAX launcher's candidates a request
+RECSYS_TOP = 5
+
+
+def serve_recsys(arch: str, requests: int, device, *,
+                 shape: str | None = None, batch: int | None = None,
+                 params: dict | None = None, log=print) -> dict:
+    """The JAX launcher's recsys loop: ``requests`` batches of ``batch``
+    users (numpy seed 2; 4 by default, 4 profile tags a user) on the
+    reduced config, each request's interests extracted and the first
+    user's top-5 of 1,000 random candidates printed (indices into the
+    candidates, as the JAX launcher prints them). ``shape`` runs the full
+    config instead: ``serve_p99`` / ``serve_bulk`` extract the interests of
+    the cell's batch (``batch`` cuts it; ``cfg.profile_tags`` tags a user)
+    and print the extraction's ms a batch and users/s, the host's batch
+    preparation (the bag layout and the copy) beside it;
+    ``retrieval_cand`` extracts one user's interests and prints the ms to
+    score the cell's 10⁶ random candidates, and their top-5. Times: host
+    clock, synchronised on a card. ``params`` replaces the seeded init. →
+    {"ms", "prep_ms" (each request's), "users", "cfg", "params", and the
+    last request's "batch" (on the device), "interests", "scores",
+    "cand_ids" and "top"}."""
+    import torch
+    from ..configs import get_arch
+    from ..device import resolve_device
+    from ..models import recsys
+    from .train import recsys_device_batch, recsys_host_batch
+    dev = resolve_device(device)
+    entry = get_arch(arch)
+    kind = None
+    if shape is None:
+        cfg, users, tags = entry.config(reduced=True), batch or 4, 4
+        n_cand = RECSYS_CANDIDATES
+    else:
+        spec = entry.shape(shape)
+        kind = spec.kind
+        if kind not in ("serve", "retrieval"):
+            raise SystemExit(f"--shape {shape} is a {kind} cell; train it "
+                             "with repro_torch.launch.train")
+        cfg = entry.config()
+        tags = cfg.profile_tags
+        users = batch or spec.params["batch"]
+        n_cand = spec.params.get("n_candidates", RECSYS_CANDIDATES)
+        log(f"[serve] {cfg.name} at {shape}: {users} users a request, "
+            f"{tags} profile tags a user"
+            + (f", {n_cand} candidates" if kind == "retrieval" else "")
+            + "; cut: " + (f"batch {spec.params['batch']} -> {users}"
+                           if users != spec.params["batch"] else "nothing"))
+
+    def clock():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    if params is None:
+        params = recsys.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(2)
+    out = dict(ms=[], prep_ms=[], users=users, cfg=cfg, params=params)
+    with torch.no_grad():
+        for r in range(requests):
+            t0 = clock()
+            b = recsys_device_batch(recsys_host_batch(cfg, users, rng,
+                                                      tags=tags, train=False),
+                                    cfg, dev)
+            t1 = clock()
+            u = recsys.user_interests(
+                params, b["hist_ids"], b["hist_mask"], b["profile_ids"],
+                b["profile_bags"], cfg, profile_layout=b["profile_layout"])
+            t2 = clock()
+            cands = torch.from_numpy(rng.integers(0, cfg.n_items, (n_cand,))
+                                     ).to(dev)
+            t3 = clock()
+            scores = recsys.retrieval_scores(params, u[0], cands, cfg)
+            top = torch.topk(scores, RECSYS_TOP).indices.cpu().numpy()
+            t4 = clock()
+            prep, ext, score = ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                                (t4 - t3) * 1e3)
+            if kind == "serve":
+                ms, metric = ext, (f"interests of {users} users {ext:.2f} "
+                                   f"ms, {users / ext * 1e3:.0f} users/s")
+            elif kind == "retrieval":
+                ms, metric = score, (f"scored {n_cand} candidates in "
+                                     f"{score:.3f} ms")
+            else:
+                ms, metric = ext + score, f"{ext + score:.1f} ms"
+            log(f"[serve] req {r}: top-{RECSYS_TOP} items {top.tolist()} "
+                f"({metric}; batch prepared in {prep:.1f} ms)")
+            out["ms"].append(ms)
+            out["prep_ms"].append(prep)
+    out.update(batch=b, interests=u, scores=scores, cand_ids=cands, top=top)
+    return out
+
+
 def main(argv=None):
     from ..configs import ARCHS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
                     choices=[a for a, e in ARCHS.items()
-                             if e.family in ("psi", "lm")],
-                    help="psi-score, or an LM arch (prefill + greedy decode)")
+                             if e.family in ("psi", "lm", "recsys")],
+                    help="psi-score, an LM arch (prefill + greedy decode) "
+                         "or mind (interests + retrieval)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch", type=int, default=None,
-                    help="users a request (psi-score, default 4); prompts a "
+                    help="users a request (psi-score, default 4; mind: 4 "
+                         "reduced, the cell's with --shape); prompts a "
                          "request (LM: 4 reduced, 1 with --shape)")
     ap.add_argument("--gen-len", type=int, default=8,
                     help="LM: tokens generated a request")
     ap.add_argument("--shape", default=None,
-                    choices=("prefill_32k", "decode_32k"),
+                    choices=("prefill_32k", "decode_32k", "serve_p99",
+                             "serve_bulk", "retrieval_cand"),
                     help="LM: the full config with prompts of this "
                          "cell's length, printing its metric (prefill or "
-                         "decode time)")
+                         "decode time); mind: the full config at this "
+                         "cell's batch (interest extraction, or scoring "
+                         "10^6 candidates)")
     ap.add_argument("--top-k", type=int, default=3)
     ap.add_argument("--backend", default=None,
                     help="ψ solver backend: reference (default) | cuda "
@@ -743,7 +854,18 @@ def main(argv=None):
                          "stream to this path (+ hotspot/critical-path "
                          "epilogue)")
     args = ap.parse_args(argv)
-    if ARCHS[args.arch].family == "lm":
+    family = ARCHS[args.arch].family
+    if args.shape and family not in ("lm", "recsys"):
+        raise SystemExit(f"--shape: {args.arch} has no serving cell")
+    if args.shape:
+        try:
+            ARCHS[args.arch].shape(args.shape)
+        except KeyError as exc:
+            raise SystemExit(f"--shape {args.shape}: {exc.args[0]}") from None
+    if family == "recsys":
+        return serve_recsys(args.arch, args.requests, args.device,
+                            shape=args.shape, batch=args.batch)
+    if family == "lm":
         return serve_lm(args.arch, args.requests, args.device,
                         shape=args.shape, batch=args.batch,
                         gen_len=args.gen_len)

@@ -1,16 +1,21 @@
-"""Cell sizing for the GNN family: the JAX package's ``launch/specs.py``
-GNN section without its sharding and lowering (TPU dry-run machinery).
+"""Cell sizing for the GNN and recsys families: the JAX package's
+``launch/specs.py`` GNN and recsys sections without their sharding and
+lowering (TPU dry-run machinery).
 
 ``_gnn_shape_dims`` turns a registry shape into the static padded dims of a
 train step, ``_gnn_cfg_for`` fits the arch's config to them and
 ``_gnn_model_flops`` counts the step's dominant matmul FLOPs, so the trainer
 sizes a cell from the same code as the JAX package. ``_GNN_MODS`` maps each
 GNN arch to its model module and ``_GEOMETRIC`` names the archs that read
-positions.
+positions. :func:`build_recsys_cell` gives a recsys cell's batch arrays
+(shape and dtype) and the JAX cell's ``meta`` (kind, model FLOPs, lookups,
+batch, candidates).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from ..configs.registry import ArchEntry, ShapeCfg
 from ..graphs.sampler import subgraph_budget
@@ -80,3 +85,47 @@ def _gnn_model_flops(arch: str, cfg, n: int, e: int) -> int:
         ((lm_ - m + 1) * C) ** 2 * 2 for m in range(1, mm + 1)))
     wigner = sum(2 * (2 * l + 1) ** 2 * C for l in range(lm_ + 1))
     return 3 * cfg.n_layers * e * (so2 + 2 * wigner)
+
+
+# --------------------------------------------------------------------- #
+# RecSys family
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class RecsysCell:
+    """A recsys cell: the full config, each batch array's (shape, dtype)
+    and the JAX cell's ``meta``."""
+    arch: str
+    shape: str
+    cfg: object
+    batch: dict
+    meta: dict
+
+
+def build_recsys_cell(entry: ArchEntry, shape: ShapeCfg) -> RecsysCell:
+    """The cell ``entry`` × ``shape`` (``train_batch``, ``serve_p99``,
+    ``serve_bulk`` or ``retrieval_cand``)."""
+    cfg = entry.config()
+    p = shape.params
+    d, H, K = cfg.embed_dim, cfg.hist_len, cfg.n_interests
+    i32, b8 = torch.int32, torch.bool
+    if shape.kind in ("train", "serve"):
+        b, tags = p["batch"], p["batch"] * cfg.profile_tags
+        batch = dict(hist_ids=((b, H), i32), hist_mask=((b, H), b8),
+                     profile_ids=((tags,), i32), profile_bags=((tags,), i32))
+        extract = b * 2 * H * d * d * (cfg.capsule_iters + 1)
+        if shape.kind == "serve":
+            return RecsysCell(entry.arch_id, shape.name, cfg, batch,
+                              dict(kind="serve", model_flops=extract,
+                                   batch=b))
+        batch.update(pos_ids=((b,), i32), neg_ids=((b, cfg.n_neg), i32))
+        lookups = b * (H + 1 + cfg.n_neg + cfg.profile_tags)
+        flops = 3 * (extract + b * cfg.n_neg * d + lookups * d)
+        return RecsysCell(entry.arch_id, shape.name, cfg, batch,
+                          dict(kind="train", model_flops=flops,
+                               lookups=lookups, batch=b))
+    nc = p["n_candidates"]
+    return RecsysCell(entry.arch_id, shape.name, cfg,
+                      dict(interests=((K, d), torch.float32),
+                           cand_ids=((nc,), i32)),
+                      dict(kind="retrieval", model_flops=2 * nc * d * K,
+                           candidates=nc))

@@ -1,4 +1,4 @@
-"""Training launcher: ``--arch <gnn or lm arch>`` → a train loop.
+"""Training launcher: ``--arch <gnn, lm or recsys arch>`` → a train loop.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch pna --reduced --device cpu
@@ -61,6 +61,23 @@ The GNN branch of the JAX package's trainer for ``graphsage-reddit``,
 
   On a card each full-batch step prints its device ms (CUDA events).
 
+The recsys branch for ``mind`` (:func:`train_recsys`):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch mind --steps 5 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch mind --shape train_batch --steps 5
+
+``--reduced`` (the default) is the JAX launcher's run: the reduced config,
+one batch of ``--batch`` users (8) from numpy seed 0 with 4 profile tags a
+user, ``adamw(cosine_schedule(1e-2, steps, 2))``. ``--shape train_batch``
+runs the full config (4,194,304 × 64 item table, 131,072 × 64 profile
+table) at the cell's 65,536 users (``--batch`` cuts it), 8 profile tags and
+1,024 uniform negatives a user, a fresh batch a step, with the JAX cell's
+``cosine_schedule(1e-3, 10_000, 100)``; each step prints its ms (CUDA
+events) and users/s. The profile bags' layout is built once a batch on the
+host and their sums run through ``seg_mm``.
+
 Every sum and mean of a neighbourhood runs through the ``seg_mm`` kernel.
 ``--device cuda`` (the default) needs a card; ``--device cpu`` runs the
 kernels' plain versions.
@@ -84,7 +101,7 @@ from ..graphs.sampler import fanout_sample
 from ..models.gnn import sage
 from ..models.gnn.common import (EdgeAgg, GraphBatch, batch_from_graph,
                                  edge_agg, pad_graph_batch, tensors_to)
-from ..models import transformer
+from ..models import recsys, transformer
 from ..train.optim import (adafactor, adamw, cosine_schedule, tree_leaves,
                            tree_map)
 from .specs import _GEOMETRIC, _GNN_MODS, _gnn_cfg_for, _gnn_shape_dims
@@ -512,6 +529,135 @@ def train_lm(arch: str, steps: int, device, *, shape: str | None = None,
     return out
 
 
+# --------------------------------------------------------------------- #
+# The recsys family
+# --------------------------------------------------------------------- #
+# the JAX package's schedule for the recsys train cell (launch/specs.py)
+RECSYS_CELL_SCHEDULE = (1e-3, 10_000, 100)
+RECSYS_REDUCED_TAGS = 4        # the JAX launcher's profile tags a user
+
+
+def recsys_host_batch(cfg, users: int, rng: np.random.Generator, *,
+                      tags: int, train: bool = True) -> dict:
+    """A batch of ``users`` as numpy, drawn from ``rng`` in the JAX
+    launcher's order: ``hist_ids`` [users, H], ``hist_mask`` (80% kept),
+    ``tags`` profile ids a user with their sorted ``profile_bags``, then
+    for training ``pos_ids`` [users] and ``neg_ids`` [users, n_neg]
+    (uniform over the item table)."""
+    hb = dict(
+        hist_ids=rng.integers(0, cfg.n_items, (users, cfg.hist_len)),
+        hist_mask=rng.random((users, cfg.hist_len)) > 0.2,
+        profile_ids=rng.integers(0, cfg.n_profile, (users * tags,)),
+        profile_bags=np.repeat(np.arange(users), tags))
+    if train:
+        hb.update(pos_ids=rng.integers(0, cfg.n_items, (users,)),
+                  neg_ids=rng.integers(0, cfg.n_items, (users, cfg.n_neg)))
+    return hb
+
+
+def slice_users(hb: dict, lo: int, hi: int) -> dict:
+    """Users ``[lo, hi)`` of a host batch, their bags renumbered from 0."""
+    a, b = np.searchsorted(hb["profile_bags"], [lo, hi])
+    return {k: (v[a:b] - (lo if k == "profile_bags" else 0))
+            if k.startswith("profile") else v[lo:hi] for k, v in hb.items()}
+
+
+def recsys_device_batch(hb: dict, cfg, device) -> dict:
+    """A host batch on ``device``, with the profile bags' layout
+    (:func:`~repro_torch.models.recsys.embedding.bag_layout`) built on the
+    host."""
+    dev = resolve_device(device)
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+           for k, v in hb.items()}
+    out["profile_layout"] = recsys.bag_layout(
+        hb["profile_ids"], hb["profile_bags"], hb["hist_ids"].shape[0],
+        cfg.n_profile, device=dev)
+    return out
+
+
+def recsys_step(params: dict, state: dict, batch: dict, cfg, opt,
+                mesh=None):
+    """One optimizer step of MIND's sampled-softmax loss: → (params,
+    state, loss)."""
+    loss, grads = recsys.loss_and_grads(params, batch, cfg, mesh)
+    params, state = opt.apply(grads, state, params)
+    return params, state, loss
+
+
+def train_recsys(arch: str, steps: int, device, *, shape: str | None = None,
+                 batch: int | None = None, params: dict | None = None,
+                 log=print) -> dict:
+    """``steps`` steps of MIND. Reduced (``shape`` None): the JAX launcher's
+    run, one fixed batch of ``batch`` users (8 by default) from numpy seed
+    0 with RECSYS_REDUCED_TAGS tags a user, ``adamw(cosine_schedule(1e-2,
+    steps, 2))``. ``shape="train_batch"``: the full config at the cell's
+    65,536 users (``batch`` cuts it), ``cfg.profile_tags`` tags a user and
+    ``cfg.n_neg`` negatives, a fresh batch each step (numpy seed 1000 +
+    step), the JAX cell's ``cosine_schedule(1e-3, 10_000, 100)``.
+    ``params`` (e.g. the JAX package's, converted) replaces the seeded
+    init.
+    → {"losses", "step_ms" (CUDA events on a card, host clock on the CPU),
+    "users", "params", "state", "opt", "cfg", "batch" (the last, on the
+    device) and "host" (the same as numpy)}."""
+    dev = resolve_device(device)
+    entry = get_arch(arch)
+    if shape is None:
+        cfg, users, tags = entry.config(reduced=True), batch or 8, \
+            RECSYS_REDUCED_TAGS
+        sched = cosine_schedule(1e-2, steps, 2)
+        fixed = recsys_host_batch(cfg, users, np.random.default_rng(0),
+                                  tags=tags)
+    else:
+        spec = entry.shape(shape)
+        if spec.kind != "train":
+            raise SystemExit(f"--shape {shape} is a {spec.kind} cell; serve "
+                             "it with repro_torch.launch.serve")
+        cfg, tags = entry.config(), entry.config().profile_tags
+        users = batch or spec.params["batch"]
+        sched = cosine_schedule(*RECSYS_CELL_SCHEDULE)
+        fixed = None
+        log(f"[train] {cfg.name} at {shape}: {users} users a step, "
+            f"{tags} profile tags and {cfg.n_neg} negatives a user, tables "
+            f"{cfg.n_items} x {cfg.embed_dim} and {cfg.n_profile} x "
+            f"{cfg.embed_dim}; cut: "
+            + (f"batch {spec.params['batch']} -> {users}"
+               if users != spec.params["batch"] else "nothing"))
+    if params is None:
+        params = recsys.init_params(cfg, 0, device=dev)
+    opt = adamw(sched)
+    state = opt.init(params)
+    out = dict(losses=[], step_ms=[], users=users, cfg=cfg, opt=opt)
+    hb = fixed
+    b = recsys_device_batch(hb, cfg, dev) if fixed is not None else None
+    for step in range(steps):
+        if fixed is None:
+            hb = b = None                # free the last batch first
+            hb = recsys_host_batch(cfg, users,
+                                   np.random.default_rng(1000 + step),
+                                   tags=tags)
+            b = recsys_device_batch(hb, cfg, dev)
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        params, state, loss = recsys_step(params, state, b, cfg, opt)
+        if dev.type == "cuda":
+            ev[1].record()
+        loss = float(loss)
+        if dev.type == "cuda":
+            ev[1].synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        out["losses"].append(loss)
+        out["step_ms"].append(ms)
+        log(f"[train] step {step} loss {loss:.4f}"
+            + (f" ({ms:.1f} ms by events, {users / ms * 1e3:.0f} users/s)"
+               if dev.type == "cuda" else ""))
+    out.update(params=params, state=state, batch=b, host=hb)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -520,10 +666,12 @@ def main(argv=None):
     ap.add_argument("--shape", default=None,
                     help="run the full-width cell of this shape instead: "
                          "minibatch_lg, full_graph_sm, molecule or "
-                         "ogb_products (GNN), train_4k (LM)")
+                         "ogb_products (GNN), train_4k (LM), train_batch "
+                         "(recsys)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=None,
-                    help="LM: sequences a step (default 8)")
+                    help="LM: sequences a step (default 8); recsys: users "
+                         "a step (8 reduced, the cell's with --shape)")
     ap.add_argument("--seq", type=int, default=None,
                     help="LM: tokens a sequence (default 64 reduced, the "
                          "cell's with --shape)")
@@ -548,6 +696,9 @@ def main(argv=None):
             entry.shape(args.shape)
         except KeyError as exc:
             raise SystemExit(f"--shape {args.shape}: {exc.args[0]}") from None
+    if entry.family == "recsys":
+        return train_recsys(args.arch, args.steps, args.device,
+                            shape=args.shape, batch=args.batch)
     if entry.family == "lm":
         return train_lm(args.arch, args.steps, args.device, shape=args.shape,
                         batch=args.batch, seq=args.seq,

@@ -1,1 +1,1 @@
-"""Model zoo of the port: the GNN family and the LM family."""
+"""Model zoo of the port: the GNN, LM and recsys families."""

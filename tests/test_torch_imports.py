@@ -65,6 +65,9 @@ SLICE_MODULES = [
     "repro_torch.data.tokens", "repro_torch.configs.tinyllama_1_1b",
     "repro_torch.configs.yi_9b", "repro_torch.configs.nemotron_4_340b",
     "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.mixtral_8x22b",
+    "repro_torch.kernels.agg", "repro_torch.models.recsys",
+    "repro_torch.models.recsys.embedding", "repro_torch.models.recsys.mind",
+    "repro_torch.configs.mind",
 ]
 
 

@@ -27,12 +27,12 @@ import torch.nn.functional as F
 from jax.sharding import AxisType
 
 from repro.configs import get_arch as j_get_arch
+from repro.configs.registry import ARCHS as J_ARCHS
 from repro.data import PsiWeightedSampler as JSampler
 from repro.data import TokenPipeline as JPipeline
 from repro.models import transformer as jtf
 from repro.models.transformer import model as jmodel
-from repro_torch.configs import get_arch
-from repro_torch.configs.registry import UNPORTED
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
 from repro_torch.data import PsiWeightedSampler, TokenPipeline
 from repro_torch.models import transformer as tf
@@ -209,9 +209,9 @@ def test_init_params_has_the_jax_tree_shapes_and_scales():
 
 def test_configs_and_registry_match_jax():
     """The five archs resolve with the JAX package's full and reduced
-    values (torch dtypes), shapes and skips; only ``mind`` stays
-    unported."""
-    assert set(UNPORTED) == {"mind"}
+    values (torch dtypes), shapes and skips; every JAX arch id resolves
+    in the port."""
+    assert set(ARCHS) == set(J_ARCHS)
     for arch in LM_ARCHS:
         te, je = get_arch(arch), j_get_arch(arch)
         assert te.family == je.family == "lm"
