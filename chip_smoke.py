@@ -218,8 +218,22 @@ its backward against the plain gather. Phase 9 times the bag sum there
   step ms (CUDA events), busy share (profiler), seg_mm launches a step and
   peak memory.
 
+* ``dryrun``: ``repro_torch.launch.dryrun``. (1) The fake-mode
+  dry run of every cell on the 16 × 16 and 2 × 16 × 16 meshes (rank 0 of
+  a ``fake`` process group, FakeTensors, ``--device cpu``: nothing on the
+  card), one CLI process with DRYRUN_WORKERS tracing workers, started as
+  the path starts and waited for at its end (no earlier path and no
+  timing runs beside it): 84 records, 78 traced ``ok`` with the JAX
+  record's keys and 6 skips. (2)
+  DRYRUN_REAL on 16 × 16: traced on fake CUDA tensors (``seg_mm``'s
+  shape-only path), then rank 0's arguments made real on the card and
+  one step run (collectives on the fake backend: compute only); the
+  measured peak within DRYRUN_MEM_RTOL of the estimate. (3) World 1: a
+  (1, 1) mesh gives the bits of ``mesh=None`` for a TinyLlama train step
+  and a prefill at full width (DRYRUN_BITWISE).
+
 Phases 3 to 8, ``gnn_families``, ``paper``, ``push``, ``stream``,
-``driver``, ``chaos``, ``lm`` and ``recsys``
+``driver``, ``chaos``, ``lm``, ``recsys`` and ``dryrun``
 are the main paths (the auto phase is two: model-only and microbench): every
 launch
 counter is set to 0 just before each path and read just after, and each
@@ -432,6 +446,18 @@ RECSYS_SCORE_TOL = 1e-5
 RECSYS_BAG_D = 64
 RECSYS_BAG_SENTINEL_EVERY = 16
 RECSYS_BAG_EMPTY_EVERY = 97
+# the dryrun path: the cells run for real as rank 0 of the 16 x 16
+# production mesh on the fake backend, the largest allowed gap between the
+# traced memory estimate and the card's peak (a share of the measured), the
+# fake-trace CLI's worker processes (the host's 8 cores) and its count of
+# records (84: 78 traced, 6 skips)
+DRYRUN_REAL = (("tinyllama-1.1b", "train_4k"), ("mixtral-8x7b", "prefill_32k"),
+               ("yi-9b", "train_4k"), ("mind", "train_batch"),
+               ("psi-score", "twitter_scale"))
+DRYRUN_MEM_RTOL = 0.15
+DRYRUN_WORKERS = 8
+DRYRUN_RECORDS = (84, 78, 6)
+DRYRUN_BITWISE = (2, 2, 512)            # tinyllama layers, batch, seq
 
 
 class SmokeFailure(Exception):
@@ -485,12 +511,18 @@ def device_ms(fn, iters: int) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type != DeviceType.CPU)
+    # a second session where the first recorded nothing: CUPTI has
+    # returned an empty session on a loaded host
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type != DeviceType.CPU)
+        if us > 0:
+            break
+        say("device_ms: the profiler recorded no device time; again")
     check(us > 0, "the profiler saw no device time")
     return us / iters / 1e3
 
@@ -3826,6 +3858,159 @@ def phase_recsys(report: dict) -> None:
     report["recsys"] = out
 
 
+# --------------------------------------------------------------------- #
+# The dry run of the production meshes
+# --------------------------------------------------------------------- #
+def start_dryrun_job(out_dir: Path) -> subprocess.Popen:
+    """Part 1, started: the fake-mode dry run of every cell on both
+    production meshes (``repro_torch.launch.dryrun --all --device cpu``:
+    traced on FakeTensors, nothing on the card) with DRYRUN_WORKERS
+    tracing workers at the lowest CPU priority (``nice`` 19), beside parts
+    2 and 3; → its Popen handle."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(out_dir / "dryrun.log", "w")
+    job = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--device", "cpu", "--jobs", str(DRYRUN_WORKERS),
+         "--out", str(out_dir / "records")],
+        env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+        preexec_fn=lambda: os.nice(19), start_new_session=True)
+    job.log = log
+    return job
+
+
+def dryrun_real(out: dict) -> None:
+    """Part 2: DRYRUN_REAL as rank 0 of the 16 x 16 mesh on the fake
+    backend: traced on fake CUDA tensors (``seg_mm``'s shape-only path),
+    then made real on the card and run once; the measured peak within
+    DRYRUN_MEM_RTOL of the estimate."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, specs
+    out["real"] = {}
+    with dryrun.production_mesh(False, "cuda") as mesh:
+        for arch, shape in DRYRUN_REAL:
+            _free()
+            entry = get_arch(arch)
+            cell = specs.build_cell(entry, entry.shape(shape), mesh)
+            rec = dryrun.run_cell(cell, mesh, "pod16x16", device="cuda")
+            check(rec["ok"], f"dryrun {arch} {shape}: {rec.get('error')}")
+            est = rec["memory"]["peak_bytes"]
+            got = rec["memory"]["measured_peak_bytes"]
+            gap = (est - got) / got
+            out["real"][f"{arch}/{shape}"] = dict(
+                estimate=est, measured=got, gap=gap,
+                device_ms=rec["device_ms"], trace_s=rec["trace_s"],
+                flops=rec["cost"]["flops"],
+                collectives={k: v["count"] for k, v in
+                             rec["collectives"].items() if v["count"]})
+            say(f"dryrun {arch} {shape} (rank 0 of 16x16): estimated peak "
+                f"{est / 2**30:.3f} GiB, measured {got / 2**30:.3f} GiB "
+                f"({gap:+.1%}); step {rec['device_ms']:.1f} ms on the card "
+                f"(compute only); traced in {rec['trace_s']:.1f} s; flops "
+                f"{rec['cost']['flops']:.4e}; collectives "
+                f"{out['real'][f'{arch}/{shape}']['collectives']}")
+            check(abs(gap) <= DRYRUN_MEM_RTOL, f"dryrun {arch} {shape}: "
+                  f"estimate {est} vs measured {got} ({gap:+.1%})")
+
+
+def dryrun_bitwise(out: dict) -> None:
+    """Part 3: at world 1 on the card a (1, 1) mesh gives the bits of
+    mesh=None: TinyLlama at full width, DRYRUN_BITWISE layers x batch x
+    seq, float32 — a train step (loss and every parameter after AdamW) and
+    a prefill (logits and cache)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import adamw, constant_schedule, tree_leaves
+    layers, b, s = DRYRUN_BITWISE
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").config(),
+                              n_layers=layers, accum_steps=1,
+                              dtype=torch.float32, param_dtype=torch.float32)
+    gen = torch.Generator("cuda").manual_seed(3)
+    tok = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    batch = dict(tokens=tok, labels=torch.roll(tok, -1, 1))
+    mesh = make_mesh((1, 1), device="cuda")
+    try:
+        runs = {}
+        for name, m in (("none", None), ("mesh", mesh)):
+            params = T.init_params(cfg, 0, device="cuda", mesh=m)
+            opt = adamw(constant_schedule(1e-4))
+            state = opt.init(params)
+            params, state, loss = T.make_train_step(cfg, opt, m)(
+                params, state, batch)
+            cache, logits = T.make_prefill(cfg, m)(params, tok)
+            runs[name] = [loss, logits, cache["k"], cache["v"]] + [
+                p.detach() for p in tree_leaves(params)]
+        same = all(torch.equal(x, y) for x, y in zip(runs["none"],
+                                                       runs["mesh"]))
+    finally:
+        mesh.close()
+    out["bitwise"] = same
+    say(f"dryrun: mesh (1, 1) vs mesh=None, a TinyLlama train step and a "
+        f"prefill ({layers} layers, {b} x {s}, f32): bitwise {same}")
+    check(same, "mesh (1, 1) differs from mesh=None")
+
+
+def dryrun_records(out: dict, job, out_dir: Path) -> None:
+    """Part 1, finished: wait for the fake-mode run; every record ok and
+    with the JAX record's keys, DRYRUN_RECORDS of them."""
+    t0 = time.perf_counter()
+    rc = job.wait()
+    job.log.close()
+    out["wait_s"] = time.perf_counter() - t0
+    tail = (out_dir / "dryrun.log").read_text()[-2000:]
+    check(rc == 0, f"dryrun CLI exited {rc}: {tail}")
+    recs = [json.loads(p.read_text())
+            for p in sorted((out_dir / "records").glob("*.json"))]
+    skips = sum(1 for r in recs if r.get("skipped"))
+    traced = [r for r in recs if not r.get("skipped")]
+    keys = {"ok", "trace_s", "cost", "memory", "collectives", "meta"}
+    for r in traced:
+        check(r["ok"] and keys <= set(r), f"dryrun record {r['arch']} "
+              f"{r['shape']} {r['mesh']}: {r.get('error')}")
+    got = (len(recs), len(traced), skips)
+    out["records"] = got
+    out["trace_s"] = sum(r["trace_s"] for r in traced)
+    top = max(traced, key=lambda r: r["trace_s"])
+    say(f"dryrun: {got[0]} records ({got[1]} traced ok, {got[2]} skips) on "
+        f"16x16 and 2x16x16, {out['trace_s']:.1f} s of tracing in "
+        f"{DRYRUN_WORKERS} workers (the longest record {top['arch']} "
+        f"{top['shape']} {top['mesh']}, {top['trace_s']:.1f} s), waited "
+        f"{out['wait_s']:.1f} s after parts 2 and 3")
+    check(got == DRYRUN_RECORDS, f"dryrun records {got} != {DRYRUN_RECORDS}")
+
+
+def phase_dryrun(report: dict) -> None:
+    """The dry run (``repro_torch.launch.dryrun``): part 1 started
+    (:func:`start_dryrun_job`), :func:`dryrun_real` and
+    :func:`dryrun_bitwise` beside it, then :func:`dryrun_records`; the
+    path's seconds count the wait."""
+    import os
+    import signal
+    import tempfile
+    t0 = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        job = start_dryrun_job(Path(tmp))
+        try:
+            dryrun_real(out)
+            _free()
+            dryrun_bitwise(out)
+            dryrun_records(out, job, Path(tmp))
+        finally:
+            if job.poll() is None:              # the CLI and its workers
+                os.killpg(job.pid, signal.SIGKILL)
+            job.wait()
+            job.log.close()
+    out["path_s"] = time.perf_counter() - t0
+    say(f"dryrun: path {out['path_s']:.1f} s")
+    report["dryrun"] = out
+
+
 def phase_times(report: dict) -> list[dict]:
     import torch
     from repro_torch.kernels.bsr_spmv import bsr_spmv_call, bsr_spmv_plain
@@ -4111,7 +4296,7 @@ def seg_mm_times(report: dict) -> list[dict]:
     gen = torch.Generator("cuda").manual_seed(3)
     rows = []
     launches = {k: report["launches"][k]["seg_mm"]
-                for k in ("gnn_train", "gnn_families", "recsys")}
+                for k in ("gnn_train", "gnn_families", "recsys", "dryrun")}
     # the GraphSAGE cell's two layers, then EquiformerV2's aggregation
     for d, b in ((602, batch), (128, batch),
                  (6272, report.pop("gnn_families_batch"))):
@@ -4635,7 +4820,14 @@ def summary(report: dict) -> str:
                   "path_s": g(report["chaos"]["path_s"])},
         "lm": _lm_summary(report["lm"], g),
         "recsys": _lm_summary(report["recsys"], g),
-        "recsys_bag_ms": _lm_summary(report["recsys_bag"], g)})
+        "recsys_bag_ms": _lm_summary(report["recsys_bag"], g),
+        "dryrun": {"real": {k: {kk: g(vv) for kk, vv in v.items()
+                                if kk in ("estimate", "measured", "gap",
+                                          "device_ms")}
+                            for k, v in report["dryrun"]["real"].items()},
+                   "bitwise": report["dryrun"]["bitwise"],
+                   "records": report["dryrun"]["records"],
+                   "path_s": g(report["dryrun"]["path_s"])}})
 
 
 def _lm_summary(lm: dict, g) -> dict:
@@ -4700,7 +4892,8 @@ def main() -> int:
              ("chaos", phase_chaos, ("power_step", "edge_spmv",
                                      "power_step_lanes", "edge_spmv_lanes")),
              ("lm", phase_lm, ()),
-             ("recsys", phase_recsys, ("seg_mm",))]
+             ("recsys", phase_recsys, ("seg_mm",)),
+             ("dryrun", phase_dryrun, ("seg_mm",))]
     pool = None
     try:
         phase_device(report)

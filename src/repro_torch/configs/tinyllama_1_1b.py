@@ -14,6 +14,8 @@ def config(reduced: bool = False) -> LMConfig:
                         d_model=64, n_heads=8, n_kv_heads=2, d_ff=176,
                         vocab=256, dtype=torch.float32,
                         param_dtype=torch.float32)
+    # fsdp off: 1.1B params + AdamW state fit per TP shard, and pure TP + DP
+    # needs no per-step weight all-gathers (the JAX package's choice)
     return LMConfig(name="tinyllama-1.1b", n_layers=22, d_model=2048,
                     n_heads=32, n_kv_heads=4, d_ff=5632, vocab=32000,
-                    rope_theta=1e4, accum_steps=4)
+                    rope_theta=1e4, accum_steps=4, fsdp=False)

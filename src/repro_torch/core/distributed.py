@@ -38,7 +38,7 @@ import torch
 from ..device import numpy_dtype
 from ..graphs.partition import Partition2D, partition_2d
 from ..graphs.structure import Graph
-from ..launch.mesh import Mesh
+from ..launch.mesh import DP, TP, Mesh, shard_shape
 from .activity import Activity
 
 __all__ = ["DistributedPsi", "DistributedPsi1D", "DistPsiArrays",
@@ -179,6 +179,42 @@ class DistributedPsi:
                             self.mesh.row, self.mesh.col, self.part.nc,
                             self.dtype, self.device)
 
+    # -- layout ------------------------------------------------------------ #
+    def input_specs(self) -> dict:
+        """Each operator array's global (shape, dtype), in the JAX
+        package's layout (``input_specs``), no allocation. The push reads
+        each block's dst run ``lengths`` ``[d, mo, nc + 1]`` where the JAX
+        package reads ``dst_local``."""
+        p = self.part
+        i64, f = torch.int64, self.dtype
+        grid, row = (p.d, p.mo, p.q), (p.d, p.mo * p.q)
+        return dict(src_local=((p.d, p.mo, p.e_max), i64),
+                    lengths=((p.d, p.mo, p.nc + 1), i64),
+                    inv_w_src=(row, f), mu_piece=(grid, f),
+                    c_piece=(grid, f), c_src=(row, f),
+                    lam_piece=(grid, f), d_piece=(grid, f))
+
+    def shardings(self) -> dict:
+        """Each array's spec (the JAX package's ``shardings()``): a block
+        array's leading ``[d, mo]`` split over the src and model groups, a
+        src-layout row's ``d`` over the src group (whole on every model
+        rank). Rank ``(row, col)`` holds block ``(row, col)``."""
+        grid, row = (DP, TP, None), (DP, None)
+        return dict(src_local=grid, lengths=grid, inv_w_src=row,
+                    mu_piece=grid, c_piece=grid, c_src=row, lam_piece=grid,
+                    d_piece=grid)
+
+    def local_specs(self) -> dict:
+        """This rank's (shape, dtype) of each array: its block of the
+        global layout (:meth:`shard_shape`-sized, the unit ``[d, mo]``
+        dimensions dropped, as :class:`DistPsiArrays` holds it)."""
+        spec = self.shardings()
+        out = {}
+        for k, (shape, dtype) in self.input_specs().items():
+            block = shard_shape(shape, spec[k], self.mesh)
+            out[k] = (block[sum(a is not None for a in spec[k]):], dtype)
+        return out
+
     # -- host layout ⇄ this rank's row ---------------------------------- #
     def local_src(self, full: np.ndarray) -> torch.Tensor:
         """Row r of a ``[d, mo·q]`` src-layout host array, on the device."""
@@ -269,7 +305,10 @@ class DistributedPsi:
     def make_run(self, *, chunk_iters: int = 8):
         """``(s, arrays) → (s', gap)``: ``chunk_iters`` steps; ``gap`` (a
         device scalar) is the last step's. The driver reads it once a chunk
-        and loops chunks until gap ≤ tol, checkpointing between chunks."""
+        and loops chunks until gap ≤ tol, checkpointing between chunks.
+        The loop runs in Python, unrolled (the JAX package's ``unroll``
+        flag, which the dry run's 1- and 2-iteration probes set, has no
+        counterpart)."""
         step = self.make_step()
 
         def run(s, arrays):

@@ -10,7 +10,10 @@ library, and :func:`build_all` starts every ``nvcc`` at once when a caller
 wants them all up front.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
-:func:`check` raises on anything but 0. A failed build raises with nvcc's
+:func:`check` raises on anything but 0. A wrapper given FakeTensors
+(:func:`is_fake`: the dry run's traced step, which allocates nothing) takes
+a shape-only path: it returns an empty output of the kernel's shape,
+launches nothing and computes no value. A failed build raises with nvcc's
 stderr. There is no fallback: a kernel that does not build or launch is an
 error, never a quiet switch to the plain PyTorch version.
 """
@@ -25,7 +28,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
-           "entry", "check"]
+           "entry", "check", "is_fake"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -120,3 +123,9 @@ def check(name: str, status: int) -> None:
         msg = load(name).repro_error_string(status).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                            f"{status} ({msg})")
+
+
+def is_fake(x) -> bool:
+    """Whether ``x`` is a FakeTensor (shapes and dtypes, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)

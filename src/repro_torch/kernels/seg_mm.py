@@ -109,9 +109,12 @@ def seg_mm_call(messages: torch.Tensor, dst_local: torch.Tensor,
         it every slot is read. It moves no bit of the result.
 
     Returns:
-      f[num_tiles * tile, d]; zeros for a tile without blocks.
+      f[num_tiles * tile, d]; zeros for a tile without blocks. On
+      FakeTensors an empty output of that shape (nothing is launched).
     """
     num_tiles = tile_first_block.shape[0]
+    if _build.is_fake(messages):                 # a traced step: shape only
+        return messages.new_empty(num_tiles * tile, messages.shape[-1])
     if messages.device.type == "cpu":
         return seg_mm_plain(messages, dst_local, block_tile, tile=tile,
                             num_tiles=num_tiles)

@@ -1,26 +1,189 @@
-"""Cell sizing for the GNN and recsys families: the JAX package's
-``launch/specs.py`` GNN and recsys sections without their sharding and
-lowering (TPU dry-run machinery).
+"""Cell builders: (arch × shape × mesh) → one rank's step, its arguments
+and the JAX cell's metadata.
 
-``_gnn_shape_dims`` turns a registry shape into the static padded dims of a
-train step, ``_gnn_cfg_for`` fits the arch's config to them and
-``_gnn_model_flops`` counts the step's dominant matmul FLOPs, so the trainer
-sizes a cell from the same code as the JAX package. ``_GNN_MODS`` maps each
-GNN arch to its model module and ``_GEOMETRIC`` names the archs that read
-positions. :func:`build_recsys_cell` gives a recsys cell's batch arrays
-(shape and dtype) and the JAX cell's ``meta`` (kind, model FLOPs, lookups,
-batch, candidates).
+The port of the JAX package's ``launch/specs.py``. A :class:`Cell` holds a
+rank's step (``step``), a function that makes the rank's arguments on a
+device (``make_args``: under ``FakeTensorMode`` it allocates nothing, on a
+card it is the rank-0 run's input), the batch arrays' global shapes and
+dtypes (``batch``), how each argument is laid out over the mesh
+(``layout``), the JAX cell's ``meta`` key for key, and the L / L+1 probes
+(1 and 2 layers for the LM family, 1 and 2 iterations for ψ) that the dry
+run (:mod:`repro_torch.launch.dryrun`) traces. The mesh is a
+:class:`~repro_torch.launch.mesh.Mesh`; each builder also takes ``None``
+(one device).
+
+* LM (:func:`build_lm_cell`): the JAX layout (``param_specs``, the batch
+  over the src group where it splits, ``cache_specs``), the config's
+  optimizer over ``cosine_schedule(3e-4, 10_000, 200)`` and the JAX
+  ``_effective_accum``. A train cell's probes are the JAX probes: one
+  microbatch, 1 and 2 layers.
+* GNN (:func:`build_gnn_cell`): JAX's replicated parameters; the padded
+  batch whole on every rank (``layout: "batch replicated"``: the port's
+  GNN models index positions and features on the whole graph, where JAX
+  splits nodes and edges over the data ranks), the gradients all-reduced
+  over the src group. The aggregation format's shape depends on the edges:
+  a traced cell's comes from seeded per-tile edge counts of the cell's
+  padded dims, a real run's from the trainer's synthetic batch.
+* recsys (:func:`build_recsys_cell`): MIND's tables row-sharded over the
+  model group (``mind.param_specs``), each rank its data row's users.
+* ψ (:func:`build_psi_cell`): one rank's block of :class:`~repro_torch.
+  core.distributed.DistributedPsi` on the graph's dims, ``make_run`` of the
+  config's ``chunk_iters``.
+
+``_gnn_shape_dims``, ``_gnn_cfg_for``, ``_gnn_model_flops``, ``_GNN_MODS``
+and ``_GEOMETRIC`` size the GNN trainer's cells too.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ..configs.registry import ArchEntry, ShapeCfg
 from ..graphs.sampler import subgraph_budget
 from ..models.gnn import equiformer_v2, nequip, pna, sage
+from ..models import recsys as mind
+from ..models import transformer as lm
+from ..train import optim
 
+__all__ = ["Cell", "build_cell", "build_lm_cell", "build_gnn_cell",
+           "build_recsys_cell", "build_psi_cell"]
+
+
+@dataclasses.dataclass
+class Cell:
+    """One rank's part of a cell; see the module docstring."""
+    arch: str
+    shape: str
+    cfg: Any
+    batch: dict                        # name -> (global shape, dtype)
+    meta: dict                         # the JAX cell's meta
+    step: Callable | None = None       # step(*make_args(device))
+    make_args: Callable | None = None  # device -> the step's arguments
+    layout: dict = dataclasses.field(default_factory=dict)
+    probes: list["Cell"] | None = None
+
+
+def _dp_size(mesh) -> int:
+    return 1 if mesh is None else mesh.d
+
+
+def _rows(mesh) -> str:
+    return "replicated" if _dp_size(mesh) == 1 else "rows over the src group"
+
+
+# ===================================================================== #
+# LM family
+# ===================================================================== #
+def _opt_for(cfg):
+    sched = optim.cosine_schedule(3e-4, 10_000, 200)
+    if cfg.optimizer == "adafactor":
+        return optim.adafactor(sched)
+    return optim.adamw(sched)
+
+
+def _effective_accum(cfg, mesh, batch: int) -> int:
+    a = cfg.accum_steps
+    dp = _dp_size(mesh)
+    while a > 1 and (batch % a != 0 or (batch // a) % dp != 0):
+        a //= 2
+    return max(1, a)
+
+
+def _tokens(gen, vocab: int, shape, dev) -> torch.Tensor:
+    return torch.randint(0, vocab, shape, generator=gen, device=dev)
+
+
+def build_lm_cell(entry: ArchEntry, shape: ShapeCfg, mesh, *,
+                  probe_layers: int | None = None) -> Cell:
+    cfg = entry.config()
+    p = shape.params
+    batch, seq = p["global_batch"], p["seq_len"]
+    accum = _effective_accum(cfg, mesh, batch)
+    if probe_layers is not None:
+        # the JAX probe: one microbatch of the step, no accumulation
+        cfg = dataclasses.replace(cfg, n_layers=probe_layers, accum_steps=1)
+        if shape.kind == "train":
+            batch = max(_dp_size(mesh), batch // accum)
+            accum = 1
+    rows = lm.local_batch(batch, mesh)
+    c = min(seq, cfg.sliding_window or seq)
+    eff_ctx = c
+    params_layout = ("param_specs: TP over the model group, FSDP over the "
+                     "src group" if cfg.fsdp else "param_specs: TP over the "
+                     "model group, replicated over the src group")
+    i64 = torch.int64
+
+    def params_on(dev):
+        return lm.init_params(cfg, 0, device=dev, mesh=mesh)
+
+    if shape.kind == "train":
+        cfg = dataclasses.replace(cfg, accum_steps=accum)
+        opt = _opt_for(cfg)
+        tokens = batch * seq
+
+        def make_args(dev):
+            params = params_on(dev)
+            gen = torch.Generator(dev).manual_seed(1)
+            tok = _tokens(gen, cfg.vocab, (rows, seq), dev)
+            return (params, opt.init(params, lm.param_layout(cfg, mesh)),
+                    dict(tokens=tok, labels=torch.roll(tok, -1, 1)))
+
+        meta = dict(kind="train",
+                    model_flops=6 * lm.active_params(cfg) * tokens
+                    + 6 * tokens * eff_ctx * cfg.q_dim,
+                    layers=cfg.n_layers, accum=cfg.accum_steps,
+                    tokens=tokens, params=lm.count_params(cfg))
+        return Cell(entry.arch_id, shape.name, cfg,
+                    dict(tokens=((batch, seq), i64),
+                         labels=((batch, seq), i64)), meta,
+                    lm.make_train_step(cfg, opt, mesh), make_args,
+                    dict(params=params_layout, opt_state="as the params",
+                         batch=_rows(mesh) + ", microbatch-major"))
+
+    if shape.kind == "prefill":
+        def make_args(dev):
+            gen = torch.Generator(dev).manual_seed(1)
+            return params_on(dev), _tokens(gen, cfg.vocab, (rows, seq), dev)
+
+        meta = dict(kind="prefill",
+                    model_flops=2 * lm.active_params(cfg) * batch * seq
+                    + 2 * batch * seq * eff_ctx * cfg.q_dim,
+                    layers=cfg.n_layers, tokens=batch * seq,
+                    params=lm.count_params(cfg))
+        return Cell(entry.arch_id, shape.name, cfg,
+                    dict(tokens=((batch, seq), i64)), meta,
+                    lm.make_prefill(cfg, mesh), make_args,
+                    dict(params=params_layout, tokens=_rows(mesh),
+                         cache_out="cache_specs: batch over the src group, "
+                         "every KV head on every model rank"))
+
+    def make_args(dev):                  # decode against a full cache
+        gen = torch.Generator(dev).manual_seed(1)
+        cache = lm.init_cache(cfg, batch, seq, device=dev, mesh=mesh)
+        cache["pos"].copy_(torch.arange(c, device=dev).expand(rows, c))
+        cache["t"] = c - 1
+        return (params_on(dev), cache,
+                _tokens(gen, cfg.vocab, (rows,), dev))
+
+    meta = dict(kind="decode",
+                model_flops=2 * lm.active_params(cfg) * batch
+                + 2 * 2 * cfg.n_layers * batch * c * cfg.kv_dim,
+                layers=cfg.n_layers, tokens=batch, cache_len=c,
+                params=lm.count_params(cfg))
+    return Cell(entry.arch_id, shape.name, cfg,
+                dict(token=((batch,), i64)), meta,
+                lm.make_decode_step(cfg, mesh), make_args,
+                dict(params=params_layout, cache="cache_specs: batch over "
+                     "the src group, every KV head on every model rank",
+                     token=_rows(mesh)))
+
+
+# ===================================================================== #
+# GNN family
+# ===================================================================== #
 _GNN_MODS = {"pna": pna, "graphsage-reddit": sage, "nequip": nequip,
              "equiformer-v2": equiformer_v2}
 _GEOMETRIC = {"nequip", "equiformer-v2"}
@@ -87,45 +250,279 @@ def _gnn_model_flops(arch: str, cfg, n: int, e: int) -> int:
     return 3 * cfg.n_layers * e * (so2 + 2 * wigner)
 
 
-# --------------------------------------------------------------------- #
+def _fake_agg(n: int, n_real: int, e_real: int, dev, seed: int = 0):
+    """An :class:`~repro_torch.kernels.agg.EdgeAgg` of the shapes that
+    ``e_real`` edges with receivers uniform over ``n_real`` of ``n`` nodes
+    give (seeded per-tile counts; the arrays are empty: for a traced step,
+    whose values nobody reads)."""
+    from ..kernels.agg import DEFAULT_TILES, EdgeAgg
+    from ..kernels.ops import DeviceEdgeTiles
+    tile, e1, e2 = DEFAULT_TILES
+    num_tiles = -(-n // tile)
+    nodes = np.bincount(np.arange(n_real) // tile, minlength=num_tiles)
+    counts = np.random.default_rng(seed).multinomial(e_real,
+                                                     nodes / nodes.sum())
+    nb = int((-(-counts // (e1 * e2))).sum())
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    fmt = DeviceEdgeTiles(
+        n=n, n_pad=num_tiles * tile, n_gather=num_tiles * tile + 1,
+        tile=tile, e1=e1, e2=e2, num_tiles=num_tiles,
+        src_idx=empty(nb, e1, e2), dst_local=empty(nb, e1, e2),
+        block_tile=empty(nb), tile_first_block=empty(num_tiles),
+        tile_num_blocks=empty(num_tiles), tile_order=empty(num_tiles))
+    return EdgeAgg(fmt=fmt, edge_ids=empty(e_real, dtype=torch.int64),
+                   slots=empty(e_real, dtype=torch.int64),
+                   in_degree=empty(n, dtype=torch.int64),
+                   tile_span=empty(num_tiles))
+
+
+def _real_counts(shape: ShapeCfg, dims: dict) -> tuple[int, int]:
+    """(real nodes, real directed edges) of a GNN cell."""
+    p = shape.params
+    if shape.kind == "full_graph":
+        return p["n_nodes"], 2 * p["n_edges"]
+    if shape.kind == "minibatch":
+        return subgraph_budget(p["batch_nodes"], p["fanout"])
+    return p["n_nodes"] * p["batch"], 2 * p["n_edges"] * p["batch"]
+
+
+def _gnn_batch(entry, shape, cfg, dims, dev):
+    """The cell's padded batch on ``dev``: the trainer's synthetic one on
+    a real device, a batch of its shapes under ``FakeTensorMode``."""
+    from ..kernels._build import is_fake
+    from ..models.gnn.common import GraphBatch
+    n, e = dims["n"], dims["e"]
+    if not is_fake(torch.empty(0, device=dev)):
+        from . import train
+        if shape.kind == "minibatch":
+            data = train.synthetic_reddit(cfg, dev)
+            seeds = np.random.default_rng(1000).choice(
+                data.graph.n, shape.params["batch_nodes"], replace=False)
+            mb, _ = train.sample_minibatch(data.graph, seeds,
+                                           shape.params["fanout"], n=n, e=e,
+                                           seed=0)
+            return mb.to(dev).batch(data)
+        return train.shape_batch(entry.arch_id, shape.name, cfg, dev)
+    n_real, e_real = _real_counts(shape, dims)
+    graph = dims["kind"] == "graph"
+
+    def t(*shp, dtype=torch.float32):
+        return torch.empty(shp, dtype=dtype, device=dev)
+
+    return GraphBatch(
+        n=n, x=t(n, dims["d_feat"]), src=t(e, dtype=torch.int32),
+        dst=t(e, dtype=torch.int32),
+        pos=t(n, 3) if entry.arch_id in _GEOMETRIC else None,
+        node_mask=t(n, dtype=torch.bool),
+        graph_ids=t(n, dtype=torch.int32) if dims["n_graphs"] > 1 else None,
+        n_graphs=dims["n_graphs"],
+        labels=t(dims["n_graphs"]) if graph else t(n, dtype=torch.int64),
+        seed_mask=t(n, dtype=torch.bool) if shape.kind == "minibatch"
+        else None,
+        agg=_fake_agg(n, min(n, n_real), min(e, e_real), dev))
+
+
+def build_gnn_cell(entry: ArchEntry, shape: ShapeCfg, mesh) -> Cell:
+    dims = _gnn_shape_dims(shape)
+    mod = _GNN_MODS[entry.arch_id]
+    cfg = _gnn_cfg_for(entry, dims)
+    n, e = dims["n"], dims["e"]
+    opt = optim.adamw(optim.cosine_schedule(1e-3, 10_000, 100))
+
+    def make_args(dev):
+        params = mod.init_params(cfg, 0, device=dev)
+        return (params, opt.init(params),
+                _gnn_batch(entry, shape, cfg, dims, dev))
+
+    def step(params, opt_state, batch):
+        from .train import train_step      # train imports this module
+        return train_step(params, opt_state, batch, cfg, opt, mod, mesh)
+
+    meta = dict(kind="gnn_train",
+                model_flops=_gnn_model_flops(entry.arch_id, cfg, n, e),
+                nodes=n, edges=e, layers=cfg.n_layers)
+    f32, i32 = torch.float32, torch.int32
+    return Cell(entry.arch_id, shape.name, cfg,
+                dict(x=((n, dims["d_feat"]), f32), src=((e,), i32),
+                     dst=((e,), i32)), meta, step, make_args,
+                dict(params="replicated", opt_state="replicated",
+                     batch="batch replicated (JAX splits nodes and edges "
+                     "over the src group)"))
+
+
+# ===================================================================== #
 # RecSys family
-# --------------------------------------------------------------------- #
-@dataclasses.dataclass(frozen=True)
-class RecsysCell:
-    """A recsys cell: the full config, each batch array's (shape, dtype)
-    and the JAX cell's ``meta``."""
-    arch: str
-    shape: str
-    cfg: object
-    batch: dict
-    meta: dict
-
-
-def build_recsys_cell(entry: ArchEntry, shape: ShapeCfg) -> RecsysCell:
+# ===================================================================== #
+def build_recsys_cell(entry: ArchEntry, shape: ShapeCfg, mesh=None) -> Cell:
     """The cell ``entry`` × ``shape`` (``train_batch``, ``serve_p99``,
-    ``serve_bulk`` or ``retrieval_cand``)."""
+    ``serve_bulk`` or ``retrieval_cand``): ``batch`` the global batch
+    arrays; each rank takes its data row's users (``retrieval``: one user,
+    replicated) and its rows of the tables."""
+    from . import train
     cfg = entry.config()
     p = shape.params
     d, H, K = cfg.embed_dim, cfg.hist_len, cfg.n_interests
     i32, b8 = torch.int32, torch.bool
+    dp = _dp_size(mesh)
+    row = 0 if mesh is None else mesh.row
+    tables = "param_specs: table rows over the model group, the rest " \
+        "replicated"
+
+    def params_on(dev):
+        params = mind.init_params(cfg, 0, device=dev)
+        return params if mesh is None else mind.shard_params(params, mesh)
+
+    def users_on(users, dev, train_batch):
+        """This rank's share of the users, a seeded host batch (numpy seed
+        1000 + its data row), on ``dev`` (the profile layout built on the
+        host)."""
+        if users % dp:
+            raise ValueError(f"{users} users do not split over {dp} rows")
+        hb = train.recsys_host_batch(cfg, users // dp,
+                                     np.random.default_rng(1000 + row),
+                                     tags=cfg.profile_tags,
+                                     train=train_batch)
+        return train.recsys_device_batch(hb, cfg, dev)
+
     if shape.kind in ("train", "serve"):
         b, tags = p["batch"], p["batch"] * cfg.profile_tags
         batch = dict(hist_ids=((b, H), i32), hist_mask=((b, H), b8),
                      profile_ids=((tags,), i32), profile_bags=((tags,), i32))
         extract = b * 2 * H * d * d * (cfg.capsule_iters + 1)
+        layout = dict(params=tables, batch=_rows(mesh) + " (users)")
         if shape.kind == "serve":
-            return RecsysCell(entry.arch_id, shape.name, cfg, batch,
-                              dict(kind="serve", model_flops=extract,
-                                   batch=b))
+            def serve(params, bt):
+                return mind.user_interests(
+                    params, bt["hist_ids"], bt["hist_mask"],
+                    bt["profile_ids"], bt["profile_bags"], cfg, mesh,
+                    profile_layout=bt["profile_layout"])
+
+            return Cell(entry.arch_id, shape.name, cfg, batch,
+                        dict(kind="serve", model_flops=extract, batch=b),
+                        serve, lambda dev: (params_on(dev),
+                                            users_on(b, dev, False)),
+                        layout)
         batch.update(pos_ids=((b,), i32), neg_ids=((b, cfg.n_neg), i32))
         lookups = b * (H + 1 + cfg.n_neg + cfg.profile_tags)
         flops = 3 * (extract + b * cfg.n_neg * d + lookups * d)
-        return RecsysCell(entry.arch_id, shape.name, cfg, batch,
-                          dict(kind="train", model_flops=flops,
-                               lookups=lookups, batch=b))
+        opt = optim.adamw(optim.cosine_schedule(1e-3, 10_000, 100))
+
+        def make_args(dev):
+            params = params_on(dev)
+            return params, opt.init(params), users_on(b, dev, True)
+
+        def train_step(params, state, bt):
+            return train.recsys_step(params, state, bt, cfg, opt, mesh)
+
+        layout.update(opt_state="as the params")
+        return Cell(entry.arch_id, shape.name, cfg, batch,
+                    dict(kind="train", model_flops=flops, lookups=lookups,
+                         batch=b), train_step, make_args, layout)
     nc = p["n_candidates"]
-    return RecsysCell(entry.arch_id, shape.name, cfg,
-                      dict(interests=((K, d), torch.float32),
-                           cand_ids=((nc,), i32)),
-                      dict(kind="retrieval", model_flops=2 * nc * d * K,
-                           candidates=nc))
+
+    def make_args(dev):
+        gen = torch.Generator(dev).manual_seed(1)
+        return (params_on(dev),
+                torch.randn(K, d, generator=gen, device=dev),
+                torch.randint(0, cfg.n_items, (nc,), generator=gen,
+                              device=dev))
+
+    def retrieve(params, interests, cand_ids):
+        return mind.retrieval_scores(params, interests, cand_ids, cfg, mesh)
+
+    return Cell(entry.arch_id, shape.name, cfg,
+                dict(interests=((K, d), torch.float32),
+                     cand_ids=((nc,), i32)),
+                dict(kind="retrieval", model_flops=2 * nc * d * K,
+                     candidates=nc), retrieve, make_args,
+                dict(params=tables, interests="replicated",
+                     cand_ids="replicated"))
+
+
+# ===================================================================== #
+# psi family (the paper itself)
+# ===================================================================== #
+def _psi_graph_dims(name: str) -> tuple[int, int]:
+    from ..graphs.datasets import DATASETS
+    if name.startswith("rmat"):
+        scale = int(name.removeprefix("rmat"))
+        return (1 << scale), (1 << scale) * 16
+    n, m, *_ = DATASETS[name]
+    return n, m
+
+
+def build_psi_cell(entry: ArchEntry, shape: ShapeCfg, mesh, *,
+                   probe_iters: int | None = None) -> Cell:
+    """One rank's block of the sharded Power-ψ on the dims of the shape's
+    graph (the JAX cell's ``e_max``: twice the mean edges a block, padded
+    to 128), ``chunk_iters`` steps (``probe_iters`` for a probe). A real
+    run's block is seeded: local src ids uniform, the real edges of the
+    block in dst runs of seeded lengths."""
+    from ..core.distributed import DistPsiArrays, DistributedPsi
+    from ..graphs.partition import Partition2D
+    cfg = entry.config()
+    n, m = _psi_graph_dims(shape.params["dataset"])
+    d, mo = (1, 1) if mesh is None else (mesh.d, mesh.mo)
+    q = -(-n // (d * mo))
+    e_max = int(np.ceil(m / (d * mo) * 2.0 / 128)) * 128 + 128
+    placeholder = np.broadcast_to(np.zeros((1,), np.int32), (d, mo, e_max))
+    part = Partition2D(n=n, n_pad=d * mo * q, d=d, mo=mo, q=q,
+                       src_local=placeholder, dst_local=placeholder,
+                       e_counts=np.zeros((d, mo), np.int64))
+    dist_psi = DistributedPsi(part, mesh)
+    iters = probe_iters or cfg.chunk_iters
+    run = dist_psi.make_run(chunk_iters=iters)
+    f32, i64 = torch.float32, torch.int64
+
+    def make_args(dev):
+        gen = torch.Generator(dev).manual_seed(1)
+        nc, real = part.nc, min(e_max, -(-m // (d * mo)))
+        runs = torch.zeros(nc + 1, dtype=i64, device=dev)
+        runs.index_add_(0, torch.randint(0, nc, (real,), generator=gen,
+                                         device=dev),
+                        torch.ones(real, dtype=i64, device=dev))
+        runs[nc] += e_max - real                 # the sentinel run
+        src = torch.randint(0, mo * q, (e_max,), generator=gen, device=dev)
+
+        def vec(k):
+            return torch.rand(k, generator=gen, device=dev)
+
+        arrays = DistPsiArrays(
+            src_local=src, lengths=runs, inv_w_src=vec(mo * q),
+            mu_piece=vec(q), c_piece=vec(q), c_src=vec(mo * q),
+            lam_piece=vec(q), d_piece=vec(q))
+        return arrays.c_src.clone(), arrays
+
+    meta = dict(kind="psi_iterate", nodes=n, edges=m, iters=iters,
+                model_flops=iters * 3 * m)
+    return Cell(entry.arch_id, shape.name, cfg,
+                {k: v for k, v in dist_psi.input_specs().items()}, meta,
+                run, make_args,
+                dict(s="row r of the src layout (whole on the model group)",
+                     arrays="DistributedPsi.shardings(): block (row, col) "
+                     "of the [d, mo] grid; src-layout rows over the src "
+                     "group"))
+
+
+# ===================================================================== #
+# Dispatcher
+# ===================================================================== #
+def build_cell(entry: ArchEntry, shape: ShapeCfg, mesh) -> Cell:
+    if entry.family == "lm":
+        cell = build_lm_cell(entry, shape, mesh)
+        cell.probes = [build_lm_cell(entry, shape, mesh, probe_layers=1),
+                       build_lm_cell(entry, shape, mesh, probe_layers=2)]
+        return cell
+    if entry.family == "gnn":
+        return build_gnn_cell(entry, shape, mesh)
+    if entry.family == "recsys":
+        return build_recsys_cell(entry, shape, mesh)
+    if entry.family == "psi":
+        cell = build_psi_cell(entry, shape, mesh)
+        cell.probes = [build_psi_cell(entry, shape, mesh, probe_iters=1),
+                       build_psi_cell(entry, shape, mesh, probe_iters=2)]
+        return cell
+    raise ValueError(entry.family)

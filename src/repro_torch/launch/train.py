@@ -102,8 +102,8 @@ from ..models.gnn import sage
 from ..models.gnn.common import (EdgeAgg, GraphBatch, batch_from_graph,
                                  edge_agg, pad_graph_batch, tensors_to)
 from ..models import recsys, transformer
-from ..train.optim import (adafactor, adamw, cosine_schedule, tree_leaves,
-                           tree_map)
+from ..train.optim import (ShardLayout, adafactor, adamw, cosine_schedule,
+                           tree_leaves, tree_map)
 from .specs import _GEOMETRIC, _GNN_MODS, _gnn_cfg_for, _gnn_shape_dims
 
 REDDIT_NODES = 232_965
@@ -118,14 +118,22 @@ OGB_PRODUCTS_REFUSAL = (
 
 
 def train_step(params: dict, state: dict, batch: GraphBatch, cfg, opt,
-               mod=sage):
+               mod=sage, mesh=None):
     """One optimizer step of ``mod.loss_fn`` on ``batch``: → (params,
     state, loss). A leaf the loss does not reach gets a zero gradient, as
-    under ``jax.value_and_grad``."""
+    under ``jax.value_and_grad``. With a ``mesh`` each rank holds the whole
+    batch and the parameters (the GNN cells' layout): every gradient the
+    loss reaches is summed over the src group and divided by its size."""
     loss = mod.loss_fn(params, batch, cfg)
     loss.backward()
-    grads = tree_map(lambda p: p.grad if p.grad is not None
-                     else torch.zeros_like(p), params)
+    d = 1 if mesh is None else mesh.d
+
+    def grad(p):
+        if p.grad is None:
+            return torch.zeros_like(p)
+        return p.grad if d == 1 else mesh.all_reduce_src(p.grad) / d
+
+    grads = tree_map(grad, params)
     params, state = opt.apply(grads, state, params)
     for p in tree_leaves(params):
         p.grad = None
@@ -575,18 +583,30 @@ def recsys_device_batch(hb: dict, cfg, device) -> dict:
     return out
 
 
+def recsys_layout(cfg, mesh):
+    """The optimizer's ``layout=`` for MIND's parameters on ``mesh`` (None
+    without one): the clip's norm sums a table shard's squares over the
+    model group."""
+    if mesh is None:
+        return None
+    return ShardLayout(mesh, recsys.param_specs(cfg))
+
+
 def recsys_step(params: dict, state: dict, batch: dict, cfg, opt,
                 mesh=None):
     """One optimizer step of MIND's sampled-softmax loss: → (params,
-    state, loss)."""
+    state, loss). With a mesh, ``params`` are the rank's shards
+    (``mind.shard_params``), ``batch`` its data row's users and ``state``
+    made with :func:`recsys_layout`."""
     loss, grads = recsys.loss_and_grads(params, batch, cfg, mesh)
-    params, state = opt.apply(grads, state, params)
+    kw = {} if mesh is None else dict(layout=recsys_layout(cfg, mesh))
+    params, state = opt.apply(grads, state, params, **kw)
     return params, state, loss
 
 
 def train_recsys(arch: str, steps: int, device, *, shape: str | None = None,
                  batch: int | None = None, params: dict | None = None,
-                 log=print) -> dict:
+                 mesh=None, log=print) -> dict:
     """``steps`` steps of MIND. Reduced (``shape`` None): the JAX launcher's
     run, one fixed batch of ``batch`` users (8 by default) from numpy seed
     0 with RECSYS_REDUCED_TAGS tags a user, ``adamw(cosine_schedule(1e-2,
@@ -595,7 +615,10 @@ def train_recsys(arch: str, steps: int, device, *, shape: str | None = None,
     ``cfg.n_neg`` negatives, a fresh batch each step (numpy seed 1000 +
     step), the JAX cell's ``cosine_schedule(1e-3, 10_000, 100)``.
     ``params`` (e.g. the JAX package's, converted) replaces the seeded
-    init.
+    init. With a ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh` on the
+    caller's process group) each rank holds its rows of the tables and its
+    data row's share of the users (the batch must split over the data
+    rows), and the step is :func:`recsys_step`'s sharded one.
     → {"losses", "step_ms" (CUDA events on a card, host clock on the CPU),
     "users", "params", "state", "opt", "cfg", "batch" (the last, on the
     device) and "host" (the same as numpy)}."""
@@ -624,23 +647,35 @@ def train_recsys(arch: str, steps: int, device, *, shape: str | None = None,
                if users != spec.params["batch"] else "nothing"))
     if params is None:
         params = recsys.init_params(cfg, 0, device=dev)
+    if mesh is not None:
+        if users % mesh.d:
+            raise SystemExit(f"{users} users do not split over {mesh.d} "
+                             "data rows")
+        params = recsys.shard_params(params, mesh)
+        lo, hi = (mesh.row * users // mesh.d,
+                  (mesh.row + 1) * users // mesh.d)
+
+    def mine(hb):
+        return hb if mesh is None else slice_users(hb, lo, hi)
+
     opt = adamw(sched)
     state = opt.init(params)
     out = dict(losses=[], step_ms=[], users=users, cfg=cfg, opt=opt)
     hb = fixed
-    b = recsys_device_batch(hb, cfg, dev) if fixed is not None else None
+    b = (recsys_device_batch(mine(hb), cfg, dev) if fixed is not None
+         else None)
     for step in range(steps):
         if fixed is None:
             hb = b = None                # free the last batch first
             hb = recsys_host_batch(cfg, users,
                                    np.random.default_rng(1000 + step),
                                    tags=tags)
-            b = recsys_device_batch(hb, cfg, dev)
+            b = recsys_device_batch(mine(hb), cfg, dev)
         t0 = time.perf_counter()
         if dev.type == "cuda":
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-        params, state, loss = recsys_step(params, state, b, cfg, opt)
+        params, state, loss = recsys_step(params, state, b, cfg, opt, mesh)
         if dev.type == "cuda":
             ev[1].record()
         loss = float(loss)
@@ -656,6 +691,22 @@ def train_recsys(arch: str, steps: int, device, *, shape: str | None = None,
                if dev.type == "cuda" else ""))
     out.update(params=params, state=state, batch=b, host=hb)
     return out
+
+
+def _torchrun_mesh(spec: str, device):
+    """The ``(data, model)`` mesh ``spec`` on torchrun's process group
+    (``env://``; a card a rank by ``LOCAL_RANK``)."""
+    import os
+    import torch.distributed as dist
+    from .mesh import make_mesh
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="env://")
+    return make_mesh(tuple(int(x) for x in spec.split(",")), device=dev)
 
 
 def main(argv=None):
@@ -681,6 +732,10 @@ def main(argv=None):
                     help="LM: resume from the newest step in --ckpt-dir")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="recsys: DATA,MODEL — run sharded on the ranks of "
+                         "the process group torchrun starts (each rank its "
+                         "table rows and data row's users)")
     args = ap.parse_args(argv)
     try:
         entry = get_arch(args.arch)
@@ -696,9 +751,17 @@ def main(argv=None):
             entry.shape(args.shape)
         except KeyError as exc:
             raise SystemExit(f"--shape {args.shape}: {exc.args[0]}") from None
+    if args.mesh and entry.family != "recsys":
+        raise SystemExit("--mesh runs the recsys trainer only")
     if entry.family == "recsys":
-        return train_recsys(args.arch, args.steps, args.device,
-                            shape=args.shape, batch=args.batch)
+        mesh = _torchrun_mesh(args.mesh, args.device) if args.mesh else None
+        try:
+            return train_recsys(args.arch, args.steps, args.device,
+                                shape=args.shape, batch=args.batch,
+                                mesh=mesh)
+        finally:
+            if mesh is not None:
+                mesh.close()
     if entry.family == "lm":
         return train_lm(args.arch, args.steps, args.device, shape=args.shape,
                         batch=args.batch, seq=args.seq,

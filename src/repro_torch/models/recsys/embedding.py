@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ...kernels.agg import EdgeAgg, edge_agg, seg_sum
+from ...launch.mesh import ModelSum
 
 __all__ = ["embedding_bag", "bag_layout", "sharded_lookup", "ModelSum",
            "model_ranks"]
@@ -34,23 +35,6 @@ def model_ranks(mesh) -> int:
     """The ranks a table is split over: the mesh's ``"model"`` size, 1 with
     no mesh."""
     return 1 if mesh is None else mesh.mo
-
-
-class ModelSum(torch.autograd.Function):
-    """Forward: the sum of ``x`` over the mesh's model group. Backward: the
-    cotangent as it is, as the transpose of the JAX package's ``psum``
-    inside ``shard_map`` leaves a replicated output's cotangent.
-    (``torch.distributed.nn.functional.all_reduce`` sums the cotangent over
-    the group as well, which would scale every table gradient by the model
-    size.)"""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.all_reduce_model(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
 
 
 def _owned_rows(table: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:

@@ -24,7 +24,8 @@ import torch
 from ...device import resolve_device
 from .embedding import embedding_bag, model_ranks, sharded_lookup
 
-__all__ = ["MINDConfig", "init_params", "shard_params", "user_interests",
+__all__ = ["MINDConfig", "init_params", "param_specs", "shard_params",
+           "user_interests",
            "train_loss", "loss_and_grads", "retrieval_scores"]
 
 
@@ -64,6 +65,15 @@ def init_params(cfg: MINDConfig, seed: int = 0, *,
         profile_proj=normal(d, d) / math.sqrt(d),
         b_init=normal(cfg.n_interests, cfg.hist_len))
     return {k: v.requires_grad_() for k, v in params.items()}
+
+
+def param_specs(cfg: MINDConfig) -> dict:
+    """The JAX package's ``param_specs``: the two tables' rows over the
+    model group (``P("model", None)``), the rest whole on every rank (the
+    layout spec of :mod:`repro_torch.launch.mesh`)."""
+    return dict(item_emb=("model", None), profile_emb=("model", None),
+                bilinear=(None, None), profile_proj=(None, None),
+                b_init=(None, None))
 
 
 def shard_params(params: dict, mesh) -> dict:

@@ -1,10 +1,16 @@
 """LM family of the port: TinyLlama, Yi, Nemotron and Mixtral (dense and
-MoE decoders, prefill and decode caches)."""
+MoE decoders, prefill and decode caches), on one device or sharded over a
+mesh (tensor parallelism and FSDP)."""
 from .model import (MoECfg, LMConfig, init_params, forward, loss_fn,
-                    make_train_step, make_prefill, make_decode_step,
-                    init_cache, count_params, active_params)
+                    loss_and_grads, make_train_step, make_prefill,
+                    make_decode_step, init_cache, count_params,
+                    active_params, param_specs, cache_specs, shard_params,
+                    shard_batch, local_batch, param_layout,
+                    shard_numel)
 from .attention import attention
 
 __all__ = ["MoECfg", "LMConfig", "init_params", "forward", "loss_fn",
-           "make_train_step", "make_prefill", "make_decode_step",
-           "init_cache", "count_params", "active_params", "attention"]
+           "loss_and_grads", "make_train_step", "make_prefill",
+           "make_decode_step", "init_cache", "count_params", "active_params",
+           "param_specs", "cache_specs", "shard_params", "shard_batch",
+           "local_batch", "param_layout", "shard_numel", "attention"]

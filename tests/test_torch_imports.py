@@ -67,7 +67,8 @@ SLICE_MODULES = [
     "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.mixtral_8x22b",
     "repro_torch.kernels.agg", "repro_torch.models.recsys",
     "repro_torch.models.recsys.embedding", "repro_torch.models.recsys.mind",
-    "repro_torch.configs.mind",
+    "repro_torch.configs.mind", "repro_torch.models.transformer.parallel",
+    "repro_torch.launch.dryrun",
 ]
 
 

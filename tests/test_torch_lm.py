@@ -222,7 +222,7 @@ def test_configs_and_registry_match_jax():
             td, jd = dataclasses.asdict(tc), dataclasses.asdict(jc)
             for k in ("dtype", "param_dtype"):
                 assert td.pop(k) == TORCH_DTYPE[jd.pop(k)]
-            assert jd.pop("fsdp") in (True, False)
+            assert td.pop("fsdp") == jd.pop("fsdp")
             assert jd.pop("unroll_layers") is False
             assert td == jd
     assert get_arch("tinyllama-1.1b").shape("long_500k").skip
