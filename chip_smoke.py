@@ -226,11 +226,14 @@ its backward against the plain gather. Phase 9 times the bag sum there
   timing runs beside it): 84 records, 78 traced ``ok`` with the JAX
   record's keys and 6 skips. (2)
   DRYRUN_REAL on 16 × 16: traced on fake CUDA tensors (``seg_mm``'s
-  shape-only path), then rank 0's arguments made real on the card and
+  registered fake), then rank 0's arguments made real on the card and
   one step run (collectives on the fake backend: compute only); the
-  measured peak within DRYRUN_MEM_RTOL of the estimate. (3) World 1: a
-  (1, 1) mesh gives the bits of ``mesh=None`` for a TinyLlama train step
-  and a prefill at full width (DRYRUN_BITWISE).
+  measured peak within DRYRUN_MEM_RTOL of the estimate; PNA's
+  ``ogb_products`` as rank 0 of its batch split over the 16 data ranks
+  (the rank's shard alone built, ``seg_mm`` launched on it). (3) World 1:
+  a (1, 1) mesh gives the bits of ``mesh=None`` for a TinyLlama train step
+  and a prefill at full width (DRYRUN_BITWISE) and a PNA ``full_graph_sm``
+  train step.
 
 Phases 3 to 8, ``gnn_families``, ``paper``, ``push``, ``stream``,
 ``driver``, ``chaos``, ``lm``, ``recsys`` and ``dryrun``
@@ -447,13 +450,14 @@ RECSYS_BAG_D = 64
 RECSYS_BAG_SENTINEL_EVERY = 16
 RECSYS_BAG_EMPTY_EVERY = 97
 # the dryrun path: the cells run for real as rank 0 of the 16 x 16
-# production mesh on the fake backend, the largest allowed gap between the
-# traced memory estimate and the card's peak (a share of the measured), the
-# fake-trace CLI's worker processes (the host's 8 cores) and its count of
-# records (84: 78 traced, 6 skips)
+# production mesh on the fake backend (PNA's ogb_products: the rank's
+# 153,088 nodes and 7,732,480 edges of the split batch), the largest
+# allowed gap between the traced memory estimate and the card's peak (a
+# share of the measured), the fake-trace CLI's worker processes (the
+# host's 8 cores) and its count of records (84: 78 traced, 6 skips)
 DRYRUN_REAL = (("tinyllama-1.1b", "train_4k"), ("mixtral-8x7b", "prefill_32k"),
                ("yi-9b", "train_4k"), ("mind", "train_batch"),
-               ("psi-score", "twitter_scale"))
+               ("psi-score", "twitter_scale"), ("pna", "ogb_products"))
 DRYRUN_MEM_RTOL = 0.15
 DRYRUN_WORKERS = 8
 DRYRUN_RECORDS = (84, 78, 6)
@@ -3883,10 +3887,12 @@ def start_dryrun_job(out_dir: Path) -> subprocess.Popen:
 
 def dryrun_real(out: dict) -> None:
     """Part 2: DRYRUN_REAL as rank 0 of the 16 x 16 mesh on the fake
-    backend: traced on fake CUDA tensors (``seg_mm``'s shape-only path),
+    backend: traced on fake CUDA tensors (``seg_mm``'s registered fake),
     then made real on the card and run once; the measured peak within
-    DRYRUN_MEM_RTOL of the estimate."""
+    DRYRUN_MEM_RTOL of the estimate; the real run's ``seg_mm`` launches
+    (a GNN cell's must be some)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.seg_mm import seg_mm_call
     from repro_torch.launch import dryrun, specs
     out["real"] = {}
     with dryrun.production_mesh(False, "cuda") as mesh:
@@ -3894,23 +3900,30 @@ def dryrun_real(out: dict) -> None:
             _free()
             entry = get_arch(arch)
             cell = specs.build_cell(entry, entry.shape(shape), mesh)
+            before = seg_mm_call.launches
             rec = dryrun.run_cell(cell, mesh, "pod16x16", device="cuda")
             check(rec["ok"], f"dryrun {arch} {shape}: {rec.get('error')}")
+            launches = seg_mm_call.launches - before
             est = rec["memory"]["peak_bytes"]
             got = rec["memory"]["measured_peak_bytes"]
             gap = (est - got) / got
             out["real"][f"{arch}/{shape}"] = dict(
                 estimate=est, measured=got, gap=gap,
                 device_ms=rec["device_ms"], trace_s=rec["trace_s"],
-                flops=rec["cost"]["flops"],
+                flops=rec["cost"]["flops"], seg_mm_launches=launches,
+                layout=rec["layout"],
                 collectives={k: v["count"] for k, v in
                              rec["collectives"].items() if v["count"]})
             say(f"dryrun {arch} {shape} (rank 0 of 16x16): estimated peak "
                 f"{est / 2**30:.3f} GiB, measured {got / 2**30:.3f} GiB "
                 f"({gap:+.1%}); step {rec['device_ms']:.1f} ms on the card "
                 f"(compute only); traced in {rec['trace_s']:.1f} s; flops "
-                f"{rec['cost']['flops']:.4e}; collectives "
+                f"{rec['cost']['flops']:.4e}; seg_mm launches {launches}; "
+                f"collectives "
                 f"{out['real'][f'{arch}/{shape}']['collectives']}")
+            if entry.family == "gnn":
+                check(launches > 0, f"dryrun {arch} {shape}: no seg_mm "
+                      "launch in the rank-0 step")
             check(abs(gap) <= DRYRUN_MEM_RTOL, f"dryrun {arch} {shape}: "
                   f"estimate {est} vs measured {got} ({gap:+.1%})")
 
@@ -3919,10 +3932,14 @@ def dryrun_bitwise(out: dict) -> None:
     """Part 3: at world 1 on the card a (1, 1) mesh gives the bits of
     mesh=None: TinyLlama at full width, DRYRUN_BITWISE layers x batch x
     seq, float32 — a train step (loss and every parameter after AdamW) and
-    a prefill (logits and cache)."""
+    a prefill (logits and cache); PNA's full_graph_sm cell at full width —
+    a train step (loss and every parameter), under deterministic
+    algorithms (its gathers' backward adds with atomics otherwise, and two
+    runs of one step differ)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
     from repro_torch.train.optim import adamw, constant_schedule, tree_leaves
@@ -3945,13 +3962,26 @@ def dryrun_bitwise(out: dict) -> None:
             cache, logits = T.make_prefill(cfg, m)(params, tok)
             runs[name] = [loss, logits, cache["k"], cache["v"]] + [
                 p.detach() for p in tree_leaves(params)]
+            # the GNN step's gathers add their cotangents with atomics
+            # (index_add_): deterministic algorithms make each run
+            # reproducible, so that the two runs can be compared bitwise
+            entry = get_arch("pna")
+            cell = specs.build_gnn_cell(entry, entry.shape("full_graph_sm"),
+                                        m)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                gp, gs, gl = cell.step(*cell.make_args(torch.device("cuda")))
+            finally:
+                torch.use_deterministic_algorithms(False)
+            runs[name] += [gl] + [p.detach() for p in tree_leaves(gp)]
         same = all(torch.equal(x, y) for x, y in zip(runs["none"],
                                                        runs["mesh"]))
     finally:
         mesh.close()
     out["bitwise"] = same
     say(f"dryrun: mesh (1, 1) vs mesh=None, a TinyLlama train step and a "
-        f"prefill ({layers} layers, {b} x {s}, f32): bitwise {same}")
+        f"prefill ({layers} layers, {b} x {s}, f32) and a PNA full_graph_sm "
+        f"step: bitwise {same}")
     check(same, "mesh (1, 1) differs from mesh=None")
 
 
@@ -4823,7 +4853,7 @@ def summary(report: dict) -> str:
         "recsys_bag_ms": _lm_summary(report["recsys_bag"], g),
         "dryrun": {"real": {k: {kk: g(vv) for kk, vv in v.items()
                                 if kk in ("estimate", "measured", "gap",
-                                          "device_ms")}
+                                          "device_ms", "seg_mm_launches")}
                             for k, v in report["dryrun"]["real"].items()},
                    "bitwise": report["dryrun"]["bitwise"],
                    "records": report["dryrun"]["records"],

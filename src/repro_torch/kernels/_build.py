@@ -10,11 +10,11 @@ library, and :func:`build_all` starts every ``nvcc`` at once when a caller
 wants them all up front.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
-:func:`check` raises on anything but 0. A wrapper given FakeTensors
-(:func:`is_fake`: the dry run's traced step, which allocates nothing) takes
-a shape-only path: it returns an empty output of the kernel's shape,
-launches nothing and computes no value. A failed build raises with nvcc's
-stderr. There is no fallback: a kernel that does not build or launch is an
+:func:`check` raises on anything but 0. A wrapper on the dry run's traced
+step (FakeTensors, which allocate nothing) launches nothing: ``seg_mm``'s
+operator has a registered fake that returns an empty output of the
+kernel's shape; :func:`is_fake` tells a FakeTensor from a real one. A
+failed build raises with nvcc's stderr. There is no fallback: a kernel that does not build or launch is an
 error, never a quiet switch to the plain PyTorch version.
 """
 from __future__ import annotations

@@ -7,6 +7,11 @@ rows in padding slots), ``dst_local`` the row of each slot within its
 block's node tile. :func:`seg_mm_call` launches ``csrc/seg_mm.cu`` on a CUDA
 tensor (and counts the launch in ``seg_mm_call.launches``) and runs
 :func:`seg_mm_plain`, the same function in plain PyTorch, on a CPU tensor.
+It goes through the operator ``torch.ops.repro_torch.seg_mm`` (a
+``torch.library.custom_op`` with a registered fake): a dispatch mode sees
+one call with its inputs and its output, on FakeTensors as on real ones,
+and a FakeTensor gets an empty output of the kernel's shape (nothing is
+launched).
 :class:`SegMM` makes it differentiable: the gradient of a message row is the
 output gradient of its row, a plain gather (the JAX package differentiates
 its ``segment_sum`` the same way, with no kernel).
@@ -89,6 +94,47 @@ def _vector_width(messages: torch.Tensor) -> int:
     return 1
 
 
+@torch.library.custom_op(
+    "repro_torch::seg_mm", mutates_args=(),
+    schema="(Tensor messages, Tensor dst_local, Tensor block_tile, "
+           "Tensor tile_first_block, Tensor tile_num_blocks, int tile, "
+           "Tensor? tile_span) -> Tensor")
+def _seg_mm_op(messages, dst_local, block_tile, tile_first_block,
+               tile_num_blocks, tile, tile_span):
+    """The operator behind :func:`seg_mm_call` (its real implementation)."""
+    num_tiles = tile_first_block.shape[0]
+    if messages.device.type == "cpu":
+        return seg_mm_plain(messages, dst_local, block_tile, tile=tile,
+                            num_tiles=num_tiles)
+    _check_inputs(messages, dst_local, tile_first_block, tile_num_blocks,
+                  tile_span, tile)
+    _, eblk, d = messages.shape
+    out = torch.empty(num_tiles * tile, d, dtype=messages.dtype,
+                      device=messages.device)
+    if out.numel() == 0:
+        return out
+    symbol = ("repro_seg_mm_f32" if messages.dtype == torch.float32
+              else "repro_seg_mm_f64")
+    fn = _build.entry("seg_mm", symbol, _ARGTYPES)
+    with torch.cuda.device(messages.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(messages.data_ptr(), dst_local.data_ptr(),
+                    tile_first_block.data_ptr(), tile_num_blocks.data_ptr(),
+                    None if tile_span is None else tile_span.data_ptr(),
+                    out.data_ptr(), num_tiles, tile, eblk, d,
+                    _vector_width(messages), stream)
+    _build.check("seg_mm", status)
+    seg_mm_call.launches += 1
+    return out
+
+
+@_seg_mm_op.register_fake
+def _seg_mm_fake(messages, dst_local, block_tile, tile_first_block,
+                 tile_num_blocks, tile, tile_span):
+    return messages.new_empty(tile_first_block.shape[0] * tile,
+                              messages.shape[-1])
+
+
 def seg_mm_call(messages: torch.Tensor, dst_local: torch.Tensor,
                 block_tile: torch.Tensor, tile_first_block: torch.Tensor,
                 tile_num_blocks: torch.Tensor, *, tile: int,
@@ -112,34 +158,10 @@ def seg_mm_call(messages: torch.Tensor, dst_local: torch.Tensor,
       f[num_tiles * tile, d]; zeros for a tile without blocks. On
       FakeTensors an empty output of that shape (nothing is launched).
     """
-    num_tiles = tile_first_block.shape[0]
-    if _build.is_fake(messages):                 # a traced step: shape only
-        return messages.new_empty(num_tiles * tile, messages.shape[-1])
-    if messages.device.type == "cpu":
-        return seg_mm_plain(messages, dst_local, block_tile, tile=tile,
-                            num_tiles=num_tiles)
-    if messages.device.type != "cuda":
+    if messages.device.type not in ("cuda", "cpu"):   # meta: no fake here
         raise ValueError(f"seg_mm runs on cuda or cpu; got {messages.device}")
-    _check_inputs(messages, dst_local, tile_first_block, tile_num_blocks,
-                  tile_span, tile)
-    _, eblk, d = messages.shape
-    out = torch.empty(num_tiles * tile, d, dtype=messages.dtype,
-                      device=messages.device)
-    if out.numel() == 0:
-        return out
-    symbol = ("repro_seg_mm_f32" if messages.dtype == torch.float32
-              else "repro_seg_mm_f64")
-    fn = _build.entry("seg_mm", symbol, _ARGTYPES)
-    with torch.cuda.device(messages.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(messages.data_ptr(), dst_local.data_ptr(),
-                    tile_first_block.data_ptr(), tile_num_blocks.data_ptr(),
-                    None if tile_span is None else tile_span.data_ptr(),
-                    out.data_ptr(), num_tiles, tile, eblk, d,
-                    _vector_width(messages), stream)
-    _build.check("seg_mm", status)
-    seg_mm_call.launches += 1
-    return out
+    return _seg_mm_op(messages, dst_local, block_tile, tile_first_block,
+                      tile_num_blocks, tile, tile_span)
 
 
 seg_mm_call.launches = 0

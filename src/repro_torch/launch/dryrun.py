@@ -17,8 +17,11 @@ is a FakeTensor (``FakeTensorMode``: shapes and dtypes, no storage) on the
 ``--device``'s type, and the cell's step (:mod:`repro_torch.launch.specs`)
 runs once under one counting dispatch mode:
 
-* ``torch.utils.flop_counter``'s formulas → ``cost.flops`` (what
-  ``FlopCounterMode`` counts: matmuls, convolutions, attention; the
+* :data:`FLOP_FORMULAS` → ``cost.flops``: ``torch.utils.flop_counter``'s
+  formulas (what ``FlopCounterMode`` counts: matmuls, convolutions,
+  attention) and the segment sums, one FLOP per floating-point source
+  element of ``segment_reduce``, ``index_add``, ``scatter_add`` and
+  ``scatter_reduce`` and per message element ``seg_mm`` reads (the
   record's ``cost.flops_scope`` says so);
 * every op's input and output bytes (views excluded) →
   ``cost.bytes_accessed``;
@@ -81,16 +84,58 @@ from ..configs.registry import ARCHS, get_arch
 from .mesh import make_production_mesh
 from .specs import Cell, build_cell
 
-__all__ = ["MESHES", "FLOPS_SCOPE", "start_fake_world", "trace_cell",
+__all__ = ["MESHES", "FLOPS_SCOPE", "SEGMENT_SUM_FLOPS", "FLOP_FORMULAS",
+           "start_fake_world",
+           "trace_cell",
            "trace_keys", "trace_task", "trace_in_pool", "run_real",
            "run_cell", "iter_cells", "main"]
 
 # record name -> multi_pod
 MESHES = {"pod16x16": False, "pod2x16x16": True}
 # what a record's cost.flops counts (its cost.flops_scope)
-FLOPS_SCOPE = ("torch.utils.flop_counter's formulas: matmuls, convolutions "
-               "and attention; elementwise ops, reductions, gathers, "
-               "segment sums and shape-only kernel calls count 0")
+FLOPS_SCOPE = ("torch.utils.flop_counter's formulas (matmuls, convolutions, "
+               "attention) and the segment sums: one per floating-point "
+               "source element of segment_reduce, index_add, scatter_add and "
+               "scatter_reduce (a scatter whose index is 1 long along its "
+               "dimension, as a gather's backward, sums nothing: 0), one per "
+               "message element of seg_mm; elementwise ops, other "
+               "reductions and gathers count 0")
+
+
+def _per_source_element(pos: int, name: str, scatter: bool = False):
+    """A FLOP formula for a segment sum: one per element of its source
+    (argument ``pos``, or keyword ``name``) when that is floating point
+    (an integer count is no FLOP); for a ``scatter`` 0 when its index is 1
+    long along the scattered dimension (each target receives one source at
+    most: a gather's backward). It reads the tensors themselves
+    (``_get_raw``: ``FlopCounterMode`` passes them as they are)."""
+    def formula(*args, out_val=None, **kwargs):
+        src = kwargs[name] if name in kwargs else args[pos]
+        if not src.is_floating_point():
+            return 0
+        if scatter:
+            dim = args[1] if len(args) > 1 else kwargs["dim"]
+            index = args[2] if len(args) > 2 else kwargs["index"]
+            if index.dim() and index.shape[dim] <= 1:
+                return 0
+        return src.numel()
+    formula._get_raw = True
+    return formula
+
+
+_aten = torch.ops.aten
+# the segment sums' formulas, keyed by operator (FlopCounterMode takes them
+# as its custom_mapping), and the counting mode's whole map
+SEGMENT_SUM_FLOPS = {
+    **{op: _per_source_element(3, "source")
+       for op in (_aten.index_add, _aten.index_add_)},
+    **{op: _per_source_element(3, "src", scatter=True)
+       for op in (_aten.scatter_add, _aten.scatter_add_,
+                  _aten.scatter_reduce, _aten.scatter_reduce_)},
+    _aten.segment_reduce: _per_source_element(0, "data"),
+    torch.ops.repro_torch.seg_mm: _per_source_element(0, "messages"),
+}
+FLOP_FORMULAS = {**flop_registry, **SEGMENT_SUM_FLOPS}
 
 
 def start_fake_world(world: int) -> None:
@@ -120,8 +165,8 @@ _METADATA = frozenset(
 class _Counter(TorchDispatchMode):
     """One pass over every op of a traced step, counting three things:
 
-    * FLOPs by ``torch.utils.flop_counter``'s formulas (matmuls,
-      convolutions, attention: what ``FlopCounterMode`` counts);
+    * FLOPs by :data:`FLOP_FORMULAS` (matmuls, convolutions, attention:
+      what ``FlopCounterMode`` counts; the segment sums);
     * the bytes of every op's tensor inputs and outputs (view ops, which
       move nothing, excluded);
     * the bytes live on the device: each distinct storage from the op that
@@ -160,7 +205,7 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if func in _METADATA:
             return out
-        formula = flop_registry.get(func._overloadpacket)
+        formula = FLOP_FORMULAS.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
         if not func.is_view:

@@ -214,14 +214,16 @@ class Mesh:
         self._count("all-gather", out)
         return out
 
-    def all_reduce_src(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of ``x`` over the src group (a new tensor)."""
-        return self._all_reduce(x, self.src_group)
+    def all_reduce_src(self, x: torch.Tensor,
+                       op: str = "sum") -> torch.Tensor:
+        """Sum (``op="max"`` / ``"min"``: maximum / minimum) of ``x`` over
+        the src group (a new tensor)."""
+        return self._all_reduce(x, self.src_group, op)
 
     def all_reduce_model(self, x: torch.Tensor,
                          op: str = "sum") -> torch.Tensor:
-        """Sum (``op="max"``: maximum) of ``x`` over the model group (a new
-        tensor)."""
+        """Sum (``op="max"`` / ``"min"``: maximum / minimum) of ``x`` over
+        the model group (a new tensor)."""
         return self._all_reduce(x, self.model_group, op)
 
     def all_reduce_world(self, x: torch.Tensor) -> torch.Tensor:
@@ -231,7 +233,8 @@ class Mesh:
     def _all_reduce(self, x, group, op: str = "sum"):
         out = x.reshape(-1).clone()
         dist.all_reduce(out, op=dict(sum=dist.ReduceOp.SUM,
-                                     max=dist.ReduceOp.MAX)[op], group=group)
+                                     max=dist.ReduceOp.MAX,
+                                     min=dist.ReduceOp.MIN)[op], group=group)
         self._count("all-reduce", out)
         return out.reshape(x.shape)
 

@@ -17,13 +17,18 @@ run (:mod:`repro_torch.launch.dryrun`) traces. The mesh is a
   optimizer over ``cosine_schedule(3e-4, 10_000, 200)`` and the JAX
   ``_effective_accum``. A train cell's probes are the JAX probes: one
   microbatch, 1 and 2 layers.
-* GNN (:func:`build_gnn_cell`): JAX's replicated parameters; the padded
-  batch whole on every rank (``layout: "batch replicated"``: the port's
-  GNN models index positions and features on the whole graph, where JAX
-  splits nodes and edges over the data ranks), the gradients all-reduced
-  over the src group. The aggregation format's shape depends on the edges:
-  a traced cell's comes from seeded per-tile edge counts of the cell's
-  padded dims, a real run's from the trainer's synthetic batch.
+* GNN (:func:`build_gnn_cell`): JAX's replicated parameters; JAX's batch
+  layout, nodes and edges each over the src group where it divides them
+  (:mod:`repro_torch.models.gnn.parallel`: a rank holds its node rows and
+  its slice of the dst-sorted edges, the models gather and reduce over the
+  src group), each rank's share of the gradients summed over it. A real
+  run's rank makes only its shard: a full-graph cell's from chunked numpy
+  seeds (:func:`~repro_torch.launch.train.full_graph_shard`; the whole
+  ``ogb_products`` graph is never built), the others cut from the
+  trainer's small synthetic batch. A traced cell's aggregation format has
+  the shapes of the real one: a full-graph cell's from the shard's own
+  receivers, the others' from seeded per-tile counts of the rank's real
+  edges.
 * recsys (:func:`build_recsys_cell`): MIND's tables row-sharded over the
   model group (``mind.param_specs``), each rank its data row's users.
 * ψ (:func:`build_psi_cell`): one rank's block of :class:`~repro_torch.
@@ -250,19 +255,31 @@ def _gnn_model_flops(arch: str, cfg, n: int, e: int) -> int:
     return 3 * cfg.n_layers * e * (so2 + 2 * wigner)
 
 
-def _fake_agg(n: int, n_real: int, e_real: int, dev, seed: int = 0):
-    """An :class:`~repro_torch.kernels.agg.EdgeAgg` of the shapes that
-    ``e_real`` edges with receivers uniform over ``n_real`` of ``n`` nodes
-    give (seeded per-tile counts; the arrays are empty: for a traced step,
-    whose values nobody reads)."""
+def _tile_counts(n: int, receivers: tuple[int, int], e_real: int,
+                 seed: int = 0) -> np.ndarray:
+    """Seeded real-edge counts of each node tile of the aggregation format
+    for ``e_real`` edges with receivers uniform over the nodes ``[lo,
+    hi)`` of ``n``."""
+    from ..kernels.agg import DEFAULT_TILES
+    tile = DEFAULT_TILES[0]
+    nodes = np.bincount(np.arange(*receivers) // tile,
+                        minlength=-(-n // tile))
+    if e_real == 0:
+        return np.zeros_like(nodes)
+    return np.random.default_rng(seed).multinomial(e_real,
+                                                   nodes / nodes.sum())
+
+
+def _fake_agg(n: int, counts: np.ndarray, dev):
+    """An :class:`~repro_torch.kernels.agg.EdgeAgg` of the shapes that real
+    edges of per-tile ``counts`` over ``n`` nodes give (the arrays are
+    empty: for a traced step, whose values nobody reads)."""
     from ..kernels.agg import DEFAULT_TILES, EdgeAgg
     from ..kernels.ops import DeviceEdgeTiles
     tile, e1, e2 = DEFAULT_TILES
     num_tiles = -(-n // tile)
-    nodes = np.bincount(np.arange(n_real) // tile, minlength=num_tiles)
-    counts = np.random.default_rng(seed).multinomial(e_real,
-                                                     nodes / nodes.sum())
-    nb = int((-(-counts // (e1 * e2))).sum())
+    e_real = int(counts.sum())
+    nb = int(np.maximum(1, -(-counts // (e1 * e2))).sum())  # a block a tile
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -289,14 +306,24 @@ def _real_counts(shape: ShapeCfg, dims: dict) -> tuple[int, int]:
     return p["n_nodes"] * p["batch"], 2 * p["n_edges"] * p["batch"]
 
 
-def _gnn_batch(entry, shape, cfg, dims, dev):
-    """The cell's padded batch on ``dev``: the trainer's synthetic one on
-    a real device, a batch of its shapes under ``FakeTensorMode``."""
+def _gnn_batch(entry, shape, cfg, dims, dev, mesh):
+    """This rank's shard of the cell's padded batch on ``dev``
+    (:func:`~repro_torch.models.gnn.parallel.split_flags` over ``mesh``):
+    made from numpy seeds on a real device, of its shapes under
+    ``FakeTensorMode``."""
     from ..kernels._build import is_fake
+    from ..kernels.agg import DEFAULT_TILES
     from ..models.gnn.common import GraphBatch
+    from ..models.gnn.parallel import (GraphSplit, row_range, shard_batch,
+                                       split_flags)
     n, e = dims["n"], dims["e"]
+    n_real, e_real = _real_counts(shape, dims)
     if not is_fake(torch.empty(0, device=dev)):
         from . import train
+        if shape.kind == "full_graph":
+            return train.full_graph_shard(
+                n_real, e_real, n, e, dims["d_feat"], dims["n_classes"], dev,
+                mesh=mesh, geometric=entry.arch_id in _GEOMETRIC)
         if shape.kind == "minibatch":
             data = train.synthetic_reddit(cfg, dev)
             seeds = np.random.default_rng(1000).choice(
@@ -304,28 +331,70 @@ def _gnn_batch(entry, shape, cfg, dims, dev):
             mb, _ = train.sample_minibatch(data.graph, seeds,
                                            shape.params["fanout"], n=n, e=e,
                                            seed=0)
-            return mb.to(dev).batch(data)
-        return train.shape_batch(entry.arch_id, shape.name, cfg, dev)
-    n_real, e_real = _real_counts(shape, dims)
+            return shard_batch(mb.to(dev).batch(data), mesh)
+        return shard_batch(train.shape_batch(entry.arch_id, shape.name, cfg,
+                                             dev), mesh)
+    flags = split_flags(n, e, mesh)
+    nodes, edges = flags or (False, False)
+    nlo, nhi = row_range(n, mesh, nodes)
+    elo, ehi = row_range(e, mesh, edges)
+    rows = nhi - nlo
+    tile = DEFAULT_TILES[0]
+    if shape.kind == "full_graph":
+        # the format of the shard's own receivers, block for block
+        from .train import full_graph_receivers
+        dst, _ = full_graph_receivers(n_real, e_real, n, elo, ehi)
+        counts = np.bincount(dst[dst < n] // tile, minlength=-(-n // tile))
+    else:
+        # this rank's real edges, their receivers spread over the real
+        # nodes as the dst order spreads them
+        real = max(0, min(ehi, e_real) - elo)
+        counts = _tile_counts(n, (elo * n_real // e_real, min(
+            n_real, -(-(elo + real) * n_real // e_real))), real)
     graph = dims["kind"] == "graph"
 
     def t(*shp, dtype=torch.float32):
         return torch.empty(shp, dtype=dtype, device=dev)
 
     return GraphBatch(
-        n=n, x=t(n, dims["d_feat"]), src=t(e, dtype=torch.int32),
-        dst=t(e, dtype=torch.int32),
-        pos=t(n, 3) if entry.arch_id in _GEOMETRIC else None,
-        node_mask=t(n, dtype=torch.bool),
-        graph_ids=t(n, dtype=torch.int32) if dims["n_graphs"] > 1 else None,
-        n_graphs=dims["n_graphs"],
-        labels=t(dims["n_graphs"]) if graph else t(n, dtype=torch.int64),
-        seed_mask=t(n, dtype=torch.bool) if shape.kind == "minibatch"
+        n=n, x=t(rows, dims["d_feat"]), src=t(ehi - elo, dtype=torch.int32),
+        dst=t(ehi - elo, dtype=torch.int32),
+        pos=t(rows, 3) if entry.arch_id in _GEOMETRIC else None,
+        node_mask=t(rows, dtype=torch.bool),
+        graph_ids=t(rows, dtype=torch.int32) if dims["n_graphs"] > 1
         else None,
-        agg=_fake_agg(n, min(n, n_real), min(e, e_real), dev))
+        n_graphs=dims["n_graphs"],
+        labels=t(dims["n_graphs"]) if graph else t(rows, dtype=torch.int64),
+        seed_mask=t(rows, dtype=torch.bool) if shape.kind == "minibatch"
+        else None,
+        agg=_fake_agg(n, counts, dev),
+        split=None if flags is None else GraphSplit(
+            mesh=mesh, n=n, e=e, nodes=nodes, edges=edges,
+            in_degree=t(rows, dtype=torch.int64)))
+
+
+def _gnn_layout(flags) -> dict:
+    """The cell's ``layout``: JAX's ``build_gnn_cell`` specs, rule for
+    rule."""
+    nodes, edges = flags or (False, False)
+    return dict(
+        params="replicated", opt_state="replicated",
+        nodes=("x, pos, node_mask, graph_ids, seed_mask and node labels: "
+               "rows over the src group, rank row r holds [r*n/d, "
+               "(r+1)*n/d)" if nodes else "x, pos, node_mask, graph_ids, "
+               "seed_mask and node labels replicated"),
+        edges=("src, dst: over the src group, rank row r holds [r*e/d, "
+               "(r+1)*e/d) of the padded dst-sorted edges, global node ids"
+               if edges else "src, dst replicated"),
+        graph_labels="replicated")
 
 
 def build_gnn_cell(entry: ArchEntry, shape: ShapeCfg, mesh) -> Cell:
+    """The GNN cell ``entry`` × ``shape``: a train step of the rank's
+    shard of the padded batch (nodes and edges split over the src group
+    where it divides them, as JAX's cell), its parameters and AdamW state
+    whole on every rank."""
+    from ..models.gnn.parallel import split_flags
     dims = _gnn_shape_dims(shape)
     mod = _GNN_MODS[entry.arch_id]
     cfg = _gnn_cfg_for(entry, dims)
@@ -335,7 +404,7 @@ def build_gnn_cell(entry: ArchEntry, shape: ShapeCfg, mesh) -> Cell:
     def make_args(dev):
         params = mod.init_params(cfg, 0, device=dev)
         return (params, opt.init(params),
-                _gnn_batch(entry, shape, cfg, dims, dev))
+                _gnn_batch(entry, shape, cfg, dims, dev, mesh))
 
     def step(params, opt_state, batch):
         from .train import train_step      # train imports this module
@@ -348,9 +417,7 @@ def build_gnn_cell(entry: ArchEntry, shape: ShapeCfg, mesh) -> Cell:
     return Cell(entry.arch_id, shape.name, cfg,
                 dict(x=((n, dims["d_feat"]), f32), src=((e,), i32),
                      dst=((e,), i32)), meta, step, make_args,
-                dict(params="replicated", opt_state="replicated",
-                     batch="batch replicated (JAX splits nodes and edges "
-                     "over the src group)"))
+                _gnn_layout(split_flags(n, e, mesh)))
 
 
 # ===================================================================== #

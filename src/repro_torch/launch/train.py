@@ -121,9 +121,12 @@ def train_step(params: dict, state: dict, batch: GraphBatch, cfg, opt,
                mod=sage, mesh=None):
     """One optimizer step of ``mod.loss_fn`` on ``batch``: → (params,
     state, loss). A leaf the loss does not reach gets a zero gradient, as
-    under ``jax.value_and_grad``. With a ``mesh`` each rank holds the whole
-    batch and the parameters (the GNN cells' layout): every gradient the
-    loss reaches is summed over the src group and divided by its size."""
+    under ``jax.value_and_grad``. With a ``mesh`` every rank holds the
+    parameters. A batch split over the data ranks (``batch.split``: the
+    GNN cells' layout, :mod:`repro_torch.models.gnn.parallel`) gives each
+    rank its share of every gradient, summed over the src group; a batch
+    whole on every rank gives each the whole gradient, summed over the src
+    group and divided by its size."""
     loss = mod.loss_fn(params, batch, cfg)
     loss.backward()
     d = 1 if mesh is None else mesh.d
@@ -131,7 +134,11 @@ def train_step(params: dict, state: dict, batch: GraphBatch, cfg, opt,
     def grad(p):
         if p.grad is None:
             return torch.zeros_like(p)
-        return p.grad if d == 1 else mesh.all_reduce_src(p.grad) / d
+        if d == 1:
+            return p.grad
+        if batch.split is not None:
+            return mesh.all_reduce_src(p.grad)
+        return mesh.all_reduce_src(p.grad) / d
 
     grads = tree_map(grad, params)
     params, state = opt.apply(grads, state, params)
@@ -332,6 +339,85 @@ def synthetic_cora(cfg, device, *, geometric: bool = False) -> GraphBatch:
            else None)
     b = batch_from_graph(g, x, labels=labels, pos=pos, device=device)
     return pad_graph_batch(b, dims["n"], dims["e"])
+
+
+# a full-graph cell's synthetic graph is drawn in chunks of edge positions
+# and of node rows, each from a numpy seed of its own: a rank draws only the
+# chunks its shard touches, and any split assembles to the same graph
+EDGE_CHUNK, ROW_CHUNK = 1 << 16, 1 << 12
+
+
+def _chunked(draw, seed: int, lo: int, hi: int, chunk: int) -> np.ndarray:
+    """Items ``[lo, hi)`` of a sequence drawn ``chunk`` at a time, chunk
+    ``k`` by ``draw(np.random.default_rng([seed, k]), chunk)``."""
+    if hi <= lo:
+        return draw(np.random.default_rng([seed, 0]), 0)
+    k0 = lo // chunk
+    parts = [draw(np.random.default_rng([seed, k]), chunk)
+             for k in range(k0, -(-hi // chunk))]
+    return np.concatenate(parts)[lo - k0 * chunk:hi - k0 * chunk]
+
+
+def full_graph_receivers(n_real: int, e_real: int, n: int, lo: int,
+                         hi: int, *, seed: int = 5):
+    """(receivers of the dst-sorted edge slots ``[lo, hi)`` (sentinel ``n``
+    past the ``e_real`` real ones), every real node's in-degree) of
+    :func:`full_graph_shard`'s graph."""
+    deg = np.random.default_rng(seed).multinomial(
+        e_real, np.full(n_real, 1.0 / n_real))
+    dst = np.full(hi - lo, n, np.int64)
+    k = max(0, min(hi, e_real) - lo)
+    dst[:k] = np.searchsorted(np.cumsum(deg), np.arange(lo, lo + k),
+                              side="right")
+    return dst, deg
+
+
+def full_graph_shard(n_real: int, e_real: int, n: int, e: int, d_feat: int,
+                     n_classes: int, device, *, mesh=None,
+                     geometric: bool = False, seed: int = 5) -> GraphBatch:
+    """This rank's shard of a full-graph cell's synthetic graph, padded to
+    (``n``, ``e``): ``e_real`` directed edges, the in-degrees of the
+    ``n_real`` real nodes one multinomial draw (uniform), each sender
+    uniform, dst-sorted; width-``d_feat`` normal float32 features, labels
+    in ``[0, n_classes)`` (−1 on pad rows) and, ``geometric``, normal
+    positions; all from numpy seeds ``seed`` … ``seed + 4``. Only the
+    rank's node rows and edges are drawn
+    (:func:`~repro_torch.models.gnn.parallel.split_flags` over ``mesh``);
+    without a split, the whole graph."""
+    from ..models.gnn.parallel import GraphSplit, row_range, split_flags
+    dev = resolve_device(device)
+    flags = split_flags(n, e, mesh)
+    nodes, edges = flags or (False, False)
+    nlo, nhi = row_range(n, mesh, nodes)
+    elo, ehi = row_range(e, mesh, edges)
+    dst, deg = full_graph_receivers(n_real, e_real, n, elo, ehi, seed=seed)
+    k = int((dst < n).sum())                       # real edges here
+    src = np.full(ehi - elo, n, np.int64)
+    src[:k] = _chunked(lambda g, c: g.integers(0, n_real, c), seed + 1,
+                       elo, elo + k, EDGE_CHUNK)
+    r = max(0, min(nhi, n_real) - nlo)             # real node rows here
+
+    def rows(draw, seed_, width, dtype, fill):
+        a = np.full((nhi - nlo,) + width, fill, dtype)
+        a[:r] = _chunked(draw, seed_, nlo, nlo + r, ROW_CHUNK)
+        return torch.as_tensor(a, device=dev)
+
+    x = rows(lambda g, c: g.standard_normal((c, d_feat), np.float32),
+             seed + 2, (d_feat,), np.float32, 0.0)
+    labels = rows(lambda g, c: g.integers(0, n_classes, c), seed + 3, (),
+                  np.int64, -1)
+    pos = (rows(lambda g, c: g.standard_normal((c, 3), np.float32),
+                seed + 4, (3,), np.float32, 0.0) if geometric else None)
+    in_deg = np.zeros(nhi - nlo, np.int64)
+    in_deg[:r] = deg[nlo:nlo + r]
+    split = None if flags is None else GraphSplit(
+        mesh=mesh, n=n, e=e, nodes=nodes, edges=edges,
+        in_degree=torch.as_tensor(in_deg, device=dev))
+    return GraphBatch(
+        n=n, x=x, src=torch.as_tensor(src, dtype=torch.int32, device=dev),
+        dst=torch.as_tensor(dst, dtype=torch.int32, device=dev), pos=pos,
+        node_mask=torch.as_tensor(np.arange(nlo, nhi) < n_real, device=dev),
+        labels=labels, agg=edge_agg(src, dst, n, device=dev), split=split)
 
 
 def molecule_positions(rng, n_atoms: int, radius: float = 3.0,

@@ -8,6 +8,13 @@ dropped when the format is built, where the JAX package aggregates them into
 a dropped segment ``n``. Max, min, the segment softmax and graph pooling are
 plain torch. ``EdgeAgg``, ``edge_agg`` and ``DEFAULT_TILES`` live in
 :mod:`repro_torch.kernels.agg` and are re-exported here.
+
+A batch split over the data ranks carries a
+:class:`~repro_torch.models.gnn.parallel.GraphSplit` (``batch.split``): its
+arrays are the rank's node rows and edges (node ids global), and the
+functions here take the split (``split=``, or the batch's) and run the
+collectives of :mod:`repro_torch.models.gnn.parallel`; without one each
+does the one-device computation.
 """
 from __future__ import annotations
 
@@ -21,11 +28,14 @@ import torch.nn.functional as F
 from ...device import resolve_device
 from ...kernels.agg import DEFAULT_TILES, EdgeAgg, edge_agg
 from ...kernels.agg import seg_sum as _seg_sum
+from . import parallel
+from .parallel import GraphSplit
 
 __all__ = ["GraphBatch", "EdgeAgg", "edge_agg", "segment_agg",
            "neighbor_agg", "segment_softmax", "graph_pool", "mlp_init",
            "mlp_apply", "dense_init", "batch_from_graph", "pad_graph_batch",
-           "tensors_to", "params_to", "node_xent", "DEFAULT_TILES"]
+           "tensors_to", "params_to", "node_xent", "in_degree",
+           "DEFAULT_TILES"]
 
 
 def _scatter_extreme(values: torch.Tensor, dst: torch.Tensor, n: int,
@@ -41,12 +51,16 @@ def _per_node(cnt: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def segment_agg(values: torch.Tensor, dst: torch.Tensor, n: int, kind: str,
-                *, agg: EdgeAgg | None = None) -> torch.Tensor:
+                *, agg: EdgeAgg | None = None,
+                split: GraphSplit | None = None) -> torch.Tensor:
     """Aggregate edge rows onto nodes. kind ∈ {sum, mean, max, min, std}.
 
     ``values`` f[e, ...] per edge, ``dst`` i32[e] (sentinel ``n``). Sum and
     mean scatter the rows into the slots of ``agg`` (built from ``dst`` when
-    not given) and run ``seg_mm``."""
+    not given) and run ``seg_mm``. With a ``split`` the edges are this
+    rank's and the result this rank's node rows, over every rank's edges:
+    sums reduce-scattered, extremes all-reduced, the std's mean gathered
+    back to the edges."""
     if kind in ("sum", "mean"):
         if agg is None:
             d_host = dst.cpu().numpy()
@@ -55,13 +69,19 @@ def segment_agg(values: torch.Tensor, dst: torch.Tensor, n: int, kind: str,
         flat = values.reshape(values.shape[0], -1)
         msgs = flat.new_zeros(agg.num_slots, flat.shape[1]).index_copy(
             0, agg.slots, flat.index_select(0, agg.edge_ids))
-        s = _seg_sum(msgs, agg).reshape((n,) + values.shape[1:])
+        s = parallel.finish_rows(_seg_sum(msgs, agg), split)
+        s = s.reshape((s.shape[0],) + values.shape[1:])
         if kind == "sum":
             return s
-        return s / torch.clamp(_per_node(agg.in_degree, s), min=1)
+        deg = agg.in_degree if split is None else split.in_degree
+        return s / torch.clamp(_per_node(deg, s), min=1)
     if kind in ("max", "min"):
-        m = _scatter_extreme(values, dst, n, "amax" if kind == "max"
-                             else "amin")[:n]
+        if split is not None and split.edges:
+            m = parallel.Extreme.apply(values, dst, split, kind)
+        else:
+            m = parallel.own_rows(_scatter_extreme(
+                values, dst, n, "amax" if kind == "max" else "amin")[:n],
+                split)
         return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     if kind == "std":
         # the two-pass variance mean((x − mean)²): the same function as the
@@ -69,12 +89,20 @@ def segment_agg(values: torch.Tensor, dst: torch.Tensor, n: int, kind: str,
         # keeps only var / mean(x²) of its precision and loses the rest in
         # the subtraction (PNA's full-width encoder gradient: 8.8e-5 rel L2
         # from float64 against 4.4e-7 two-pass)
-        mean = segment_agg(values, dst, n, "mean", agg=agg)
+        mean = parallel.gather_nodes(
+            segment_agg(values, dst, n, "mean", agg=agg, split=split), split)
         mean_p = torch.cat([mean, mean.new_zeros((1,) + mean.shape[1:])])
         dev = values - mean_p.index_select(0, torch.clamp(dst.long(), max=n))
-        var = segment_agg(dev * dev, dst, n, "mean", agg=agg)
+        var = segment_agg(dev * dev, dst, n, "mean", agg=agg, split=split)
         return torch.sqrt(torch.clamp(var, min=1e-8))
     raise ValueError(kind)
+
+
+def in_degree(batch: "GraphBatch") -> torch.Tensor:
+    """i64[rows]: the real edges into each of the batch's node rows (over
+    every rank's edges for a split batch)."""
+    return (batch.split.in_degree if batch.split is not None
+            else batch.agg.in_degree)
 
 
 def neighbor_agg(h: torch.Tensor, batch: "GraphBatch",
@@ -82,41 +110,65 @@ def neighbor_agg(h: torch.Tensor, batch: "GraphBatch",
     """Aggregate the senders' rows ``h[src]`` onto each receiver. For sum
     and mean the messages are gathered from ``h`` straight into the blocked
     layout of ``batch.agg`` (``h`` padded with a zero row at index ``n``,
-    the sentinel source) and summed by ``seg_mm``."""
+    the sentinel source) and summed by ``seg_mm``. A split batch gathers
+    every rank's rows of ``h`` first and returns this rank's rows."""
+    split = batch.split
+    h = parallel.gather_nodes(h, split)
     if kind not in ("sum", "mean"):
         src = torch.clamp(batch.src.long(), max=batch.n - 1)
-        return segment_agg(h.index_select(0, src), batch.dst, batch.n, kind)
+        return segment_agg(h.index_select(0, src), batch.dst, batch.n, kind,
+                           split=split)
     h_pad = F.pad(h, (0, 0, 0, 1))
     msgs = h_pad.index_select(0, batch.agg.fmt.src_idx.reshape(-1))
-    s = _seg_sum(msgs, batch.agg)
+    s = parallel.finish_rows(_seg_sum(msgs, batch.agg), split)
     if kind == "sum":
         return s
-    return s / torch.clamp(_per_node(batch.agg.in_degree, s), min=1)
+    return s / torch.clamp(_per_node(in_degree(batch), s), min=1)
 
 
-def segment_softmax(logits: torch.Tensor, dst: torch.Tensor,
-                    n: int) -> torch.Tensor:
-    """Edge-wise softmax normalized per destination node."""
+def segment_softmax(logits: torch.Tensor, dst: torch.Tensor, n: int, *,
+                    split: GraphSplit | None = None) -> torch.Tensor:
+    """Edge-wise softmax normalized per destination node. Where a split
+    batch's edges split, each row's maximum is all-reduced (a constant of
+    the gradient: the softmax does not move with it) and its sum of
+    exponentials summed over the src group."""
     dst = dst.long()
-    mx = _scatter_extreme(logits, dst, n, "amax")
+    if split is None or not split.edges:
+        mx = _scatter_extreme(logits, dst, n, "amax")
+        e = torch.exp(logits - mx[dst])
+        z = logits.new_zeros((n + 1,) + logits.shape[1:]).index_add(0, dst,
+                                                                    e)
+        return e / torch.clamp(z[dst], min=1e-20)
+    with torch.no_grad():
+        idx = dst.reshape((-1,) + (1,) * (logits.dim() - 1)
+                          ).expand_as(logits)
+        mx = logits.new_full((n + 1,) + logits.shape[1:], float("-inf"))
+        mx = split.mesh.all_reduce_src(
+            mx.scatter_reduce(0, idx, logits, "amax"), op="max")
+        mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     e = torch.exp(logits - mx[dst])
-    z = logits.new_zeros((n + 1,) + logits.shape[1:]).index_add(0, dst, e)
+    z = parallel.psum(logits.new_zeros((n + 1,) + logits.shape[1:])
+                      .index_add(0, dst, e), split)
     return e / torch.clamp(z[dst], min=1e-20)
 
 
 def graph_pool(values: torch.Tensor, batch: "GraphBatch",
                kind: str = "sum") -> torch.Tensor:
-    """Pool node values per graph (molecule shape)."""
+    """Pool node values per graph (molecule shape); a split batch's rows
+    pooled on each rank and summed over the src group."""
+    rows = values.shape[0]
     gid = (batch.graph_ids.long() if batch.graph_ids is not None
-           else torch.zeros(batch.n, dtype=torch.long, device=values.device))
+           else torch.zeros(rows, dtype=torch.long, device=values.device))
     if batch.node_mask is not None:
         values = values * batch.node_mask[:, None].to(values.dtype)
-    out = values.new_zeros((batch.n_graphs,) + values.shape[1:]).index_add(
-        0, gid, values)
+    out = parallel.total(values.new_zeros(
+        (batch.n_graphs,) + values.shape[1:]).index_add(0, gid, values),
+        batch.split)
     if kind == "mean":
         w = (batch.node_mask.to(values.dtype) if batch.node_mask is not None
-             else values.new_ones(batch.n))
-        cnt = values.new_zeros(batch.n_graphs).index_add(0, gid, w)
+             else values.new_ones(rows))
+        cnt = parallel.total(values.new_zeros(batch.n_graphs).index_add(
+            0, gid, w), batch.split)
         out = out / torch.clamp(cnt[:, None], min=1)
     return out
 
@@ -155,17 +207,19 @@ def params_to(tree, device: torch.device):
 
 
 def node_xent(logits: torch.Tensor, labels: torch.Tensor,
-              mask: torch.Tensor | None) -> torch.Tensor:
+              mask: torch.Tensor | None, *,
+              split: GraphSplit | None = None) -> torch.Tensor:
     """Mean cross-entropy over the nodes of ``mask`` (all when None);
-    labels below 0 are read as class 0, as the JAX package clips them."""
+    labels below 0 are read as class 0, as the JAX package clips them. A
+    split batch's numerator and count are summed over the src group."""
     mask = (mask if mask is not None else
             torch.ones(logits.shape[0], dtype=torch.bool,
                        device=logits.device)).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, 1,
                         torch.clamp(labels.long(), min=0)[:, None])[:, 0]
-    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                          min=1.0)
+    return parallel.total(torch.sum((logz - gold) * mask), split) / \
+        torch.clamp(parallel.total(torch.sum(mask), split), min=1.0)
 
 
 # --------------------------------------------------------------------- #
@@ -186,10 +240,16 @@ class GraphBatch:
     labels: torch.Tensor | None = None      # i64[n] or f[n_graphs, ...]
     seed_mask: torch.Tensor | None = None   # bool[n] readout nodes
     agg: EdgeAgg | None = None
+    split: GraphSplit | None = None         # over the data ranks
 
     @property
     def device(self) -> torch.device:
         return self.x.device
+
+    @property
+    def n_local(self) -> int:
+        """The node rows this batch holds (``n`` unless it is split)."""
+        return self.x.shape[0]
 
     def to(self, device: str | torch.device) -> "GraphBatch":
         return tensors_to(self, resolve_device(device))

@@ -26,7 +26,9 @@ d = 49·128 = 6,272 for the full config (the JAX package scatters each l
 with ``.at[dst].add``). Each block is rematerialised in the backward pass
 (``torch.utils.checkpoint``, non-reentrant): it moves no number, and keeps
 one block's edge tensors (~3 GB at the ``molecule`` shape in f32) alive
-instead of twelve.
+instead of twelve. A batch split over the data ranks gathers every rank's
+normed rows for its own edges' senders and receivers, and its segment
+softmax takes each row's maximum and sum over every rank's edges.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
-from . import so3
+from . import parallel, so3
 from .common import (GraphBatch, dense_init, mlp_apply, mlp_init, params_to,
                      segment_agg, segment_softmax)
 from .nequip import _bessel, edge_geometry, regression_or_class_loss
@@ -131,7 +133,7 @@ def _so2_conv(pieces, lp, C, m_max, radial, inv_order):
 
 def _block(x, lp, batch, dws, rbf, cfg, layout):
     """One attention block and its gated FFN: x [n, (L+1)², C] → same."""
-    n, C, L, M, H = (batch.n, cfg.d_hidden, cfg.l_max, cfg.m_max,
+    n, C, L, M, H = (batch.n_local, cfg.d_hidden, cfg.l_max, cfg.m_max,
                      cfg.n_heads)
     kept_cols, order, group_sizes, km, inv_order = layout
     # the per-l blocks of a [.., (L+1)², C] tensor (split, not sliced: the
@@ -147,7 +149,8 @@ def _block(x, lp, batch, dws, rbf, cfg, layout):
                                     keepdim=True) + 1e-6)
         xs.append(blk / rms * lp["norm_scale"][l][None, None, :])
     # the sentinel row n is zero, so src == n and dst == n gather zeros
-    xn_p = F.pad(torch.cat(xs, dim=1), (0, 0, 0, 0, 0, 1))
+    xn_p = F.pad(parallel.gather_nodes(torch.cat(xs, dim=1), batch.split),
+                 (0, 0, 0, 0, 0, 1))
 
     # --- rotate into edge frames (truncated) -------------------------- #
     def to_frame(feats):
@@ -166,7 +169,8 @@ def _block(x, lp, batch, dws, rbf, cfg, layout):
     feat = torch.cat([pieces[0].reshape(-1, (L + 1) * C),
                       g0_dst.reshape(-1, (L + 1) * C)], dim=-1)
     logits = mlp_apply(lp["alpha"], feat)           # [E, H]
-    att = segment_softmax(logits, batch.dst, n)     # [E, H]
+    att = segment_softmax(logits, batch.dst, batch.n,
+                          split=batch.split)         # [E, H]
 
     # --- SO(2) conv value + heads ------------------------------------- #
     radial = mlp_apply(lp["radial"], rbf).reshape(-1, M + 1, C)
@@ -178,8 +182,9 @@ def _block(x, lp, batch, dws, rbf, cfg, layout):
     kept = torch.split(msg, [k.shape[0] for k in kept_cols], dim=1)
     back = torch.cat([torch.einsum("eak,ekc->eac", dws[l], blk)
                       for l, blk in enumerate(kept)], dim=1)  # [E, (L+1)², C]
-    agg = segment_agg(back.reshape(e, -1), batch.dst, n, "sum",
-                      agg=batch.agg).reshape(n, (L + 1) ** 2, C)
+    agg = segment_agg(back.reshape(e, -1), batch.dst, batch.n, "sum",
+                      agg=batch.agg, split=batch.split
+                      ).reshape(n, (L + 1) ** 2, C)
 
     # per-l output linear + residual
     x = x + torch.cat([torch.einsum("nmc,cd->nmd", blk,
@@ -203,7 +208,8 @@ def _block(x, lp, batch, dws, rbf, cfg, layout):
 
 def apply(params: dict, batch: GraphBatch,
           cfg: EquiformerV2Config) -> torch.Tensor:
-    n, C, L, M, dt = batch.n, cfg.d_hidden, cfg.l_max, cfg.m_max, cfg.dtype
+    n, C, L, M, dt = (batch.n_local, cfg.d_hidden, cfg.l_max, cfg.m_max,
+                      cfg.dtype)
     dev = batch.device
     kept_cols, groups, km = _m_layout(L, M)
     grouped = [groups[0]] + [groups[s * m] for m in range(1, M + 1)

@@ -18,7 +18,8 @@ tree and guards (``+1e-12`` in the norm, ``max(dist, 1e-9)``, the clip in
 package scatters each path's messages with ``.at[dst].add``, the port sums
 the paths of one output l on each edge and aggregates ``[E, (2l+1)·C]``
 with one :func:`~repro_torch.models.gnn.common.segment_agg` (a ``seg_mm``
-launch) per output l.
+launch) per output l. A batch split over the data ranks gathers every
+rank's positions and feature rows for its own edges.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
-from . import so3
+from . import parallel, so3
 from .common import (GraphBatch, dense_init, graph_pool, mlp_apply, mlp_init,
                      node_xent, params_to, segment_agg)
 
@@ -77,7 +78,8 @@ def _bessel(r: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
 def edge_geometry(batch: GraphBatch, dtype: torch.dtype):
     """(dist [E], r̂ [E, 3]) of every edge, sentinel edges included: the
     positions get a zero row at index n, so ``src = dst = n`` reads it."""
-    pos_p = F.pad(batch.pos.to(dtype), (0, 0, 0, 1))
+    pos_p = F.pad(parallel.gather_nodes(batch.pos.to(dtype), batch.split),
+                  (0, 0, 0, 1))
     rvec = (pos_p.index_select(0, batch.src.long())
             - pos_p.index_select(0, batch.dst.long()))
     dist = torch.linalg.vector_norm(rvec + 1e-12, dim=-1)
@@ -108,7 +110,7 @@ def init_params(cfg: NequIPConfig, seed: int = 0, *,
 
 def apply(params: dict, batch: GraphBatch, cfg: NequIPConfig) -> torch.Tensor:
     """→ per-node output [n, n_classes] (pool for graph tasks in loss)."""
-    n, C, dt = batch.n, cfg.d_hidden, cfg.dtype
+    n, C, dt = batch.n_local, cfg.d_hidden, cfg.dtype
     paths = paths_for(cfg.l_max)
     src = batch.src.long()
     e = src.shape[0]
@@ -128,15 +130,17 @@ def apply(params: dict, batch: GraphBatch, cfg: NequIPConfig) -> torch.Tensor:
     for lyr in params["layers"]:
         w = mlp_apply(lyr["radial"], rbf).reshape(-1, len(paths), C)  # [E,P,C]
         # the sentinel row n is zero, so src == n gathers zeros
-        xs = {l: F.pad(x[l], (0, 0, 0, 0, 0, 1)).index_select(0, src)
+        xs = {l: F.pad(parallel.gather_nodes(x[l], batch.split),
+                       (0, 0, 0, 0, 0, 1)).index_select(0, src)
               for l in x}                            # [E, 2l+1, C]
         msgs = {}
         for pi, (l1, l2, l3) in enumerate(paths):
             msg = torch.einsum("pqr,epc,eq->erc", cg[(l1, l2, l3)], xs[l1],
                                ys[l2]) * w[:, pi][:, None, :]
             msgs[l3] = msg if l3 not in msgs else msgs[l3] + msg
-        agg = {l: segment_agg(m.reshape(e, -1), batch.dst, n, "sum",
-                              agg=batch.agg).reshape(n, 2 * l + 1, C)
+        agg = {l: segment_agg(m.reshape(e, -1), batch.dst, batch.n, "sum",
+                              agg=batch.agg, split=batch.split
+                              ).reshape(n, 2 * l + 1, C)
                for l, m in msgs.items()}
         gates = torch.sigmoid(
             x[0][:, 0, :] @ lyr["gates"]["w"] + lyr["gates"]["b"]
@@ -163,12 +167,14 @@ def regression_or_class_loss(out: torch.Tensor, batch: GraphBatch,
         pooled = graph_pool(out, batch, "sum")[:, 0]
         return torch.mean(torch.square(pooled - batch.labels))
     if out_kind == "node_class":
-        return node_xent(out, batch.labels, batch.node_mask)
+        return node_xent(out, batch.labels, batch.node_mask,
+                         split=batch.split)
     mask = (batch.node_mask if batch.node_mask is not None else
-            torch.ones(batch.n, dtype=torch.bool, device=out.device)
+            torch.ones(out.shape[0], dtype=torch.bool, device=out.device)
             ).to(torch.float32)
-    return torch.sum(torch.square(out[:, 0] - batch.labels) * mask) / \
-        torch.clamp(mask.sum(), min=1.0)
+    return parallel.total(torch.sum(torch.square(out[:, 0] - batch.labels)
+                                    * mask), batch.split) / \
+        torch.clamp(parallel.total(mask.sum(), batch.split), min=1.0)
 
 
 def loss_fn(params: dict, batch: GraphBatch, cfg: NequIPConfig

@@ -13,7 +13,10 @@ place of ``jax.checkpoint``, and the mean and std through
 :class:`~repro_torch.models.gnn.common.EdgeAgg`, so through the ``seg_mm``
 kernel. The in-degree is the format's count of real edges. A sentinel
 sender (``src = n``) gathers row ``n − 1``, as JAX clamps the index; its
-message lands in the dropped segment ``n``.
+message lands in the dropped segment ``n``. A batch split over the data
+ranks (``batch.split``) gathers every rank's rows of ``h`` for its own
+edges' messages, and its degree scalers read the global in-degree of its
+own rows.
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
-from .common import (GraphBatch, dense_init, graph_pool, node_xent,
-                     params_to, segment_agg)
+from . import parallel
+from .common import (GraphBatch, dense_init, graph_pool, in_degree,
+                     node_xent, params_to, segment_agg)
 
 __all__ = ["PNAConfig", "init_params", "apply", "loss_fn"]
 
@@ -61,9 +65,9 @@ def init_params(cfg: PNAConfig, seed: int = 0, *,
 def _layer(h: torch.Tensor, lyr: dict, batch: GraphBatch,
            scalers: tuple) -> torch.Tensor:
     src = torch.clamp(batch.src.long(), max=batch.n - 1)
-    msgs = h.index_select(0, src)
-    aggs = [segment_agg(msgs, batch.dst, batch.n, a, agg=batch.agg)
-            for a in _AGGS]
+    msgs = parallel.gather_nodes(h, batch.split).index_select(0, src)
+    aggs = [segment_agg(msgs, batch.dst, batch.n, a, agg=batch.agg,
+                        split=batch.split) for a in _AGGS]
     feats = [a * s[:, None] for a in aggs for s in scalers]
     z = torch.cat([h] + feats, dim=-1)
     return h + F.silu(z @ lyr["w"] + lyr["b"])
@@ -71,7 +75,7 @@ def _layer(h: torch.Tensor, lyr: dict, batch: GraphBatch,
 
 def apply(params: dict, batch: GraphBatch, cfg: PNAConfig) -> torch.Tensor:
     h = batch.x.to(cfg.dtype) @ params["enc"]["w"] + params["enc"]["b"]
-    logd = torch.log(batch.agg.in_degree.to(cfg.dtype) + 1.0)
+    logd = torch.log(in_degree(batch).to(cfg.dtype) + 1.0)
     scalers = (torch.ones_like(logd), logd / cfg.delta,
                cfg.delta / torch.clamp(logd, min=1e-2))
     for lyr in params["layers"]:
@@ -85,4 +89,5 @@ def loss_fn(params: dict, batch: GraphBatch, cfg: PNAConfig) -> torch.Tensor:
     if cfg.out_kind == "graph":
         pooled = graph_pool(logits, batch, "mean")
         return torch.mean(torch.square(pooled[:, 0] - batch.labels))
-    return node_xent(logits, batch.labels, batch.node_mask)
+    return node_xent(logits, batch.labels, batch.node_mask,
+                     split=batch.split)

@@ -81,4 +81,5 @@ def loss_fn(params: dict, batch: GraphBatch, cfg: SageConfig) -> torch.Tensor:
         pooled = graph_pool(logits, batch, "mean")
         return torch.mean(torch.square(pooled[:, 0] - batch.labels))
     return node_xent(logits, batch.labels, batch.seed_mask
-                     if batch.seed_mask is not None else batch.node_mask)
+                     if batch.seed_mask is not None else batch.node_mask,
+                     split=batch.split)

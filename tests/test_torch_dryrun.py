@@ -5,13 +5,16 @@ fake process group, every tensor a FakeTensor.
   result bytes, the backward's included).
 * One reduced cell of each family on a fake ``(2, 4)`` mesh, traced ``ok``:
   the LM's FLOPs equal its hand-counted matmul FLOPs (the remat's
-  recompute included) and ψ's are 0 (no matmul); the GNN's and MIND's equal
-  what ``FlopCounterMode`` counts when the same step runs on real CPU
-  tensors; every family's collectives equal those its step issues by
-  construction (counted by hand below).
-* The tracer's one counting mode against ``FlopCounterMode`` and
-  ``MemTracker`` on a reduced cell of each family, and the CLI's ``--jobs``
-  worker pool against a serial run.
+  recompute included) and ψ's its segment sums' source elements (one
+  ``segment_reduce`` of the block's edge slots an iteration); the GNN's
+  (its batch split over the src group) and MIND's equal what
+  ``FlopCounterMode`` counts, with the segment-sum formulas, when the same
+  step runs on real CPU tensors; every family's collectives equal those
+  its step issues by construction (counted by hand below).
+* The tracer's one counting mode against ``FlopCounterMode`` (given the
+  same segment-sum formulas) and ``MemTracker`` on a reduced cell of each
+  family, a ``seg_mm`` call counted alike on FakeTensors and real CPU
+  tensors, and the CLI's ``--jobs`` worker pool against a serial run.
 * ``build_cell`` for every (arch, shape) of the registry on a fake
   ``(16, 16)`` mesh (42 cells, 3 skipped), and the record of a named
   subset of them written by the CLI with the JAX record's keys (the full
@@ -143,10 +146,12 @@ def test_reduced_lm_cell_flops_and_collectives(fake24):
 
 
 def _real_flops(cell, mesh):
-    """FLOPs and collective counts of the step run on real CPU tensors."""
+    """FLOPs (with the segment-sum formulas) and collective counts of the
+    step run on real CPU tensors."""
     args = cell.make_args(torch.device("cpu"))
     mesh.reset_counts()
-    with FlopCounterMode(display=False) as fc:
+    with FlopCounterMode(display=False,
+                         custom_mapping=dryrun.SEGMENT_SUM_FLOPS) as fc:
         cell.step(*args)
     return fc.get_total_flops(), _counts(mesh)
 
@@ -159,10 +164,22 @@ def test_reduced_gnn_cell_matches_a_real_run(fake24):
     rec = dryrun.trace_cell(cell, fake24, "cpu")
     flops, coll = _real_flops(cell, fake24)
     assert rec["cost"]["flops"] == flops > 0
+    # nodes and edges split over the 2 data ranks
+    assert rec["args"][-1] == [[4096 // 2], "int64"]     # in-degree rows
+    assert "[r*n/d, (r+1)*n/d)" in cell.layout["nodes"]
+    assert "[r*e/d, (r+1)*e/d)" in cell.layout["edges"]
     n_leaves = len(optim.tree_leaves(cell.make_args("cpu")[0]))
-    # each gradient leaf summed over the src group, nothing else
-    assert coll == {"all-reduce": n_leaves}
-    assert rec["collectives"]["all-reduce"]["count"] == n_leaves
+    # a layer gathers the senders' rows and reduce-scatters the neighbour
+    # sums (forward, and again in its recompute); the second layer's
+    # backward all-gathers the sums' cotangent and reduce-scatters the
+    # gathered rows' (the first layer's input is the features: no
+    # gradient); the loss sums its numerator and count, and each gradient
+    # leaf is summed over the src group
+    want = {"all-reduce": n_leaves + 2, "all-gather": 2 + 2 + 1,
+            "reduce-scatter": 2 + 2 + 1}
+    assert coll == want
+    assert {k: v["count"] for k, v in rec["collectives"].items()
+            if v["count"]} == want
 
 
 def test_reduced_recsys_cell_matches_a_real_run(fake24):
@@ -185,7 +202,11 @@ def test_reduced_psi_cell_collectives(fake24):
     for iters in (1, 2):
         cell = specs.build_psi_cell(entry, shape, fake24, probe_iters=iters)
         rec = dryrun.trace_cell(cell, fake24, "cpu")
-        assert rec["cost"]["flops"] == 0       # gathers and segment sums
+        # one segment_reduce of the block's e_max edge slots an iteration
+        # (the src_local argument), nothing else counted
+        (e_max,), dtype = rec["args"][1]
+        assert dtype == "int64"
+        assert rec["cost"]["flops"] == iters * e_max > 0
         got = {k: v["count"] for k, v in rec["collectives"].items() if v}
         assert got["reduce-scatter"] == got["all-gather"] == iters
         assert got["all-reduce"] == iters      # the gap
@@ -216,13 +237,47 @@ def test_counter_equals_the_library_trackers(fake24, family):
         args = cell.make_args(torch.device("cpu"))
         mt = MemTracker()
         mt.track_external(*dryrun._leaves(args))
-        with mt, FlopCounterMode(display=False) as fc:
+        with mt, FlopCounterMode(
+                display=False, custom_mapping=dryrun.SEGMENT_SUM_FLOPS) as fc:
             cell.step(*args)
         peak = sum(v["Total"] for v in
                    mt.get_tracker_snapshot("peak").values())
     assert rec["cost"]["flops"] == fc.get_total_flops()
     assert rec["memory"]["peak_bytes"] == peak > 0
     assert rec["cost"]["flops_scope"] == dryrun.FLOPS_SCOPE
+
+
+def test_seg_mm_counts_alike_on_fake_and_real_tensors():
+    """A ``seg_mm`` call (its operator: one dispatch with its inputs and its
+    output) counts the same FLOPs (one per message element) and bytes on
+    FakeTensors, where it launches nothing, and on real CPU tensors, where
+    its plain version runs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn.common import edge_agg
+    rng = np.random.default_rng(3)
+    n, e, d = 700, 3000, 24
+    dst = np.sort(rng.integers(0, n, e))
+    agg = edge_agg(rng.integers(0, n, e), dst, n, device="cpu")
+    msgs = torch.randn(agg.num_slots, d, dtype=torch.float64)
+
+    def count(m, a):
+        with dryrun._Counter([]) as c:
+            out = ops.seg_mm(m.reshape(a.fmt.src_idx.shape[0], -1, d),
+                             a.fmt, tile_span=a.tile_span)
+        return c.flops, c.bytes, tuple(out.shape)
+
+    real = count(msgs, agg)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = count(mode.from_tensor(msgs), dataclasses.replace(
+            agg, fmt=dataclasses.replace(agg.fmt, **{
+                f.name: mode.from_tensor(getattr(agg.fmt, f.name))
+                for f in dataclasses.fields(agg.fmt)
+                if isinstance(getattr(agg.fmt, f.name), torch.Tensor)}),
+            tile_span=mode.from_tensor(agg.tile_span)))
+    assert real == fake
+    assert real[0] == agg.num_slots * d
+    assert real[2] == (n, d)
 
 
 def test_counter_bytes_of_a_matmul(fake24):

@@ -57,7 +57,8 @@ SLICE_MODULES = [
     "repro_torch.obs.check",
     "repro_torch.models.gnn.so3", "repro_torch.models.gnn.pna",
     "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.equiformer_v2",
-    "repro_torch.models.gnn.sharded_mp", "repro_torch.configs.pna",
+    "repro_torch.models.gnn.sharded_mp", "repro_torch.models.gnn.parallel",
+    "repro_torch.configs.pna",
     "repro_torch.configs.nequip", "repro_torch.configs.equiformer_v2",
     "repro_torch.models.transformer",
     "repro_torch.models.transformer.attention",

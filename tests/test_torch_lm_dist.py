@@ -30,7 +30,10 @@ cut to 0.5 so that every MoE layer drops tokens. Each rank holds its shards
   device (read with a ``jax.debug.callback`` on its ``bincount``);
 * every rank's shard shape of each ``param_specs`` and ``cache_specs`` leaf
   on both meshes, and of each ``DistributedPsi`` array shared with the JAX
-  layout, equals ``NamedSharding(mesh, spec).shard_shape(shape)``.
+  layout, equals ``NamedSharding(mesh, spec).shard_shape(shape)``; so does
+  rank 0's (of a fake 8-rank group) shard of every batch array of a GNN
+  cell of each shape kind (``full_graph``, ``minibatch``, ``molecule``),
+  against JAX's ``build_gnn_cell`` in the same subprocess.
 """
 import dataclasses
 import json
@@ -65,6 +68,11 @@ import dataclasses
 import numpy as np
 ARCHS = %r
 B, S, PROMPT = %d, %d, %d
+# a GNN cell of each shape kind, and the batch arrays whose shards compare
+GNN_CELLS = (("pna", "full_graph_sm"), ("graphsage-reddit", "minibatch_lg"),
+             ("nequip", "molecule"))
+GNN_FIELDS = ("x", "src", "dst", "pos", "node_mask", "graph_ids", "labels",
+              "seed_mask")
 
 
 def data(vocab):
@@ -289,6 +297,16 @@ for mname, m in meshes.items():
     ins, sh = psi.input_specs(), psi.shardings()
     shapes[mname + "/psi"] = {k: list(sh[k].shard_shape(ins[k].shape))
                               for k in ins}
+from repro.launch import specs as jspecs
+for mname, m in meshes.items():
+    for arch, sname in GNN_CELLS:
+        entry = get_arch(arch)
+        spec = next(s for s in entry.shapes if s.name == sname)
+        cell = jspecs.build_gnn_cell(entry, spec, m)
+        structs, shard = cell.args[2], cell.in_shardings[2]
+        shapes["%s/%s/%s/gnn" % (mname, arch, sname)] = {
+            f: list(getattr(shard, f).shard_shape(getattr(structs, f).shape))
+            for f in GNN_FIELDS if getattr(structs, f) is not None}
 np.savez(tmp + "/jax.npz", **out)
 with open(tmp + "/jax.json", "w") as fh:
     json.dump(shapes, fh)
@@ -530,3 +548,33 @@ def test_gloo8_shard_shapes_equal_jax(ranks, mname):
                 split = len(want) - len(psi[k])
                 assert want == [1] * split + psi[k], k
                 assert res[tag]["psi_block"][k] == psi[k], k
+
+
+@pytest.mark.parametrize("mname", list(MESHES))
+def test_gnn_cell_shard_shapes_equal_jax(ranks, mname):
+    """Rank 0's GNN batch arrays (traced on FakeTensors, as rank 0 of a
+    fake 8-rank group) have JAX's ``NamedSharding.shard_shape``: nodes and
+    edges split over the src group, graph labels whole."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    _, jshapes, _ = ranks
+    ns = {}
+    exec(_COMMON, ns)
+    shape, axes = MESHES[mname]
+    dryrun.start_fake_world(8)
+    try:
+        mesh = make_mesh(tuple(shape), tuple(axes), device="cpu")
+        for arch, sname in ns["GNN_CELLS"]:
+            entry = get_arch(arch)
+            cell = specs.build_gnn_cell(entry, entry.shape(sname), mesh)
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                batch = cell.make_args(torch.device("cpu"))[2]
+            got = {f: list(getattr(batch, f).shape)
+                   for f in ns["GNN_FIELDS"] if getattr(batch, f) is not None}
+            assert got == jshapes[f"{mname}/{arch}/{sname}/gnn"], arch
+            assert batch.split is not None and batch.split.nodes \
+                and batch.split.edges
+        mesh.close()
+    finally:
+        torch.distributed.destroy_process_group()
