@@ -4522,18 +4522,16 @@ def fleet_times(report: dict) -> list[dict]:
     cold state s = c: ``power_step_lanes`` at POWER_TOL, its gap per lane
     within GAP_RTOL, ``edge_spmv_lanes`` bitwise, both bitwise run to run);
     then each bucket's cold solve (host clock, min of 3, and the busy share
-    of one more under the profiler); then, at the facebook bucket, both
-    kernels by CUDA events and device time beside L single-lane launches,
-    their bound (the bytes of all lanes at 3.35 TB/s), the plain version and
-    one ``torch.sparse.mm`` over the block-diagonal CSR of all lanes."""
+    of one more under the profiler); then, at the facebook and the dblp
+    buckets, both kernels by CUDA events and device time beside L
+    single-lane launches, their bound (the bytes of all lanes at 3.35
+    TB/s), the plain version and one ``torch.sparse.mm`` over the
+    block-diagonal CSR of all lanes (:func:`_lane_times`)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.graphs import Graph
-    from repro_torch.kernels.edge_spmv import (edge_spmv_call,
-                                               edge_spmv_lanes_call,
+    from repro_torch.kernels.edge_spmv import (edge_spmv_lanes_call,
                                                edge_spmv_lanes_plain)
-    from repro_torch.kernels.power_step import (power_step_call,
-                                                power_step_lanes_call,
+    from repro_torch.kernels.power_step import (power_step_lanes_call,
                                                 power_step_lanes_plain)
     fleet = report["fleet"]
     cuda = {spec: b for spec, b in sorted(fleet._buckets.items())
@@ -4604,9 +4602,34 @@ def fleet_times(report: dict) -> list[dict]:
             f"solve: {iters} steps, {sorted(walls)} ms (min "
             f"{min(walls):.3f}), busy {busy if busy is None else f'{busy:.1%}'}")
     report["fleet_resolve"] = resolve
-    # the lane-batched kernels at the facebook bucket, f32
-    spec = next(s for s in cuda if s.e_pad == 1_048_576)
-    bucket = cuda[spec]
+    # the lane-batched kernels, f32, at the facebook bucket (its times are
+    # the kernels line's) and at the dblp bucket (the shape of the stream
+    # and chaos phases' fleets, where most lane launches are)
+    rows, times = [], {}
+    for bname, e_pad in (("facebook", 1_048_576), ("dblp", 65_536)):
+        spec = next(s for s in cuda if s.e_pad == e_pad)
+        rows += _lane_times(report, fleet, cuda[spec], spec, bname, errs,
+                            times)
+    report["fleet_lane_ms"] = times
+    return rows
+
+
+def _lane_times(report, fleet, bucket, spec, bname, errs, times) -> list:
+    """One cuda bucket's lane kernels by CUDA events and device time beside
+    L single-lane launches, their bound, the plain version and one
+    ``torch.sparse.mm`` over the block-diagonal CSR of all lanes, into
+    ``times`` under ``"<kernel> <bname>"``; the kernels line's rows when
+    ``bname`` is facebook."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.graphs import Graph
+    from repro_torch.kernels.edge_spmv import (edge_spmv_call,
+                                               edge_spmv_lanes_call,
+                                               edge_spmv_lanes_plain)
+    from repro_torch.kernels.power_step import (power_step_call,
+                                                power_step_lanes_call,
+                                                power_step_lanes_plain)
     fmt, inv_w_g, mu, c = bucket.args
     lanes = fmt.src_idx.shape[0]
     s = bucket.s
@@ -4655,18 +4678,19 @@ def fleet_times(report: dict) -> list[dict]:
     csr = push_csr(block, s.dtype)
     x = s_pre[:, 0, :fmt.n].reshape(-1, 1).contiguous()
     lib_ms, lib_dev_ms = both_ms(lambda: torch.sparse.mm(csr, x), 200)
-    rows, times = [], {}
+    rows = []
     for name, (lane_fn, single_fn, plain_fn, nbytes, flops, src,
                replaces) in cases.items():
         ms, dev_ms = both_ms(lane_fn, 200)
         one_ms, one_dev_ms = both_ms(single_fn, 50)
         plain_ms = time_ms(plain_fn, 20)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-        times[name] = dict(events=ms, device=dev_ms, single_events=one_ms,
+        times[f"{name} {bname}"] = dict(
+                           events=ms, device=dev_ms, single_events=one_ms,
                            single_device=one_dev_ms, bound=bound,
                            plain=plain_ms, library=lib_ms,
                            library_device=lib_dev_ms)
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
             launches=report["launches"]["fleet"][name],
@@ -4675,17 +4699,18 @@ def fleet_times(report: dict) -> list[dict]:
             bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                       >= flops / F32_FLOP_PER_S else "operations"),
             library_ms=lib_ms, device_ms=dev_ms,
-            library_device_ms=lib_dev_ms))
-        say(f"{name} (fleet {spec}, {lanes} facebook lanes, tile "
+            library_device_ms=lib_dev_ms)
+        if bname == "facebook":
+            rows.append(row)
+        say(f"{name} (fleet {spec}, {lanes} {bname} lanes, tile "
             f"{fmt.tile}, f32): {ms:.4f} ms/launch by CUDA events "
             f"({dev_ms:.4f} ms of device time); {lanes} single-lane launches "
             f"{one_ms:.4f} ms ({one_dev_ms:.4f} ms of device time); "
-            f"{rows[-1]['launches']} launches on the fleet path; bound "
+            f"{row['launches']} launches on the fleet path; bound "
             f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s, {real} real "
             f"slots of {fmt.src_idx.numel()}); plain {plain_ms:.4f} ms; "
             f"torch.sparse.mm over the block-diagonal CSR of all lanes "
             f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms of device time)")
-    report["fleet_lane_ms"] = times
     del csr, x, args
     return rows
 

@@ -528,12 +528,7 @@ class AsyncChunkScheduler:
                 wait([f for f, _ in inflight.values()])
                 for k in [k for k, (f, _) in inflight.items() if f.done()]:
                     collect(k)
-                self.board, raw_sync = self.sync_sweep()
-                self.epochs[:] = int(self.epochs.max()) + 1
-                e_now = int(self.epochs[0])
-                self._gaps = [(raw_sync / C, e_now, self._gen)] * C
-                if self.read_hook is not None:
-                    self._snapshot_history()
+                board, raw_sync = self.sync_sweep()
                 sync_sweeps += 1
                 total_steps += C
                 gap = scale * raw_sync
@@ -541,9 +536,24 @@ class AsyncChunkScheduler:
                 obs_convergence.record_gap(total_steps, raw=raw_sync,
                                            certified=gap)
                 self._rho.update(gap)
-                if gap <= tol:
-                    converged = True
-                    break
+                if gap > tol:
+                    # a sweep that does not seal the run only measures: its
+                    # board is not published. Publishing it would move every
+                    # chunk to one epoch, so a chunk behind the others would
+                    # skip epochs and its steps would no longer count 1, 2,
+                    # ... Its gap becomes each chunk's record at the chunk's
+                    # own epoch, so the certificate waits for new steps.
+                    self._gaps = [(raw_sync / C, int(self.epochs[k]),
+                                   self._gen) for k in range(C)]
+                    continue
+                self.board = board
+                self.epochs[:] = int(self.epochs.max()) + 1
+                e_now = int(self.epochs[0])
+                self._gaps = [(raw_sync / C, e_now, self._gen)] * C
+                if self.read_hook is not None:
+                    self._snapshot_history()
+                converged = True
+                break
         finally:
             if self._cancelled:
                 # abandon hung workers: drop queued steps, don't join the

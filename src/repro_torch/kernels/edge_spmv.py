@@ -21,16 +21,19 @@ from . import _build
 
 __all__ = ["edge_spmv_call", "edge_spmv_plain", "edge_spmv_lanes_call",
            "edge_spmv_lanes_plain", "edge_tile_smem_bytes", "stage_blocks",
-           "check_edge_tile_smem", "check_lanes", "heavy_first",
-           "SMEM_LIMIT_BYTES", "STAGE_BYTES"]
+           "check_edge_tile_smem", "check_blocks", "check_lanes",
+           "heavy_first", "SMEM_LIMIT_BYTES", "STAGE_SLOTS_PER_NODE",
+           "RING_SLOTS_PER_NODE"]
 
-# The most dynamic shared memory a CTA may opt in to on the H100 (227 KB),
-# and the most the edge-tile kernels take to stage several blocks at once.
+# The most dynamic shared memory a CTA may opt in to on the H100 (227 KB);
+# the slots of one stage of the edge-tile kernels' ring, and of the whole
+# ring, per node of the tile.
 SMEM_LIMIT_BYTES = 232_448
-STAGE_BYTES = 48 * 1024
+STAGE_SLOTS_PER_NODE = 4
+RING_SLOTS_PER_NODE = 8
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
-    ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 
 
 def edge_spmv_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
@@ -66,40 +69,74 @@ def edge_spmv_lanes_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
 
 
 def edge_tile_smem_bytes(tile: int, eblk: int, element_size: int,
-                         sblk: int = 1) -> int:
+                         sblk: int = 1, depth: int = 2,
+                         weighted: bool = False) -> int:
     """Shared memory of one CTA of the edge-tile kernels (``power_step``,
-    ``edge_spmv``) staging ``sblk`` blocks at a time, in bytes:
-    ``edge_tile_smem_bytes`` of ``csrc/edge_tile_scan.cuh``. Staged and
-    row-grouped values (``2 · sblk · eblk`` elements), a 32-element scratch,
-    the per-warp 16-bit row counts (``tile / 32 × tile``), the 16-bit staged
-    rows (``sblk · eblk``) and the 16-bit run bounds of the rows
-    (``2 · tile``)."""
-    return (sblk * eblk * (2 * element_size + 2) + 32 * element_size
-            + tile * (tile // 32) * 2 + tile * 4)
+    ``edge_spmv``) whose ring holds ``depth`` stages of ``sblk`` blocks, in
+    bytes: ``edge_tile_smem_bytes`` of ``csrc/edge_tile_scan.cuh``. A
+    128-byte header (the ring's mbarriers and counters), a 32-element
+    scratch; a ring slot each: the staged int32 ``src_idx`` and
+    ``dst_local`` (and the weights) and the gathered values of ``sblk ·
+    eblk`` slots, the 16-bit run bounds of the rows (``2 · tile``); then an
+    unsorted stage's row-grouped values (``sblk · eblk``) and the 16-bit
+    row counts of its sort warps (``min(4, tile / 32) × tile``)."""
+    span = sblk * eblk
+    return (128 + 32 * element_size
+            + depth * (span * (8 + element_size * (2 if weighted else 1))
+                       + 4 * tile)
+            + span * element_size + 2 * min(4, tile // 32) * tile)
 
 
-def stage_blocks(tile: int, eblk: int, element_size: int) -> int:
-    """Blocks a CTA of the edge-tile kernels stages at once: the most of 4,
-    2 and 1 whose shared memory stays within :data:`STAGE_BYTES` (else 1).
-    More blocks a stage shorten the chain of a tile with many blocks; more
-    shared memory a CTA leaves fewer CTAs an SM."""
-    for sblk in (4, 2):
-        if edge_tile_smem_bytes(tile, eblk, element_size, sblk) <= STAGE_BYTES:
-            return sblk
-    return 1
+def stage_blocks(tile: int, eblk: int, element_size: int,
+                 weighted: bool = False) -> tuple[int, int]:
+    """The edge-tile kernels' ring: ``(sblk, depth)``, blocks a stage and
+    stages in the ring. A stage takes the most of 4, 2, 1 blocks within
+    :data:`STAGE_SLOTS_PER_NODE` slots a node of the tile (one block if
+    none is), and the ring as many stages, 2 to 4, as
+    :data:`RING_SLOTS_PER_NODE` slots a node hold; where that does not fit
+    :data:`SMEM_LIMIT_BYTES`, two stages of one block. At eblk 1024 that is
+    two stages of one block at tiles 128 and 256 and of two blocks at tile
+    512: on the H100 they beat every deeper or wider ring at the facebook
+    and dblp fleet buckets (tile 512) and on the twitter stand-in (tiles 256
+    and 512; PERF.md). More slots a stage cut the per-stage waits;
+    more shared memory a CTA leaves fewer CTAs an SM, which a launch of
+    many one-block tiles needs."""
+    sblk = next((b for b in (4, 2)
+                 if b * eblk <= STAGE_SLOTS_PER_NODE * tile), 1)
+    depth = min(4, max(2, RING_SLOTS_PER_NODE * tile // (sblk * eblk)))
+    if edge_tile_smem_bytes(tile, eblk, element_size, sblk, depth,
+                            weighted) > SMEM_LIMIT_BYTES:
+        return 1, 2
+    return sblk, depth
 
 
 def check_edge_tile_smem(kernel: str, tile: int, eblk: int,
-                         element_size: int) -> int:
-    """The blocks a CTA stages at once (:func:`stage_blocks`); raises
+                         element_size: int,
+                         weighted: bool = False) -> tuple[int, int]:
+    """The kernels' ring ``(sblk, depth)`` (:func:`stage_blocks`); raises
     unless its shared memory fits :data:`SMEM_LIMIT_BYTES`."""
-    sblk = stage_blocks(tile, eblk, element_size)
-    need = edge_tile_smem_bytes(tile, eblk, element_size, sblk)
+    sblk, depth = stage_blocks(tile, eblk, element_size, weighted)
+    need = edge_tile_smem_bytes(tile, eblk, element_size, sblk, depth,
+                                weighted)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(f"{kernel}: tile {tile} with edge blocks of {eblk} "
                          f"slots needs {need} bytes of shared memory; the "
                          f"kernel has {SMEM_LIMIT_BYTES}")
-    return sblk
+    return sblk, depth
+
+
+def check_blocks(kernel: str, eblk: int, **tensors) -> None:
+    """Raise unless the edge blocks suit the ring's TMA copies and 128-slot
+    chunks: ``eblk`` a multiple of 128 and every block array 16-byte
+    aligned."""
+    if eblk < 128 or eblk % 128:
+        raise ValueError(f"{kernel}: edge blocks must hold a multiple of 128 "
+                         f"slots (e1 * e2); got {eblk}")
+    for name, x in tensors.items():
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte "
+                             f"boundary (the kernel copies its blocks with "
+                             f"TMA); got address {x.data_ptr():#x}")
 
 
 def check_lanes(kernel: str, lanes: int, **tensors) -> None:
@@ -122,7 +159,8 @@ def check_lanes(kernel: str, lanes: int, **tensors) -> None:
 def heavy_first(tile_num_blocks: torch.Tensor) -> torch.Tensor:
     """The edge-tile kernels' launch order: tile ids with the most blocks
     first (ties in id order), so the CTAs with the longest chains start in
-    the first wave. Any order gives the same bits; this one shortens the
+    the first wave (a lane-batched launch takes every lane's k-th tile
+    before any lane's (k+1)-th). Any order gives the same bits; this one shortens the
     tail. :class:`~repro_torch.kernels.ops.DeviceEdgeTiles` computes it once
     as ``tile_order``; a wrapper called without one computes it here. For
     lane-stacked tables ``[L, num_tiles]`` each lane's row is ordered on
@@ -132,9 +170,10 @@ def heavy_first(tile_num_blocks: torch.Tensor) -> torch.Tensor:
 
 
 def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
-                  tile_num_blocks, tile_order, weights, n, tile) -> int:
-    """Raise on what the kernel does not take; returns the blocks a CTA
-    stages at once."""
+                  tile_num_blocks, tile_order, weights, n,
+                  tile) -> tuple[int, int]:
+    """Raise on what the kernel does not take; returns the ring
+    ``(sblk, depth)``."""
     dev, dtype = s_pre.device, s_pre.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"edge_spmv takes float32 or float64; got {dtype}")
@@ -159,19 +198,21 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                          "match tile_first_block")
     if s_pre.dim() != 2 or s_pre.shape[0] != 1 or s_pre.shape[1] < n:
         raise ValueError(f"edge_spmv: s_pre must be [1, >= {n}]")
-    eblk = src_idx[0].numel() if src_idx.shape[0] else 0
-    if src_idx.dim() != 3 or dst_local.shape != src_idx.shape or eblk < 32:
+    if src_idx.dim() != 3 or dst_local.shape != src_idx.shape:
         raise ValueError("edge_spmv: src_idx/dst_local must share a "
-                         "[blocks, e1, e2] shape with e1*e2 >= 32")
+                         "[blocks, e1, e2] shape")
+    eblk = src_idx.shape[1] * src_idx.shape[2]
+    check_blocks("edge_spmv", eblk, src_idx=src_idx, dst_local=dst_local,
+                 weights=weights)
     if weights is not None and weights.shape != src_idx.shape:
         raise ValueError(f"edge_spmv: weights must be "
                          f"{tuple(src_idx.shape)}; got {tuple(weights.shape)}")
     return check_edge_tile_smem("edge_spmv", tile, eblk,
-                                s_pre.element_size())
+                                s_pre.element_size(), weights is not None)
 
 
 def _launch(s_pre, src_idx, dst_local, weights, tile_first_block,
-            tile_num_blocks, tile_order, out, *, n, tile, sblk, lanes):
+            tile_num_blocks, tile_order, out, *, n, tile, ring, lanes):
     """One launch of ``csrc/edge_spmv.cu`` over ``lanes`` lanes (the
     tensors' leading axis when ``lanes > 1``)."""
     symbol = ("repro_edge_spmv_f32" if s_pre.dtype == torch.float32
@@ -185,7 +226,7 @@ def _launch(s_pre, src_idx, dst_local, weights, tile_first_block,
                     None if weights is None else weights.data_ptr(),
                     tile_first_block.data_ptr(), tile_num_blocks.data_ptr(),
                     tile_order.data_ptr(), out.data_ptr(),
-                    tile_first_block.shape[-1], tile, eblk, sblk, lanes,
+                    tile_first_block.shape[-1], tile, eblk, *ring, lanes,
                     s_pre.shape[-1], src_idx.shape[1] if lanes > 1 else 0,
                     stream)
     _build.check("edge_spmv", status)
@@ -222,12 +263,12 @@ def edge_spmv_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
         raise ValueError(f"edge_spmv runs on cuda or cpu; got {s_pre.device}")
     if tile_order is None:
         tile_order = heavy_first(tile_num_blocks)
-    sblk = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
+    ring = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                          tile_num_blocks, tile_order, weights, n, tile)
     out = torch.empty(1, num_tiles * tile, dtype=s_pre.dtype,
                       device=s_pre.device)
     _launch(s_pre, src_idx, dst_local, weights, tile_first_block,
-            tile_num_blocks, tile_order, out, n=n, tile=tile, sblk=sblk,
+            tile_num_blocks, tile_order, out, n=n, tile=tile, ring=ring,
             lanes=1)
     edge_spmv_call.launches += 1
     return out
@@ -270,14 +311,14 @@ def edge_spmv_lanes_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
     if weights is not None:
         named["weights"] = weights
     check_lanes("edge_spmv_lanes", lanes, **named)
-    sblk = _check_inputs(s_pre[0], src_idx[0], dst_local[0],
+    ring = _check_inputs(s_pre[0], src_idx[0], dst_local[0],
                          tile_first_block[0], tile_num_blocks[0],
                          tile_order[0], None if weights is None
                          else weights[0], n, tile)
     out = torch.empty(lanes, 1, num_tiles * tile, dtype=s_pre.dtype,
                       device=s_pre.device)
     _launch(s_pre, src_idx, dst_local, weights, tile_first_block,
-            tile_num_blocks, tile_order, out, n=n, tile=tile, sblk=sblk,
+            tile_num_blocks, tile_order, out, n=n, tile=tile, ring=ring,
             lanes=lanes)
     edge_spmv_lanes_call.launches += 1
     return out

@@ -21,14 +21,14 @@ import ctypes
 import torch
 
 from . import _build
-from .edge_spmv import (check_edge_tile_smem, check_lanes, edge_spmv_plain,
-                        heavy_first)
+from .edge_spmv import (check_blocks, check_edge_tile_smem, check_lanes,
+                        edge_spmv_plain, heavy_first)
 
 __all__ = ["power_step_call", "power_step_plain", "power_step_lanes_call",
            "power_step_lanes_plain"]
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12 + [
-    ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 
 # One int32 ticket counter a lane per (device, stream): a lane's CTAs draw
 # tickets from its counter to find the last one, which sums that lane's
@@ -77,9 +77,10 @@ def power_step_lanes_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
 
 
 def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
-                  tile_num_blocks, tile_order, mu, c, s_old, n, tile) -> int:
-    """Raise on what the kernel does not take; returns the blocks a CTA
-    stages at once."""
+                  tile_num_blocks, tile_order, mu, c, s_old, n,
+                  tile) -> tuple[int, int]:
+    """Raise on what the kernel does not take; returns the ring
+    ``(sblk, depth)``."""
     dev, dtype = s_pre.device, s_pre.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"power_step takes float32 or float64; got {dtype}")
@@ -108,16 +109,17 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                              f"got {tuple(x.shape)}")
     if s_pre.dim() != 2 or s_pre.shape[0] != 1 or s_pre.shape[1] < n:
         raise ValueError(f"power_step: s_pre must be [1, >= {n}]")
-    eblk = src_idx[0].numel() if src_idx.shape[0] else 0
-    if dst_local.shape != src_idx.shape or eblk < 32:
+    if src_idx.dim() != 3 or dst_local.shape != src_idx.shape:
         raise ValueError("power_step: src_idx/dst_local must share a "
-                         "[blocks, e1, e2] shape with e1*e2 >= 32")
+                         "[blocks, e1, e2] shape")
+    eblk = src_idx.shape[1] * src_idx.shape[2]
+    check_blocks("power_step", eblk, src_idx=src_idx, dst_local=dst_local)
     return check_edge_tile_smem("power_step", tile, eblk,
                                 s_pre.element_size())
 
 
 def _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
-            tile_order, mu, c, s_old, s_new, gap, *, n, tile, sblk, lanes):
+            tile_order, mu, c, s_old, s_new, gap, *, n, tile, ring, lanes):
     """One launch of ``csrc/power_step.cu`` over ``lanes`` lanes (the
     tensors' leading axis when ``lanes > 1``)."""
     num_tiles = tile_first_block.shape[-1]
@@ -136,7 +138,7 @@ def _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
                     c.data_ptr(), s_old.data_ptr(), s_new.data_ptr(),
                     partial.data_ptr(), gap.data_ptr(),
                     _ticket(s_pre.device, stream, lanes).data_ptr(),
-                    num_tiles, tile, eblk, sblk, lanes, s_pre.shape[-1],
+                    num_tiles, tile, eblk, *ring, lanes, s_pre.shape[-1],
                     src_idx.shape[1] if lanes > 1 else 0, stream)
     _build.check("power_step", status)
 
@@ -171,12 +173,12 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
         raise ValueError(f"power_step runs on cuda or cpu; got {s_pre.device}")
     if tile_order is None:
         tile_order = heavy_first(tile_num_blocks)
-    sblk = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
+    ring = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                          tile_num_blocks, tile_order, mu, c, s_old, n, tile)
     s_new = torch.empty_like(mu)
     gap = torch.empty((), dtype=s_pre.dtype, device=s_pre.device)
     _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
-            tile_order, mu, c, s_old, s_new, gap, n=n, tile=tile, sblk=sblk,
+            tile_order, mu, c, s_old, s_new, gap, n=n, tile=tile, ring=ring,
             lanes=1)
     power_step_call.launches += 1
     return s_new, gap
@@ -217,13 +219,13 @@ def power_step_lanes_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                 dst_local=dst_local, tile_first_block=tile_first_block,
                 tile_num_blocks=tile_num_blocks, tile_order=tile_order,
                 mu=mu, c=c, s_old=s_old)
-    sblk = _check_inputs(s_pre[0], src_idx[0], dst_local[0],
+    ring = _check_inputs(s_pre[0], src_idx[0], dst_local[0],
                          tile_first_block[0], tile_num_blocks[0],
                          tile_order[0], mu[0], c[0], s_old[0], n, tile)
     s_new = torch.empty_like(mu)
     gap = torch.empty(lanes, dtype=s_pre.dtype, device=s_pre.device)
     _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
-            tile_order, mu, c, s_old, s_new, gap, n=n, tile=tile, sblk=sblk,
+            tile_order, mu, c, s_old, s_new, gap, n=n, tile=tile, ring=ring,
             lanes=lanes)
     power_step_lanes_call.launches += 1
     return s_new, gap

@@ -262,6 +262,44 @@ def test_many_workers_under_fast_thread_switching(platform):
     assert np.abs(res.psi.numpy() - psi_true).max() <= 1e-6
 
 
+def test_unsealing_sweep_keeps_each_chunks_epochs_contiguous(platform,
+                                                             monkeypatch):
+    """A certificate that accepts while the chunks are skewed and the true
+    gap is far above tol (forced here; under heavy thread switching it
+    happens on its own): the verification sweep does not seal the run and
+    publishes nothing, so each chunk's logged epochs still run 1, 2, …
+    (published, the sweep would move every chunk to one epoch and a chunk
+    behind would skip epochs), and the run still seals at the fixed
+    point."""
+    import dataclasses
+
+    from repro_torch.asyncexec import scheduler as sched_mod
+    real = sched_mod.certify_gap
+    forced = []
+
+    def early(gaps, epochs, **kw):
+        cert = real(gaps, epochs, **kw)
+        if not forced and cert.trusted and cert.spread >= 1:
+            forced.append(cert)
+            return dataclasses.replace(cert, certified_gap=0.0)
+        return cert
+
+    monkeypatch.setattr(sched_mod, "certify_gap", early)
+    g, act, psi_true = platform
+    eng = make_engine(
+        "async", graph=g, activity=act, num_chunks=4, tau=2,
+        delay_hook=lambda k, e: 0.01 if k == 0 and e <= 6 else 0.0, **CPU)
+    res = eng.run(tol=1e-10)
+    out = eng.last_run
+    assert forced and res.converged and out.sync_sweeps >= 2
+    log = eng.sched.step_log
+    for k in range(4):
+        epochs = [e for c, e, _ in log if c == k]
+        assert epochs == list(range(1, len(epochs) + 1)), k
+    assert out.total_steps == len(log) + 4 * out.sync_sweeps
+    assert np.abs(res.psi.numpy() - psi_true).max() <= 1e-6
+
+
 def test_straggler_absorption(platform):
     """A permanently slow chunk falls behind instead of stalling every
     epoch, and the answer is still the synchronous fixed point."""

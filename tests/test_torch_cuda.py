@@ -6,6 +6,8 @@ card; on one, run them with::
 
 This file imports only the port (the card's machine has no JAX).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from repro_torch.kernels.bsr_spmv import (bsr_spmv_call, bsr_spmv_plain,
 from repro_torch.kernels.edge_spmv import (edge_spmv_call,
                                            edge_spmv_lanes_call,
                                            edge_spmv_lanes_plain,
-                                           edge_spmv_plain)
+                                           edge_spmv_plain, stage_blocks)
 from repro_torch.kernels.formats import (build_bsr, build_edge_tiles,
                                          pad_edge_tile_blocks, tile_spans)
 from repro_torch.kernels.ops import (DeviceBsr, DeviceEdgeTiles, bsr_spmv,
@@ -183,6 +185,69 @@ def test_edge_spmv_kernel_equals_plain_at_every_slot_layout(card, kind, tile,
                          None if w is None else w.cpu(), tile=tile,
                          num_tiles=fmt.num_tiles)[0, :g.n]
     assert torch.equal(o1.cpu(), op)
+
+
+# Every ring the wrappers pick (edge_spmv.stage_blocks: 1, 2 or 4 blocks a
+# stage, 2 to 4 stages), f64 up to tile 1024, on a hub graph whose long
+# rows span many stages, its slots sorted (a fresh build) or shuffled within
+# each tile (every stage unsorted): edge_spmv bitwise its plain version,
+# power_step within the tolerances above, both bitwise run to run.
+@pytest.mark.parametrize("tile,e1,dtype,weighted,ring", [
+    (512, 8, torch.float32, False, (2, 2)),
+    (256, 8, torch.float32, False, (1, 2)),
+    (256, 8, torch.float64, False, (1, 2)),
+    (1024, 8, torch.float64, False, (4, 2)),
+    (128, 1, torch.float32, False, (4, 2)),
+    (256, 1, torch.float32, True, (4, 4)),
+    (1024, 4, torch.float32, True, (4, 4)),
+    (256, 5, torch.float64, False, (1, 3)),
+    (512, 10, torch.float32, False, (1, 3)),
+    (512, 5, torch.float32, False, (2, 3)),
+    (1024, 5, torch.float32, False, (4, 3)),
+    (128, 16, torch.float64, True, (1, 2)),
+    (1024, 16, torch.float64, False, (2, 2))])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_edge_tile_kernels_at_every_ring_on_card(card, tile, e1, dtype,
+                                                 weighted, ring, order):
+    g, _ = edge_tile_layout("hub", 128)
+    fmt_h = build_edge_tiles(g, tile=tile, e1=e1, e2=128)
+    elt = torch.tensor([], dtype=dtype).element_size()
+    assert stage_blocks(tile, fmt_h.eblk, elt, weighted) == ring
+    if order == "shuffled":
+        rng = np.random.default_rng(14)
+        src = fmt_h.src_idx.reshape(fmt_h.num_blocks, -1).copy()
+        dstl = fmt_h.dst_local.reshape(fmt_h.num_blocks, -1).copy()
+        for a, c in zip(fmt_h.tile_first_block, fmt_h.tile_num_blocks):
+            perm = rng.permutation(c * fmt_h.eblk)
+            src[a:a + c] = src[a:a + c].reshape(-1)[perm].reshape(c, -1)
+            dstl[a:a + c] = dstl[a:a + c].reshape(-1)[perm].reshape(c, -1)
+        fmt_h = dataclasses.replace(
+            fmt_h, src_idx=src.reshape(fmt_h.src_idx.shape),
+            dst_local=dstl.reshape(fmt_h.src_idx.shape))
+    fmt = DeviceEdgeTiles.from_format(fmt_h, card)
+    rng = np.random.default_rng(15)
+    s = torch.as_tensor(rng.uniform(size=g.n), dtype=dtype, device=card)
+    w = _slot_weights(fmt_h, dtype, 16).to(card) if weighted else None
+    o1, o2 = edge_spmv(s, fmt, w), edge_spmv(s, fmt, w)
+    assert torch.equal(o1, o2)
+    op = edge_spmv_plain(fmt.pad_gather_source(s).cpu(), fmt.src_idx.cpu(),
+                         fmt.dst_local.cpu(), fmt.block_tile.cpu(),
+                         None if w is None else w.cpu(), tile=tile,
+                         num_tiles=fmt.num_tiles)[0, :g.n]
+    assert torch.equal(o1.cpu(), op)
+    mu, c, s_old = (fmt.pad_node_vector(torch.as_tensor(
+        rng.uniform(size=g.n), dtype=dtype, device=card)) for _ in range(3))
+    args = (fmt.pad_gather_source(s), fmt.src_idx, fmt.dst_local,
+            fmt.block_tile, fmt.tile_first_block, fmt.tile_num_blocks, mu, c,
+            s_old)
+    s1, gap1 = power_step_call(*args, n=g.n, tile=tile)
+    s2, gap2 = power_step_call(*args, n=g.n, tile=tile)
+    assert torch.equal(s1, s2) and torch.equal(gap1, gap2)
+    sp, gapp = power_step_plain(*(a.cpu() for a in args[:4]),
+                                *(a.cpu() for a in args[6:]), tile=tile)
+    rtol, atol = (1e-6, 1e-7) if dtype == torch.float32 else (1e-14, 1e-16)
+    torch.testing.assert_close(s1.cpu(), sp, rtol=rtol, atol=atol)
+    assert abs(float(gap1) - float(gapp)) <= 1e-3 * float(gapp)
 
 
 # The launch order moves no bit: the tiles in id order give what the
@@ -470,6 +535,60 @@ def test_edge_spmv_lanes_kernel_on_card(card, tile, weighted, dtype):
                                None if w is None else w.cpu(), tile=tile,
                                num_tiles=fmt.num_tiles)
     assert torch.equal(o1.cpu(), op)
+
+
+def _patched_lane(fmt_h, seed):
+    """``fmt_h`` as the solo engine patches a format in place: new edges
+    (random sources, random rows of the tile) written into the sentinel
+    slots right after each tile's sorted edges, so those stages are
+    unsorted; the block layout is unchanged."""
+    rng = np.random.default_rng(seed)
+    src = fmt_h.src_idx.reshape(fmt_h.num_blocks, -1).copy()
+    dstl = fmt_h.dst_local.reshape(fmt_h.num_blocks, -1).copy()
+    for a, c in zip(fmt_h.tile_first_block, fmt_h.tile_num_blocks):
+        flat_s, flat_d = src[a:a + c].reshape(-1), dstl[a:a + c].reshape(-1)
+        free = np.flatnonzero(flat_s == fmt_h.n)
+        put = free[:min(len(free), 48)]
+        flat_s[put] = rng.integers(0, 1500, len(put))
+        flat_d[put] = rng.integers(0, fmt_h.tile, len(put))
+        src[a:a + c], dstl[a:a + c] = (flat_s.reshape(c, -1),
+                                       flat_d.reshape(c, -1))
+    return dataclasses.replace(
+        fmt_h, src_idx=src.reshape(fmt_h.src_idx.shape),
+        dst_local=dstl.reshape(fmt_h.src_idx.shape))
+
+
+# A lane whose stages are unsorted (a patched format written with
+# write_lane) beside sorted lanes and the all-padding lane: every lane is
+# bitwise its single-lane launch, edge_spmv_lanes bitwise its plain
+# version, power_step_lanes within the tolerances above.
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-6, 1e-7),
+                                             (torch.float64, 1e-14, 1e-16)])
+def test_lane_kernels_with_a_patched_lane_on_card(card, tile, dtype, rtol,
+                                                  atol):
+    fmts = _lane_formats(tile)
+    fmt = DeviceEdgeTiles.stack(fmts, card)
+    fmt.write_lane(1, _patched_lane(fmts[1], 17))
+    s_pre, mu, c, s_old = _lane_vectors(fmt, dtype, tile + 2)
+    args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+            fmt.tile_first_block, fmt.tile_num_blocks, mu, c, s_old)
+    kw = dict(n=fmt.n, tile=tile, tile_order=fmt.tile_order)
+    s1, gap1 = power_step_lanes_call(*args, **kw)
+    t1 = edge_spmv_lanes_call(*args[:6], **kw)
+    for lane in range(mu.shape[0]):
+        one = dict(n=fmt.n, tile=tile, tile_order=fmt.tile_order[lane])
+        s_one, gap_one = power_step_call(*(a[lane] for a in args), **one)
+        assert torch.equal(s1[lane], s_one) and torch.equal(gap1[lane],
+                                                            gap_one)
+        assert torch.equal(t1[lane], edge_spmv_call(
+            *(a[lane] for a in args[:6]), **one))
+    host = [a.cpu() for a in args]
+    sp, gapp = power_step_lanes_plain(*host[:4], *host[6:], tile=tile)
+    torch.testing.assert_close(s1.cpu(), sp, rtol=rtol, atol=atol)
+    assert torch.all((gap1.cpu() - gapp).abs() <= 1e-3 * gapp)
+    assert torch.equal(t1.cpu(), edge_spmv_lanes_plain(
+        *host[:4], tile=tile, num_tiles=fmt.num_tiles))
 
 
 # The fleet's cuda regime on the card: each lane's iterations, gap, s and

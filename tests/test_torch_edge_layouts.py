@@ -6,7 +6,7 @@ holds the ``power_step`` and ``edge_spmv`` kernels to on the card; here, on
 the CPU, the wrappers run their plain versions on the same layouts and are
 held against a float64 product of the graph's own edges (relative 1e-12).
 The footprint tests pin the shared memory that the wrappers check to the
-formula of ``csrc/edge_tile_scan.cuh``.
+formula of ``csrc/edge_tile_scan.cuh`` and the ring the wrappers pick.
 
 This file imports only the port (``test_torch_cuda.py`` imports it on the
 card's machine, which has no JAX).
@@ -20,7 +20,9 @@ import torch
 import repro_torch.core as tc
 import repro_torch.graphs as tg
 from repro_torch.kernels.autotune import EDGE_TILE_CANDIDATES
-from repro_torch.kernels.edge_spmv import (SMEM_LIMIT_BYTES, STAGE_BYTES,
+from repro_torch.kernels.edge_spmv import (RING_SLOTS_PER_NODE,
+                                           SMEM_LIMIT_BYTES,
+                                           STAGE_SLOTS_PER_NODE, check_blocks,
                                            check_edge_tile_smem,
                                            edge_tile_smem_bytes, heavy_first,
                                            stage_blocks)
@@ -177,37 +179,96 @@ def test_power_step_plain_matches_f64_step_at_every_slot_layout(kind, tile):
     np.testing.assert_allclose(float(gap), np.abs(ref - s).sum(), rtol=1e-12)
 
 
-# edge_tile_smem_bytes = eblk (2 elt + 2) + 32 elt + tile * tile / 16
-# + 4 tile bytes: staged and grouped values, scratch, per-warp 16-bit row
-# counts, 16-bit rows, 16-bit run bounds
+# edge_tile_smem_bytes = 128 + 32 elt + depth (span (8 + elt (1 + weighted))
+# + 4 tile) + span elt + 2 min(4, tile / 32) tile: the header (mbarriers,
+# counters), scratch; a ring slot's staged src_idx / dst_local (weights),
+# gathered values and 16-bit run bounds; an unsorted stage's grouped values
+# and its sort warps' 16-bit row counts. wants at one block a stage, two
+# stages, unweighted.
 @pytest.mark.parametrize("tile,e1,e2,elt,want", [
-    (256, 8, 128, 4, 15_488), (128, 8, 128, 4, 11_904),
-    (512, 8, 128, 4, 28_800), (256, 8, 128, 8, 23_808),
-    (128, 8, 128, 8, 20_224), (512, 8, 128, 8, 37_120),
-    (512, 16, 128, 8, 55_552), (1024, 8, 128, 8, 88_320)])
+    (256, 8, 128, 4, 33_024), (128, 8, 128, 4, 30_976),
+    (512, 8, 128, 4, 37_120), (256, 8, 128, 8, 45_440),
+    (128, 8, 128, 8, 43_392), (512, 8, 128, 8, 49_536),
+    (512, 16, 128, 8, 90_496), (1024, 8, 128, 8, 57_728)])
 def test_edge_tile_smem_bytes_is_the_kernel_layout(tile, e1, e2, elt, want):
-    assert edge_tile_smem_bytes(tile, e1 * e2, elt) == want
-    assert edge_tile_smem_bytes(tile, e1 * e2, elt, 2) == (
-        want + e1 * e2 * (2 * elt + 2))
-    check_edge_tile_smem("power_step", tile, e1 * e2, elt)    # fits
+    eblk = e1 * e2
+    assert edge_tile_smem_bytes(tile, eblk, elt) == want
+    # a second block a stage: two ring slots and the grouped values grow
+    assert edge_tile_smem_bytes(tile, eblk, elt, 2) == (
+        want + 2 * eblk * (8 + elt) + eblk * elt)
+    # a third ring slot
+    assert edge_tile_smem_bytes(tile, eblk, elt, 1, 3) == (
+        want + eblk * (8 + elt) + 4 * tile)
+    # staged weights in every ring slot
+    assert edge_tile_smem_bytes(tile, eblk, elt, 1, 2, True) == (
+        want + 2 * eblk * elt)
+    check_edge_tile_smem("power_step", tile, eblk, elt)    # fits
 
 
-# The autotuner's candidates (eblk 1024) stage the most of 4, 2, 1 blocks at
-# once that fit 48 KB: the slots take 10 bytes each at f32, 18 at f64.
-@pytest.mark.parametrize("dtype,want", [(torch.float32, {128: 4, 256: 4,
-                                                         512: 2}),
-                                        (torch.float64, {128: 2, 256: 2,
-                                                         512: 1})])
-def test_autotuner_candidates_fit_the_kernels(dtype, want):
+# The autotuner's candidates (eblk 1024): two stages of one block at tiles
+# 128 and 256, of two blocks at tile 512, within the card's shared memory,
+# at f32 and f64.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_autotuner_candidates_fit_the_kernels(dtype):
     elt = torch.tensor([], dtype=dtype).element_size()
+    want = {128: (1, 2), 256: (1, 2), 512: (2, 2)}
     for tile, e1, e2 in EDGE_TILE_CANDIDATES:
-        sblk = stage_blocks(tile, e1 * e2, elt)
-        assert sblk == want[tile]
-        assert check_edge_tile_smem("edge_spmv", tile, e1 * e2, elt) == sblk
-        assert edge_tile_smem_bytes(tile, e1 * e2, elt, sblk) <= STAGE_BYTES
-        if sblk < 4:
-            assert edge_tile_smem_bytes(tile, e1 * e2, elt,
-                                        2 * sblk) > STAGE_BYTES
+        ring = stage_blocks(tile, e1 * e2, elt)
+        assert ring == want[tile]
+        assert check_edge_tile_smem("edge_spmv", tile, e1 * e2, elt) == ring
+        assert edge_tile_smem_bytes(tile, e1 * e2, elt,
+                                    *ring) <= SMEM_LIMIT_BYTES
+
+
+# stage_blocks against a recomputation at every tile and dtype, weighted or
+# not, for block sizes 128 to 16,384 slots: a stage of the most of 4, 2, 1
+# blocks within STAGE_SLOTS_PER_NODE slots a node, as many stages (2 to 4)
+# as RING_SLOTS_PER_NODE slots a node hold, else (1, 2) where that does not
+# fit; check_edge_tile_smem returns it and raises exactly when it exceeds
+# the card's limit.
+@pytest.mark.parametrize("elt", [4, 8])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("eblk", [128, 256, 384, 640, 1024, 1280, 2048,
+                                  4096, 16384])
+def test_stage_blocks_at_every_tile_and_dtype(elt, weighted, eblk):
+    for tile in range(32, 1025, 32):
+        sblk = max([b for b in (1, 2, 4)
+                    if b * eblk <= STAGE_SLOTS_PER_NODE * tile] or [1])
+        want = (sblk, min(4, max(2, RING_SLOTS_PER_NODE * tile
+                                 // (sblk * eblk))))
+        if edge_tile_smem_bytes(tile, eblk, elt, *want,
+                                weighted) > SMEM_LIMIT_BYTES:
+            want = (1, 2)
+        assert stage_blocks(tile, eblk, elt, weighted) == want, tile
+        need = edge_tile_smem_bytes(tile, eblk, elt, *want, weighted)
+        if need > SMEM_LIMIT_BYTES:
+            with pytest.raises(ValueError, match="shared memory"):
+                check_edge_tile_smem("edge_spmv", tile, eblk, elt, weighted)
+        else:
+            assert check_edge_tile_smem("edge_spmv", tile, eblk, elt,
+                                        weighted) == want
+
+
+# Every ring depth the wrappers pick (2, 3 and 4 stages) and every stage
+# size (1, 2 and 4 blocks) occurs at some block size the card tests use.
+def test_card_tests_cover_every_ring():
+    rings = {stage_blocks(512, e1 * 128, 4) for e1 in (1, 2, 4, 5, 8, 10,
+                                                       16)}
+    assert {d for _, d in rings} == {2, 3, 4}
+    assert {b for b, _ in rings} == {1, 2, 4}
+
+
+# The ring's TMA copies and 128-slot chunks: eblk a multiple of 128, every
+# block array on a 16-byte boundary.
+def test_check_blocks_refuses_what_the_ring_cannot_copy():
+    x = torch.zeros(64, dtype=torch.int32)
+    check_blocks("edge_spmv", 1024, src_idx=x, dst_local=x, weights=None)
+    check_blocks("edge_spmv", 128, src_idx=x)
+    for eblk in (32, 96, 1000):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            check_blocks("edge_spmv", eblk, src_idx=x)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_blocks("power_step", 1024, src_idx=x, dst_local=x[1:])
 
 
 def test_edge_tile_smem_check_raises_when_it_does_not_fit():
