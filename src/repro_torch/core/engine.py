@@ -174,6 +174,36 @@ def _instrument_run(run):
     return wrapped
 
 
+def _instrument_prepare(prepare):
+    """Wrap a backend's ``prepare`` in an ``engine.prepare`` span, applied
+    by :meth:`PsiEngine.__init_subclass__` as :func:`_instrument_run` is,
+    so every build is timed: :func:`make_engine`'s, and every re-prepare
+    by the serving layer or the resilience ladder. A subclass's
+    ``prepare`` that calls its parent's opens one span, not two. The
+    span's seconds also go to the ``psi_engine_prepare_seconds`` histogram,
+    which holds them where no tracer is live (a process's set-up)."""
+
+    @functools.wraps(prepare)
+    def wrapped(self, *args, **kwargs):
+        if getattr(self, "_preparing", False):       # super().prepare(...)
+            return prepare(self, *args, **kwargs)
+        self._preparing = True
+        try:
+            with obs_trace.span("engine.prepare", backend=self.name) as sp:
+                state = prepare(self, *args, **kwargs)
+        finally:
+            self._preparing = False
+        obs_metrics.histogram(
+            "psi_engine_prepare_seconds",
+            "seconds a backend's prepare took (operators and formats)",
+            labelnames=("backend",)).labels(backend=self.name).observe(
+                sp.duration_s)
+        return state
+
+    wrapped._obs_instrumented = True
+    return wrapped
+
+
 class PsiEngine(abc.ABC):
     """One (graph, activity) pair's solver; see module docstring.
 
@@ -200,6 +230,10 @@ class PsiEngine(abc.ABC):
         run = cls.__dict__.get("run")
         if run is not None and not getattr(run, "_obs_instrumented", False):
             cls.run = _instrument_run(run)
+        prepare = cls.__dict__.get("prepare")
+        if prepare is not None and not getattr(prepare, "_obs_instrumented",
+                                               False):
+            cls.prepare = _instrument_prepare(prepare)
 
     def __init__(self, *, dtype: torch.dtype = torch.float32,
                  device: str | torch.device = "cuda",
@@ -300,10 +334,12 @@ class PsiEngine(abc.ABC):
         gap = torch.tensor(float("inf"), dtype=self.dtype)
         t = 0
         while bool(gap > tol_t) and t < max_iter:
-            for _ in range(k - 1):
-                s, _ = self.one_step(args, s)
-            s, raw = self.one_step(args, s)
-            gap = (scale * raw).cpu()
+            with obs_trace.hot_span("engine.issue"):
+                for _ in range(k - 1):
+                    s, _ = self.one_step(args, s)
+                s, raw = self.one_step(args, s)
+            with obs_trace.hot_span("engine.gap_read"):
+                gap = (scale * raw).cpu()
             t += k
         return s, gap, t
 
@@ -786,18 +822,29 @@ class CudaEngine(PsiEngine):
         self.one_step = one_step
 
     def _build_format(self, graph: Graph) -> None:
-        if self.regime == "edge_tile":
-            self.fmt_host = build_edge_tiles(graph, tile=self.tile,
-                                             e1=self.e1, e2=self.e2)
-            self.fmt = DeviceEdgeTiles.from_format(self.fmt_host, self.device)
-            self._rebuild_tile_cursor()
-            self._refresh_padded()
-        else:
-            self.fmt_host = build_bsr(graph, ts=self.ts, td=self.td,
-                                      dtype=numpy_dtype(self.dtype))
-            self.fmt = DeviceBsr.from_format(self.fmt_host, self.device)
-            self._rebuild_bsr_block_map()
+        """Build the regime's format on the host and copy it to the device,
+        in a ``format.build`` span whose seconds also go to the
+        ``psi_format_build_seconds`` histogram (a prepare's build, or a
+        rebuild an edge patch forces)."""
+        with obs_trace.span("format.build", regime=self.regime) as sp:
+            if self.regime == "edge_tile":
+                self.fmt_host = build_edge_tiles(graph, tile=self.tile,
+                                                 e1=self.e1, e2=self.e2)
+                self.fmt = DeviceEdgeTiles.from_format(self.fmt_host,
+                                                       self.device)
+                self._rebuild_tile_cursor()
+                self._refresh_padded()
+            else:
+                self.fmt_host = build_bsr(graph, ts=self.ts, td=self.td,
+                                          dtype=numpy_dtype(self.dtype))
+                self.fmt = DeviceBsr.from_format(self.fmt_host, self.device)
+                self._rebuild_bsr_block_map()
         self.format_builds += 1
+        obs_metrics.histogram(
+            "psi_format_build_seconds",
+            "seconds a cuda engine's format build took (host and copy)",
+            labelnames=("regime",)).labels(regime=self.regime).observe(
+                sp.duration_s)
 
     def _to_native(self, v: torch.Tensor) -> torch.Tensor:
         return (self.fmt.pad_node_vector(v) if self.regime == "edge_tile"

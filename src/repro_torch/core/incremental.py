@@ -47,7 +47,8 @@ class RankingCache:
 
     def __init__(self, psi: torch.Tensor, *, err_bound: float | None = None):
         self._psi_dev = psi
-        self._psi = psi.detach().cpu().numpy()
+        with obs_trace.hot_span("ranking.copy"):
+            self._psi = psi.detach().cpu().numpy()
         self.err_bound = err_bound
         self._order: np.ndarray | None = None
         self._rank: np.ndarray | None = None

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..obs import trace as obs_trace
 from . import _build
 from .edge_spmv import (check_blocks, check_edge_tile_smem, check_lanes,
                         edge_spmv_plain, heavy_first)
@@ -171,10 +172,12 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                                 s_old, tile=tile)
     if s_pre.device.type != "cuda":
         raise ValueError(f"power_step runs on cuda or cpu; got {s_pre.device}")
-    if tile_order is None:
-        tile_order = heavy_first(tile_num_blocks)
-    ring = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
-                         tile_num_blocks, tile_order, mu, c, s_old, n, tile)
+    with obs_trace.hot_span("power_step.check"):
+        if tile_order is None:
+            tile_order = heavy_first(tile_num_blocks)
+        ring = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
+                             tile_num_blocks, tile_order, mu, c, s_old, n,
+                             tile)
     s_new = torch.empty_like(mu)
     gap = torch.empty((), dtype=s_pre.dtype, device=s_pre.device)
     _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,

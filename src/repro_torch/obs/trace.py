@@ -14,6 +14,15 @@ point (``dispatch_s``) vs the wait for the CUDA streams of the result's
 tensors (``sync_s``) — and guarantees the span's total duration covers the
 compute. CPU tensors need no wait.
 
+One timeline with the device: while a ``torch.profiler`` records, every
+:class:`Span` also opens a profiler range of its name for its lifetime (a
+CPU op in kineto's trace), so the profile's device operations and the
+program's spans share one trace. Sites on the hot path (a solver
+step, a kernel launch) open their span through :func:`hot_span`, which
+makes one only while :func:`recording` — a live tracer or a recording
+profiler; otherwise the site costs one test, creates no :class:`Span` and
+reads no clock.
+
 Spans nest through a per-thread stack (each records its parent id + depth)
 and are thread-safe: the async scheduler's workers each carry their own
 stack, and completed spans funnel through one writer lock into a
@@ -29,8 +38,8 @@ on (e.g. the known ``patch_edges`` format rebuild). It surfaces them as the
 ``psi_retraces_total`` counter and a structured ``retrace`` event, under
 the JAX package's names.
 
-The port of the JAX package's ``repro.obs.trace``; only ``Span.sync`` and
-the guard's signature count are new.
+The port of the JAX package's ``repro.obs.trace``; ``Span.sync``, the
+profiler ranges, :func:`hot_span` and the guard's signature count are new.
 """
 from __future__ import annotations
 
@@ -43,16 +52,22 @@ import time
 from collections import deque
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from . import metrics
 
 __all__ = ["now", "Span", "Tracer", "NULL_TRACER", "get_tracer",
-           "set_tracer", "span", "retrace_guard", "RetraceGuard",
-           "signature"]
+           "set_tracer", "span", "recording", "hot_span", "NO_SPAN",
+           "retrace_guard", "RetraceGuard", "signature"]
 
 #: the shared span clock — monotonic seconds; every instrumented duration
 #: in the repo is a difference of two now() reads
 now = time.perf_counter
+
+#: the profiler range a span opens: the C++ record function, without the
+#: dispatcher op that ``record_function`` enters and leaves through, whose
+#: host time under the profiler would lengthen the idle gaps it names
+_RANGE = torch._C._profiler._RecordFunctionFast
 
 _TLS = threading.local()
 _IDS = itertools.count(1)
@@ -67,7 +82,8 @@ def _stack() -> list:
 
 class Span:
     """One timed region. Always measures; emits only when ``tracer`` is a
-    live :class:`Tracer`. Use as a context manager:
+    live :class:`Tracer`; while a ``torch.profiler`` records, it is also a
+    profiler range of its name. Use as a context manager:
 
         with span("resolve", tenant="acme") as sp:
             out = solve()
@@ -76,7 +92,8 @@ class Span:
     """
 
     __slots__ = ("name", "attrs", "tracer", "t0", "t1", "dispatch_s",
-                 "sync_s", "span_id", "parent_id", "depth", "thread")
+                 "sync_s", "span_id", "parent_id", "depth", "thread",
+                 "_range")
 
     def __init__(self, name: str, tracer, attrs: dict):
         self.name = name
@@ -89,6 +106,7 @@ class Span:
         self.parent_id = None
         self.depth = 0
         self.thread = threading.current_thread().name
+        self._range = None
 
     def __enter__(self) -> "Span":
         st = _stack()
@@ -96,11 +114,17 @@ class Span:
             self.parent_id = st[-1].span_id
             self.depth = len(st)
         st.append(self)
+        if _profiler._is_profiler_enabled:
+            self._range = _RANGE(self.name)
+            self._range.__enter__()
         self.t0 = now()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self.t1 = now()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         st = _stack()
         if st and st[-1] is self:
             st.pop()
@@ -237,6 +261,35 @@ def set_tracer(tracer):
 def span(name: str, **attrs) -> Span:
     """A span on the process tracer — the one instrumentation entry point."""
     return _TRACER.span(name, **attrs)
+
+
+def recording() -> bool:
+    """Whether a span would be seen: a live :class:`Tracer` is installed,
+    or a ``torch.profiler`` is recording (the span's range)."""
+    return _TRACER.enabled or _profiler._is_profiler_enabled
+
+
+class _NoSpan:
+    """What :func:`hot_span` gives while nothing records: a context that
+    does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def hot_span(name: str):
+    """A span on the process tracer while :func:`recording`, else
+    :data:`NO_SPAN`: for sites on the hot path that read nothing back from
+    their span (it is ``None`` inside the ``with`` when off)."""
+    return _TRACER.span(name) if recording() else NO_SPAN
 
 
 def _tensors(value):

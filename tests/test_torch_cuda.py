@@ -402,6 +402,39 @@ def test_cuda_backend_solves_on_card(card, regime):
     assert float(err) <= 1e-6
 
 
+def test_power_step_check_span_on_card(card, monkeypatch):
+    """A live tracer records one ``power_step.check`` a launch inside its
+    ``engine.issue``; with none live and no profiler a launch makes no
+    span, and the solve is bit for bit the same."""
+    from repro_torch.obs import trace
+    g = tg.powerlaw_configuration(3000, 20000, seed=3)
+    eng = tc.make_engine("cuda", graph=g, activity=tc.heterogeneous(
+        g.n, seed=4), device=card, dtype=torch.float64)
+    made = []
+
+    class Counted(trace.Span):
+        __slots__ = ()
+
+        def __init__(self, *a, **kw):
+            made.append(a[0])
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(trace, "Span", Counted)
+    quiet = eng.run(tol=1e-10)
+    assert "power_step.check" not in made and "engine.issue" not in made
+    tracer = trace.Tracer()
+    prev = trace.set_tracer(tracer)
+    try:
+        traced = eng.run(tol=1e-10)
+    finally:
+        trace.set_tracer(prev)
+    checks = [r for r in tracer.spans if r["name"] == "power_step.check"]
+    issues = {r["id"] for r in tracer.spans if r["name"] == "engine.issue"}
+    assert len(checks) == len(issues) == traced.iterations
+    assert {r["parent"] for r in checks} == issues
+    assert torch.equal(traced.psi, quiet.psi) and traced.gap == quiet.gap
+
+
 @pytest.mark.parametrize("microbench", [False, True])
 def test_auto_backend_solves_on_card(card, microbench):
     g = tg.powerlaw_configuration(3000, 20000, seed=3)

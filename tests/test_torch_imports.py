@@ -119,6 +119,7 @@ def test_no_file_names_jax_or_repro_in_an_import():
     machine has no jax."""
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "ab_edge_tile.py",
+        ROOT / "tools" / "trace_gaps.py",
         ROOT / "tests" / "test_torch_cuda.py",
         ROOT / "tests" / "test_torch_edge_layouts.py",
         *sorted((ROOT / "examples").glob("torch_*.py"))]
