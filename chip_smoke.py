@@ -563,14 +563,15 @@ def cold_ms(fn, reps: int = 10) -> tuple[float, float]:
 # --------------------------------------------------------------------- #
 def edge_tile_inputs(graph, dtype, *, tile=256, pad_blocks=0, seed=0):
     """Everything ``power_step_call`` takes for ``graph``, on the card, with
-    a random series vector made from ``seed``."""
+    a random series vector made from ``seed``; the device format carries
+    the step kernel's plan, as the ``cuda`` engine builds it."""
     from repro_torch.kernels.formats import (build_edge_tiles,
                                              pad_edge_tile_blocks)
     from repro_torch.kernels.ops import DeviceEdgeTiles
     fmt_h = build_edge_tiles(graph, tile=tile)
     if pad_blocks:
         fmt_h = pad_edge_tile_blocks(fmt_h, fmt_h.num_blocks + pad_blocks)
-    fmt = DeviceEdgeTiles.from_format(fmt_h, "cuda")
+    fmt = DeviceEdgeTiles.from_format(fmt_h, "cuda").with_row_plan()
     return fmt_h, fmt, power_step_args(graph, fmt, dtype, seed)
 
 
@@ -748,8 +749,9 @@ def phase_kernels(report: dict) -> None:
         for cname, g, tile, pad in cases:
             fmt_h, fmt, args = edge_tile_inputs(g, dtype, tile=tile,
                                                 pad_blocks=pad)
-            err, share = _check_power_step(f"{cname} {dname}", fmt, args,
-                                           rtol, atol, gtol)
+            err, share = _check_power_step(
+                f"{cname} {dname}", fmt, args, rtol, atol, gtol,
+                engaged=cname in ("twitter", "twitter t128", "twitter t512"))
             if cname == "twitter" and dname == "float32":
                 errs["power_step"] = err
                 report["power_step_share"] = share
@@ -863,9 +865,14 @@ def bsr_cases(report: dict, clustered) -> None:
         torch.cuda.empty_cache()
 
 
-def _check_power_step(name, fmt, args, rtol, atol, gtol):
-    """power_step twice on ``args`` (bitwise equal) and against its plain
-    version on CPU copies; returns (max abs err, worst share of limit)."""
+def _check_power_step(name, fmt, args, rtol, atol, gtol, engaged=False):
+    """power_step twice on ``args`` (bitwise equal), against its plain
+    version on CPU copies, and with the row path: the plan of the format's
+    own slots, as the engine builds it, and the plan that sends every
+    sorted tile to the row path (stage 0), each bitwise the ring's s' and
+    gap (``engaged``: the format's own plan must send a tile to the row
+    path); returns (max abs err, worst share of limit)."""
+    import dataclasses
     import torch
     from repro_torch.kernels.power_step import (power_step_call,
                                                 power_step_plain)
@@ -875,6 +882,21 @@ def _check_power_step(name, fmt, args, rtol, atol, gtol):
     torch.cuda.synchronize()
     check(torch.equal(s1, s2) and torch.equal(gap1, gap2),
           f"power_step {name}: two runs differ")
+    bare = dataclasses.replace(fmt, row_start=None, tile_row_slots=None)
+    on_rows = {}
+    for label, stage in (("plan", None), ("stage 0", 0)):
+        planned = bare.with_row_plan(stage)
+        sr, gapr = power_step_call(
+            *args, **kw, row_start=planned.row_start,
+            tile_row_slots=planned.tile_row_slots)
+        torch.cuda.synchronize()
+        check(torch.equal(sr, s1) and torch.equal(gapr, gap1),
+              f"power_step {name}: the row path ({label}) differs from the "
+              f"ring")
+        on_rows[label] = int((planned.tile_row_slots > 0).sum())
+    check(not engaged or on_rows["plan"] > 0,
+          f"power_step {name}: the format's plan sends no tile to the row "
+          f"path")
     host = [a.cpu() for a in args]
     sp, gapp = power_step_plain(*host[:4], *host[6:], tile=fmt.tile)
     err, share = _compare(f"power_step {name}", s1.cpu(), sp, rtol, atol)
@@ -886,7 +908,8 @@ def _check_power_step(name, fmt, args, rtol, atol, gtol):
         f"{fmt.src_idx.shape[0]} blocks (max {int(counts.max())}/tile), max "
         f"abs err {err:.3e} (rtol {rtol}, atol {atol}; worst element at "
         f"{share:.3g} of its limit), gap rel err {gap_rel:.3e} (tol {gtol}), "
-        f"bitwise repeatable")
+        f"bitwise repeatable; the row path on {on_rows['plan']} tiles (its "
+        f"plan) and {on_rows['stage 0']} (stage 0), bitwise the ring")
     return err, share
 
 
@@ -1869,8 +1892,8 @@ def fleet_tenants() -> list:
 
 
 def _lane(fleet, tid):
-    """(bucket, lane, the lane's own single-lane format and f[1, ·] step
-    vectors) of tenant ``tid`` in a cuda-regime bucket."""
+    """(bucket, lane, the lane's own single-lane format, its plan too, and
+    f[1, ·] step vectors) of tenant ``tid`` in a cuda-regime bucket."""
     import dataclasses
     rec = fleet._rec(tid)
     bucket = fleet._buckets[rec.spec]
@@ -1879,7 +1902,8 @@ def _lane(fleet, tid):
     one = dataclasses.replace(fmt, **{
         k: getattr(fmt, k)[lane] for k in (
             "src_idx", "dst_local", "block_tile", "tile_first_block",
-            "tile_num_blocks", "tile_order")})
+            "tile_num_blocks", "tile_order", "row_start", "tile_row_slots")
+        if getattr(fmt, k) is not None})
     return bucket, lane, one, inv_w_g[lane], mu_pad[lane], c_pad[lane]
 
 
@@ -4056,7 +4080,8 @@ def phase_times(report: dict) -> list[dict]:
     args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
             fmt.tile_first_block, fmt.tile_num_blocks, eng._mu_pad,
             eng._c_pad, s)
-    kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+    kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order,
+              row_start=fmt.row_start, tile_row_slots=fmt.tile_row_slots)
     ms, dev_ms = both_ms(lambda: power_step_call(*args, **kw), 200)
     plain_ms = time_ms(lambda: power_step_plain(*args[:4], *args[6:],
                                                 tile=fmt.tile), 200)
@@ -4099,7 +4124,9 @@ def phase_times(report: dict) -> list[dict]:
         _, fmt_t, args_t = edge_tile_inputs(eng.graph, torch.float32,
                                             tile=tile)
         by_tile[tile] = both_ms(lambda: power_step_call(
-            *args_t, n=fmt_t.n, tile=tile, tile_order=fmt_t.tile_order), 200)
+            *args_t, n=fmt_t.n, tile=tile, tile_order=fmt_t.tile_order,
+            row_start=fmt_t.row_start, tile_row_slots=fmt_t.tile_row_slots),
+            200)
     report["power_step_ms_by_tile"] = {t: v[0] for t, v in by_tile.items()}
     report["power_step_device_ms_by_tile"] = {t: v[1]
                                               for t, v in by_tile.items()}
@@ -4109,8 +4136,11 @@ def phase_times(report: dict) -> list[dict]:
     del fmt_t, args_t
     # the tail of the in-degree skew, in device time: the same step with
     # every tile's slots dealt in order over its rows
-    args_d = args[:2] + (deal_rows(fmt).dst_local,) + args[3:]
-    dealt_ms = device_ms(lambda: power_step_call(*args_d, **kw), 200)
+    dealt = deal_rows(fmt).with_row_plan()      # the dealt rows' own plan
+    args_d = args[:2] + (dealt.dst_local,) + args[3:]
+    kw_d = dict(kw, row_start=dealt.row_start,
+                tile_row_slots=dealt.tile_row_slots)
+    dealt_ms = device_ms(lambda: power_step_call(*args_d, **kw_d), 200)
     report["skew_tail_device_ms"] = {"power_step_t256": dev_ms - dealt_ms}
     longest = (int(fmt.tile_num_blocks.max()) * fmt.src_idx[0].numel()
                // fmt.tile)
@@ -4119,7 +4149,7 @@ def phase_times(report: dict) -> list[dict]:
         f"largest in-degree is {int(eng.graph.in_degree.max())}): "
         f"{dealt_ms:.4f} ms/launch of device time; the skew's tail "
         f"{dev_ms - dealt_ms:.4f} ms")
-    del args_d
+    del args_d, dealt
 
     # bsr_spmv and bsr_step at the bsr service's shapes: clustered graph,
     # float32, one-byte tiles (33.5 MB: they fit the 50 MB L2, so back-to-
@@ -4556,6 +4586,19 @@ def fleet_times(report: dict) -> list[dict]:
             torch.cuda.synchronize()
             check(torch.equal(s1, s2) and torch.equal(gap1, gap2)
                   and torch.equal(t1, t2), f"{tag}: two runs differ")
+            # the row path: the bucket's plan (the fleet's) and every
+            # sorted tile on it (stage 0), each bitwise the ring's
+            on_rows = {}
+            for label, planned in (("plan", fmt),
+                                   ("stage 0", fmt.with_row_plan(0))):
+                s3, gap3 = power_step_lanes_call(
+                    *args, **kw, row_start=planned.row_start,
+                    tile_row_slots=planned.tile_row_slots)
+                torch.cuda.synchronize()
+                check(torch.equal(s3, s1) and torch.equal(gap3, gap1),
+                      f"power_step_lanes {tag}: the row path ({label}) "
+                      f"differs from the ring")
+                on_rows[label] = int((planned.tile_row_slots > 0).sum())
             host = [a.cpu() for a in args]
             sp, gapp = power_step_lanes_plain(*host[:4], *host[6:],
                                               tile=fmt.tile)
@@ -4573,7 +4616,9 @@ def fleet_times(report: dict) -> list[dict]:
             say(f"lane kernels {tag}: {fmt.src_idx.shape[0]} lanes x "
                 f"{fmt.src_idx.shape[1]} blocks, tile {fmt.tile}; "
                 f"power_step_lanes max abs err {err:.3e} (worst element at "
-                f"{share:.3g} of its limit), gap rel err {gap_rel:.3e}; "
+                f"{share:.3g} of its limit), gap rel err {gap_rel:.3e}, "
+                f"the row path on {on_rows['plan']} tiles (the plan) and "
+                f"{on_rows['stage 0']} (stage 0) bitwise the ring; "
                 f"edge_spmv_lanes bitwise the plain version; both bitwise "
                 f"run to run")
             if dname == "float32" and spec.e_pad == 1_048_576:
@@ -4639,6 +4684,11 @@ def _lane_times(report, fleet, bucket, spec, bname, errs, times) -> list:
     kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
     one = [dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order[i])
            for i in range(lanes)]
+    # the step also takes each lane's plan, as the fleet's step does
+    plan = dict(row_start=fmt.row_start, tile_row_slots=fmt.tile_row_slots)
+    kw_step = dict(kw, **plan)
+    one_step = [dict(one[i], **{k: v[i] for k, v in plan.items()})
+                for i in range(lanes)]
     elt = s.element_size()
     real = int((fmt.src_idx < fmt.n).sum())
     tables = fmt.tile_first_block.nbytes + fmt.tile_num_blocks.nbytes
@@ -4652,8 +4702,8 @@ def _lane_times(report, fleet, bucket, spec, bname, errs, times) -> list:
                   + elt * lanes * (fmt.n + fmt.n_pad))
     cases = {
         "power_step_lanes": (
-            lambda: power_step_lanes_call(*args, **kw),
-            lambda: [power_step_call(*(a[i] for a in args), **one[i])
+            lambda: power_step_lanes_call(*args, **kw_step),
+            lambda: [power_step_call(*(a[i] for a in args), **one_step[i])
                      for i in range(lanes)],
             lambda: power_step_lanes_plain(*args[:4], *args[6:],
                                            tile=fmt.tile),

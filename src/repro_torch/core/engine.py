@@ -825,13 +825,20 @@ class CudaEngine(PsiEngine):
         """Build the regime's format on the host and copy it to the device,
         in a ``format.build`` span whose seconds also go to the
         ``psi_format_build_seconds`` histogram (a prepare's build, or a
-        rebuild an edge patch forces)."""
+        rebuild an edge patch forces). An edge-tile format gets the step
+        kernel's plan, whose share of the slots on the row path goes to the
+        gauge ``psi_edge_tile_row_path_share``."""
         with obs_trace.span("format.build", regime=self.regime) as sp:
             if self.regime == "edge_tile":
                 self.fmt_host = build_edge_tiles(graph, tile=self.tile,
                                                  e1=self.e1, e2=self.e2)
-                self.fmt = DeviceEdgeTiles.from_format(self.fmt_host,
-                                                       self.device)
+                self.fmt = DeviceEdgeTiles.from_format(
+                    self.fmt_host, self.device).with_row_plan()
+                obs_metrics.gauge(
+                    "psi_edge_tile_row_path_share",
+                    "share of the real slots of the last edge-tile format "
+                    "a cuda engine built whose tile the step kernel folds "
+                    "on its row path").set(self.fmt.row_path_share)
                 self._rebuild_tile_cursor()
                 self._refresh_padded()
             else:
@@ -966,7 +973,8 @@ class CudaEngine(PsiEngine):
             self._build_format(self.graph)
         elif slots:
             # write the new slots into the device format in place instead
-            # of re-uploading all M edges
+            # of re-uploading all M edges; the tiles written leave the step
+            # kernel's row path, whose rows must be in slot order
             b, slot, s_id, d_loc = (np.asarray(x) for x in zip(*slots))
             i, j = np.divmod(slot, self.e2)
             idx = tuple(torch.as_tensor(x, dtype=torch.int64,
@@ -974,6 +982,7 @@ class CudaEngine(PsiEngine):
                         for x in (b, i, j))
             self.fmt.src_idx.index_put_(idx, _i32(s_id, self.device))
             self.fmt.dst_local.index_put_(idx, _i32(d_loc, self.device))
+            self.fmt.take_ring(np.unique(self.fmt_host.block_tile[b]))
 
     # -- BSR regime: dense-tile increments ------------------------------ #
     def _rebuild_bsr_block_map(self) -> None:

@@ -35,6 +35,15 @@
 //     slots, in slot order, as soon as a stage has landed: in place when
 //     the stage is sorted, through a stable counting sort when it is not.
 //     Sentinel slots are skipped wherever they lie.
+//   * The row path (edge_tile_rows.cuh) for the tiles that the format's plan
+//     marks (tile_row_slots > 0: real slots sorted by row, sentinels after
+//     them, some row longer than the ring's stage): there one long row
+//     holds up every stage of the ring, so teams of two warps (one gathers,
+//     one folds) claim whole rows (or a window's short rows), longest
+//     first, and stream them on their own; the tile's long rows fold side
+//     by side, each still in slot order from 0. Every other tile, and every
+//     tile of a launch without a plan, takes the ring. The step's epilogue
+//     is the same for both.
 //   * Lanes: the multi-tenant fleet stacks L same-shape formats (src_idx /
 //     dst_local [L, blocks, e1, e2], the tile tables and partials [L,
 //     num_tiles], the node vectors [L, 1, n_pad], s_pre [L, 1, s_stride])
@@ -57,12 +66,15 @@
 //     partials into gap[lane]. The wrapper owns the counters (one int32
 //     array per device and stream, zeroed once): launches that share a
 //     counter must not overlap, and launches on one stream never do.
-// Shared memory: edge_tile_smem_bytes(tile, eblk, sblk, depth, sizeof(T),
-//   false) of edge_tile_scan.cuh, dynamic; above 48 KB the kernel opts in to
-//   the card's 227 KB, once a device (SmemOptIn).
+// Shared memory: the larger of edge_tile_smem_bytes(tile, eblk, sblk,
+//   depth, sizeof(T), false) of edge_tile_scan.cuh and, with a plan,
+//   edge_tile_rows_smem_bytes(tile, sizeof(T)) of edge_tile_rows.cuh (the
+//   smaller at every shape the autotuner picks), dynamic; above 48 KB the
+//   kernel opts in to the card's 227 KB, once a device (SmemOptIn).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_tile_rows.cuh"
 #include "edge_tile_scan.cuh"
 #include "gap_sum.cuh"
 
@@ -77,6 +89,8 @@ __global__ void __launch_bounds__(1024)
                       const int32_t* __restrict__ tile_first_block,
                       const int32_t* __restrict__ tile_num_blocks,
                       const int32_t* __restrict__ tile_order,
+                      const int32_t* __restrict__ row_start,
+                      const int32_t* __restrict__ tile_row_slots,
                       const T* __restrict__ mu, const T* __restrict__ c,
                       const T* __restrict__ s_old, T* __restrict__ s_new,
                       T* __restrict__ gap_partial, T* __restrict__ gap,
@@ -94,20 +108,31 @@ __global__ void __launch_bounds__(1024)
   const int64_t lt = (int64_t)lane * num_tiles;
   const int t = tile_order[lt + rank];
   const int64_t first = lane * lane_blocks + tile_first_block[lt + t];
-  const repro::EdgeTileRing<T> ring{s_pre + lane * s_stride,
-                                    src_idx + first * eblk,
-                                    dst_local + first * eblk,
-                                    nullptr,
-                                    n,
-                                    tile_num_blocks[lt + t],
-                                    eblk,
-                                    sblk,
-                                    depth};
+  const int64_t node = (lt + t) * tile + r;
+  const int row_slots =
+      tile_row_slots != nullptr ? tile_row_slots[lt + t] : 0;
   const repro::EdgeTileSmem<T> sm =
       repro::carve<T>(smem_raw, tile, sblk * eblk, depth, false);
-  const T acc = repro::tile_fold<T, false>(ring, sm);
+  T acc;
+  if (row_slots > 0 && tile >= 64) {
+    const repro::EdgeTileRows<T> rows{s_pre + lane * s_stride,
+                                      src_idx + first * eblk,
+                                      row_start + (node - r), row_slots,
+                                      sblk * eblk};
+    acc = repro::tile_rows_fold<T>(rows, smem_raw);
+  } else {
+    const repro::EdgeTileRing<T> ring{s_pre + lane * s_stride,
+                                      src_idx + first * eblk,
+                                      dst_local + first * eblk,
+                                      nullptr,
+                                      n,
+                                      tile_num_blocks[lt + t],
+                                      eblk,
+                                      sblk,
+                                      depth};
+    acc = repro::tile_fold<T, false>(ring, sm);
+  }
 
-  const int64_t node = (lt + t) * tile + r;
   const T sn = mu[node] * acc + c[node];
   s_new[node] = sn;
   const T d = sn - s_old[node];
@@ -131,14 +156,20 @@ __global__ void __launch_bounds__(1024)
 template <typename T>
 int launch(const void* s_pre, int n, const void* src_idx, const void* dst_local,
            const void* tile_first_block, const void* tile_num_blocks,
-           const void* tile_order, const void* mu, const void* c,
+           const void* tile_order, const void* row_start,
+           const void* tile_row_slots, const void* mu, const void* c,
            const void* s_old, void* s_new,
            void* gap_partial, void* gap, void* ticket, int num_tiles, int tile,
            int eblk, int sblk, int depth, int lanes, long long s_stride,
            long long lane_blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem =
+  const size_t ring_smem =
       repro::edge_tile_smem_bytes(tile, eblk, sblk, depth, sizeof(T), false);
+  const size_t rows_smem =
+      tile_row_slots != nullptr
+          ? repro::edge_tile_rows_smem_bytes(tile, sizeof(T))
+          : 0;
+  const size_t smem = ring_smem > rows_smem ? ring_smem : rows_smem;
   static repro::SmemOptIn opt_in;
   const int err = opt_in.allow(power_step_kernel<T>, smem);
   if (err != 0) return err;
@@ -147,7 +178,9 @@ int launch(const void* s_pre, int n, const void* src_idx, const void* dst_local,
       static_cast<const int32_t*>(dst_local),
       static_cast<const int32_t*>(tile_first_block),
       static_cast<const int32_t*>(tile_num_blocks),
-      static_cast<const int32_t*>(tile_order), static_cast<const T*>(mu),
+      static_cast<const int32_t*>(tile_order),
+      static_cast<const int32_t*>(row_start),
+      static_cast<const int32_t*>(tile_row_slots), static_cast<const T*>(mu),
       static_cast<const T*>(c), static_cast<const T*>(s_old), static_cast<T*>(s_new),
       static_cast<T*>(gap_partial), static_cast<T*>(gap),
       static_cast<unsigned int*>(ticket), num_tiles, lanes, eblk, sblk, depth,
@@ -163,33 +196,40 @@ extern "C" {
 // (s_pre: s_stride elements; src_idx / dst_local: lane_blocks blocks; the
 // tile tables, partials: num_tiles; mu, c, s_old, s_new: num_tiles * tile;
 // gap, ticket: 1). lanes = 1 is the single-lane step. The ring: depth
-// stages of sblk blocks (edge_tile_scan.cuh).
+// stages of sblk blocks (edge_tile_scan.cuh). The plan: row_start (each
+// node's first slot in its tile, num_tiles * tile a lane) and
+// tile_row_slots (num_tiles a lane: a tile's real slots where it takes the
+// row path, else 0), or both null for the ring everywhere.
 int repro_power_step_f32(const void* s_pre, int n, const void* src_idx,
                          const void* dst_local, const void* tile_first_block,
                          const void* tile_num_blocks, const void* tile_order,
+                         const void* row_start, const void* tile_row_slots,
                          const void* mu, const void* c, const void* s_old,
                          void* s_new, void* gap_partial, void* gap, void* ticket,
                          int num_tiles, int tile, int eblk, int sblk, int depth,
                          int lanes, long long s_stride, long long lane_blocks,
                          void* stream) {
   return launch<float>(s_pre, n, src_idx, dst_local, tile_first_block,
-                       tile_num_blocks, tile_order, mu, c, s_old, s_new,
-                       gap_partial, gap, ticket, num_tiles, tile, eblk, sblk,
-                       depth, lanes, s_stride, lane_blocks, stream);
+                       tile_num_blocks, tile_order, row_start, tile_row_slots,
+                       mu, c, s_old, s_new, gap_partial, gap, ticket,
+                       num_tiles, tile, eblk, sblk, depth, lanes, s_stride,
+                       lane_blocks, stream);
 }
 
 int repro_power_step_f64(const void* s_pre, int n, const void* src_idx,
                          const void* dst_local, const void* tile_first_block,
                          const void* tile_num_blocks, const void* tile_order,
+                         const void* row_start, const void* tile_row_slots,
                          const void* mu, const void* c, const void* s_old,
                          void* s_new, void* gap_partial, void* gap, void* ticket,
                          int num_tiles, int tile, int eblk, int sblk, int depth,
                          int lanes, long long s_stride, long long lane_blocks,
                          void* stream) {
   return launch<double>(s_pre, n, src_idx, dst_local, tile_first_block,
-                        tile_num_blocks, tile_order, mu, c, s_old, s_new,
-                        gap_partial, gap, ticket, num_tiles, tile, eblk, sblk,
-                        depth, lanes, s_stride, lane_blocks, stream);
+                        tile_num_blocks, tile_order, row_start, tile_row_slots,
+                        mu, c, s_old, s_new, gap_partial, gap, ticket,
+                        num_tiles, tile, eblk, sblk, depth, lanes, s_stride,
+                        lane_blocks, stream);
 }
 
 const char* repro_error_string(int err) {

@@ -27,7 +27,8 @@ from ..device import resolve_device
 from .bsr_spmv import bsr_spmv_call, bsr_step_call
 from .edge_spmv import edge_spmv_call, edge_spmv_lanes_call, heavy_first
 from .formats import BsrFormat, EdgeTileFormat
-from .power_step import power_step_call, power_step_lanes_call
+from .power_step import (power_step_call, power_step_lanes_call,
+                         row_path_plan)
 from .seg_mm import SegMM
 
 __all__ = ["DeviceEdgeTiles", "DeviceBsr", "power_step", "edge_spmv",
@@ -53,6 +54,15 @@ class DeviceEdgeTiles:
     ``src_idx`` / ``dst_local`` i32[L, num_blocks, e1, e2], ``block_tile``
     i32[L, num_blocks], the tile tables and ``tile_order`` i32[L,
     num_tiles], each lane's own — and the sizes are shared by every lane.
+
+    The step kernel's plan (:func:`~.power_step.row_path_plan`, every
+    lane's own): ``row_start`` i32[num_tiles * tile] and ``tile_row_slots``
+    i32[num_tiles] (``[L, ...]`` stacked), added by :meth:`with_row_plan`
+    where a format is built for the step (the ``cuda`` engine, the fleet)
+    and kept by :meth:`write_lane`; an edge patch sends the tiles it writes
+    to the ring (:meth:`take_ring`). A format without one (None: as
+    :meth:`from_format` and :meth:`stack` make it, for the push and the
+    aggregation, which never read it) steps every tile through the ring.
     """
 
     n: int
@@ -68,6 +78,9 @@ class DeviceEdgeTiles:
     tile_first_block: torch.Tensor  # i32[num_tiles]
     tile_num_blocks: torch.Tensor   # i32[num_tiles]
     tile_order: torch.Tensor        # i32[num_tiles], a permutation
+    row_start: torch.Tensor | None = None       # i32[num_tiles * tile]
+    tile_row_slots: torch.Tensor | None = None  # i32[num_tiles]
+    row_path_share: float = 0.0     # the plan's share of the real slots
 
     @classmethod
     def from_format(cls, fmt: EdgeTileFormat,
@@ -108,16 +121,57 @@ class DeviceEdgeTiles:
                 np.stack([f.tile_first_block for f in fmts]), dev),
             tile_num_blocks=num_blocks, tile_order=heavy_first(num_blocks))
 
+    def _plans(self, stage: int | None) -> list:
+        """The plan of each lane (one for a single-lane format)."""
+        arrays = (self.src_idx, self.dst_local, self.block_tile,
+                  self.tile_first_block)
+        lanes = [arrays] if self.src_idx.dim() == 3 else zip(*arrays)
+        return [row_path_plan(*lane, n=self.n, tile=self.tile, stage=stage)
+                for lane in lanes]
+
+    def with_row_plan(self, stage: int | None = None) -> "DeviceEdgeTiles":
+        """This format with the step kernel's plan at ``stage`` (the ring's
+        stage when None), every lane's own, and ``row_path_share``, the
+        share of its real slots whose tile takes the row path, counted
+        here (:func:`power_step` launches a single-lane format whose share
+        is 0 without its plan, with the ring's shared memory)."""
+        plans = self._plans(stage)
+        on_rows, real = torch.stack([torch.stack(
+            [p.tile_row_slots.sum(), p.real_slots.sum()])
+            for p in plans]).sum(0).tolist()
+        if self.src_idx.dim() == 3:
+            row_start, row_slots = plans[0].row_start, plans[0].tile_row_slots
+        else:
+            row_start = torch.stack([p.row_start for p in plans])
+            row_slots = torch.stack([p.tile_row_slots for p in plans])
+        return dataclasses.replace(self, row_start=row_start,
+                                   tile_row_slots=row_slots,
+                                   row_path_share=on_rows / real if real
+                                   else 0.0)
+
+    def take_ring(self, tiles) -> None:
+        """Send ``tiles`` (tile ids of a single-lane format) to the ring in
+        place: an in-place edge patch writes slots after a tile's sorted
+        ones, out of the row path's order."""
+        if self.tile_row_slots is not None and len(tiles):
+            self.tile_row_slots[torch.as_tensor(
+                np.asarray(tiles, np.int64), device=self.device)] = 0
+
     def write_lane(self, lane: int, fmt: EdgeTileFormat) -> None:
         """Overwrite lane ``lane`` of a stacked format in place with
-        ``fmt`` (same shape); the other lanes are not touched."""
+        ``fmt`` (same shape), its plan too; the other lanes are not
+        touched."""
         one = DeviceEdgeTiles.stack([fmt], self.device)
         if one.src_idx.shape[1:] != self.src_idx.shape[1:] \
                 or one.n != self.n:
             raise ValueError("write_lane: the format's shape differs from "
                              "the stack's")
-        for name in ("src_idx", "dst_local", "block_tile", "tile_first_block",
-                     "tile_num_blocks", "tile_order"):
+        names = ["src_idx", "dst_local", "block_tile", "tile_first_block",
+                 "tile_num_blocks", "tile_order"]
+        if self.row_start is not None:
+            one = one.with_row_plan()
+            names += ["row_start", "tile_row_slots"]
+        for name in names:
             getattr(self, name)[lane] = getattr(one, name)[0]
 
     @property
@@ -194,10 +248,13 @@ def power_step(s: torch.Tensor, inv_w_gather: torch.Tensor,
       (s_new f[1, n_pad], gap 0-dim ‖Δs‖₁).
     """
     s_pre = F.pad(s, (0, fmt.n_gather - fmt.n_pad)) * inv_w_gather
+    rows = fmt.row_path_share > 0
     return power_step_call(
         s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
         fmt.tile_first_block, fmt.tile_num_blocks, mu_pad, c_pad, s,
-        n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+        n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order,
+        row_start=fmt.row_start if rows else None,
+        tile_row_slots=fmt.tile_row_slots if rows else None)
 
 
 def edge_spmv(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,
@@ -227,7 +284,8 @@ def power_step_lanes(s: torch.Tensor, inv_w_gather: torch.Tensor,
     return power_step_lanes_call(
         s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
         fmt.tile_first_block, fmt.tile_num_blocks, mu_pad, c_pad, s,
-        n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+        n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order,
+        row_start=fmt.row_start, tile_row_slots=fmt.tile_row_slots)
 
 
 def edge_spmv_lanes(s_pre: torch.Tensor, fmt: DeviceEdgeTiles,

@@ -13,23 +13,98 @@ at once (the multi-tenant fleet's bucket): every tensor gains a leading
 exactly what :func:`power_step_call` gives on that lane's own tensors. It
 counts its launches in ``power_step_lanes_call.launches``; on CPU tensors
 it runs :func:`power_step_lanes_plain`, the plain version lane by lane.
+
+:func:`row_path_plan` is the kernel's plan of one format, built once a
+format on its device: each node's first slot in its tile and, per tile,
+whether the kernel folds it on the row path (``csrc/edge_tile_rows.cuh``:
+a sorted tile with a row longer than the ring's stage, its long rows
+folded side by side) or through the ring. The plan moves no bit of the
+result; without one every tile takes the ring.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..obs import trace as obs_trace
 from . import _build
 from .edge_spmv import (check_blocks, check_edge_tile_smem, check_lanes,
-                        edge_spmv_plain, heavy_first)
+                        edge_spmv_plain, heavy_first, stage_blocks)
 
 __all__ = ["power_step_call", "power_step_plain", "power_step_lanes_call",
-           "power_step_lanes_plain"]
+           "power_step_lanes_plain", "RowPlan", "row_path_plan",
+           "ring_stage_slots"]
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12 + [
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 14 + [
     ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+
+
+def ring_stage_slots(tile: int, eblk: int) -> int:
+    """The slots of one stage of the edge-tile kernels' ring at float64
+    (:func:`~.edge_spmv.stage_blocks`; float32 has the same stage at every
+    shape the autotuner picks): past this many slots a row's run sends its
+    sorted tile to the row path."""
+    return stage_blocks(tile, eblk, 8)[0] * eblk
+
+
+class RowPlan(NamedTuple):
+    """The step kernel's plan of one edge-tile format (:func:`row_path_plan`)."""
+
+    row_start: torch.Tensor        # i32[num_tiles * tile]
+    tile_row_slots: torch.Tensor   # i32[num_tiles]
+    real_slots: torch.Tensor       # i64[num_tiles], every tile's real slots
+
+
+def row_path_plan(src_idx: torch.Tensor, dst_local: torch.Tensor,
+                  block_tile: torch.Tensor, tile_first_block: torch.Tensor,
+                  *, n: int, tile: int, stage: int | None = None) -> RowPlan:
+    """Which tiles of one format the step kernel folds on its row path, on
+    the format's device.
+
+    A slot is real when its source is in [0, n) and its ``dst_local`` in
+    [0, tile). ``row_start[t * tile + r]`` is the first slot of node r of
+    tile t in the tile's slot range: the exclusive scan of the tile's
+    in-degrees. A tile takes the row path when it is sorted (its real slots
+    come first, in non-decreasing ``dst_local``, and only sentinels after
+    them, as a fresh :func:`~.formats.build_edge_tiles` lays every tile) and
+    some row has more than ``stage`` slots (:func:`ring_stage_slots` when
+    None; the tests pass 0 or a huge stage to force either path), in a
+    format of tiles of 64 nodes or more (the row path's teams are two
+    warps). Then ``tile_row_slots[t]`` is its real slots, the end of its
+    last row, and otherwise 0: the ring, which also takes a shuffled,
+    patched, idle or empty tile."""
+    num_tiles = tile_first_block.shape[0]
+    num_blocks = src_idx.shape[0]
+    eblk = src_idx.shape[1] * src_idx.shape[2]
+    if stage is None:
+        stage = ring_stage_slots(tile, eblk)
+    dev = src_idx.device
+    src = src_idx.reshape(num_blocks, eblk)
+    dst = dst_local.reshape(num_blocks, eblk)
+    real = (src >= 0) & (src < n) & (dst >= 0) & (dst < tile)
+    rows = block_tile[:, None] * tile + dst
+    deg = torch.bincount(rows[real], minlength=num_tiles * tile).view(
+        num_tiles, tile)
+    slots = deg.sum(1)
+    row_start = (torch.cumsum(deg, 1) - deg).reshape(-1).to(torch.int32)
+    # sorted: the first `slots` of a tile's range are its real slots, and
+    # every real slot's row is at least its real predecessor's
+    pos = ((torch.arange(num_blocks, dtype=torch.int32, device=dev)
+            - tile_first_block[block_tile])[:, None] * eblk
+           + torch.arange(eblk, dtype=torch.int32, device=dev))
+    bad = real != (pos < slots[block_tile][:, None])
+    flat_rows, flat_real = rows.reshape(-1), real.reshape(-1)
+    bad.view(-1)[:-1] |= (flat_real[1:] & flat_real[:-1]
+                          & (flat_rows[1:] < flat_rows[:-1]))
+    unsorted = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+    unsorted.index_add_(0, block_tile, bad.any(1).to(torch.int32))
+    takes = (unsorted == 0) & (deg.amax(1) > stage) & (tile >= 64)
+    return RowPlan(row_start=row_start,
+                   tile_row_slots=torch.where(takes, slots, 0).to(
+                       torch.int32),
+                   real_slots=slots)
 
 # One int32 ticket counter a lane per (device, stream): a lane's CTAs draw
 # tickets from its counter to find the last one, which sums that lane's
@@ -79,19 +154,26 @@ def power_step_lanes_plain(s_pre: torch.Tensor, src_idx: torch.Tensor,
 
 def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                   tile_num_blocks, tile_order, mu, c, s_old, n,
-                  tile) -> tuple[int, int]:
+                  tile, row_start=None, tile_row_slots=None
+                  ) -> tuple[int, int]:
     """Raise on what the kernel does not take; returns the ring
     ``(sblk, depth)``."""
     dev, dtype = s_pre.device, s_pre.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"power_step takes float32 or float64; got {dtype}")
-    for name, x, want in (("mu", mu, dtype), ("c", c, dtype),
-                          ("s_old", s_old, dtype),
-                          ("src_idx", src_idx, torch.int32),
-                          ("dst_local", dst_local, torch.int32),
-                          ("tile_first_block", tile_first_block, torch.int32),
-                          ("tile_num_blocks", tile_num_blocks, torch.int32),
-                          ("tile_order", tile_order, torch.int32)):
+    named = [("mu", mu, dtype), ("c", c, dtype), ("s_old", s_old, dtype),
+             ("src_idx", src_idx, torch.int32),
+             ("dst_local", dst_local, torch.int32),
+             ("tile_first_block", tile_first_block, torch.int32),
+             ("tile_num_blocks", tile_num_blocks, torch.int32),
+             ("tile_order", tile_order, torch.int32)]
+    if (row_start is None) != (tile_row_slots is None):
+        raise ValueError("power_step: a plan takes both row_start and "
+                         "tile_row_slots")
+    if row_start is not None:
+        named += [("row_start", row_start, torch.int32),
+                  ("tile_row_slots", tile_row_slots, torch.int32)]
+    for name, x, want in named:
         if x.device != dev or x.dtype != want or not x.is_contiguous():
             raise ValueError(f"power_step: {name} must be a contiguous {want} "
                              f"tensor on {dev}; got {x.dtype} on {x.device}")
@@ -104,6 +186,10 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
             tile_order.shape != (num_tiles,):
         raise ValueError("power_step: tile_num_blocks and tile_order must "
                          "match tile_first_block")
+    if row_start is not None and (row_start.shape != (n_pad,) or
+                                  tile_row_slots.shape != (num_tiles,)):
+        raise ValueError(f"power_step: the plan must be row_start "
+                         f"[{n_pad}] and tile_row_slots [{num_tiles}]")
     for name, x in (("mu", mu), ("c", c), ("s_old", s_old)):
         if x.shape != (1, n_pad):
             raise ValueError(f"power_step: {name} must be [1, {n_pad}]; "
@@ -120,7 +206,8 @@ def _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
 
 
 def _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
-            tile_order, mu, c, s_old, s_new, gap, *, n, tile, ring, lanes):
+            tile_order, row_start, tile_row_slots, mu, c, s_old, s_new, gap,
+            *, n, tile, ring, lanes):
     """One launch of ``csrc/power_step.cu`` over ``lanes`` lanes (the
     tensors' leading axis when ``lanes > 1``)."""
     num_tiles = tile_first_block.shape[-1]
@@ -134,8 +221,10 @@ def _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(s_pre.data_ptr(), n, src_idx.data_ptr(),
                     dst_local.data_ptr(), tile_first_block.data_ptr(),
-                    tile_num_blocks.data_ptr(),
-                    tile_order.data_ptr(), mu.data_ptr(),
+                    tile_num_blocks.data_ptr(), tile_order.data_ptr(),
+                    None if row_start is None else row_start.data_ptr(),
+                    None if tile_row_slots is None
+                    else tile_row_slots.data_ptr(), mu.data_ptr(),
                     c.data_ptr(), s_old.data_ptr(), s_new.data_ptr(),
                     partial.data_ptr(), gap.data_ptr(),
                     _ticket(s_pre.device, stream, lanes).data_ptr(),
@@ -149,7 +238,9 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                     tile_first_block: torch.Tensor,
                     tile_num_blocks: torch.Tensor, mu: torch.Tensor,
                     c: torch.Tensor, s_old: torch.Tensor, *, n: int,
-                    tile: int, tile_order: torch.Tensor | None = None
+                    tile: int, tile_order: torch.Tensor | None = None,
+                    row_start: torch.Tensor | None = None,
+                    tile_row_slots: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused step over a device edge-tile format.
 
@@ -163,6 +254,10 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
         takes the tiles, a permutation of the tile ids (the format's
         ``tile_order``; ``heavy_first`` of ``tile_num_blocks`` when absent).
         It moves no bit of the result.
+      row_start / tile_row_slots: optional, both or neither: the format's
+        plan (:func:`row_path_plan`: i32[num_tiles * tile], i32[num_tiles]),
+        which sends its sorted tiles with a long row to the row path. It
+        moves no bit of the result; without it every tile takes the ring.
 
     Returns:
       (s_new f[1, num_tiles * tile], gap 0-dim ‖s_new − s_old‖₁).
@@ -177,12 +272,12 @@ def power_step_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
             tile_order = heavy_first(tile_num_blocks)
         ring = _check_inputs(s_pre, src_idx, dst_local, tile_first_block,
                              tile_num_blocks, tile_order, mu, c, s_old, n,
-                             tile)
+                             tile, row_start, tile_row_slots)
     s_new = torch.empty_like(mu)
     gap = torch.empty((), dtype=s_pre.dtype, device=s_pre.device)
     _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
-            tile_order, mu, c, s_old, s_new, gap, n=n, tile=tile, ring=ring,
-            lanes=1)
+            tile_order, row_start, tile_row_slots, mu, c, s_old, s_new, gap,
+            n=n, tile=tile, ring=ring, lanes=1)
     power_step_call.launches += 1
     return s_new, gap
 
@@ -195,15 +290,19 @@ def power_step_lanes_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
                           tile_first_block: torch.Tensor,
                           tile_num_blocks: torch.Tensor, mu: torch.Tensor,
                           c: torch.Tensor, s_old: torch.Tensor, *, n: int,
-                          tile: int, tile_order: torch.Tensor | None = None
+                          tile: int, tile_order: torch.Tensor | None = None,
+                          row_start: torch.Tensor | None = None,
+                          tile_row_slots: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused step of ``L`` lanes in one launch: :func:`power_step_call`'s
     arguments, each with a leading ``[L]`` lane axis (``s_pre``
     f[L, 1, n_gather], ``src_idx`` / ``dst_local`` i32[L, num_blocks, e1,
     e2], ``block_tile`` i32[L, num_blocks], the tile tables and
     ``tile_order`` i32[L, num_tiles], ``mu`` / ``c`` / ``s_old``
-    f[L, 1, num_tiles * tile]); every lane shares ``n`` (the sentinel) and
-    the shape. Each lane has its own ticket counter and partials.
+    f[L, 1, num_tiles * tile], the plan ``row_start`` i32[L, num_tiles *
+    tile] and ``tile_row_slots`` i32[L, num_tiles]); every lane shares ``n``
+    (the sentinel) and the shape. Each lane has its own ticket counter and
+    partials.
 
     Returns:
       (s_new f[L, 1, num_tiles * tile], gap f[L]), lane ℓ bitwise what
@@ -218,18 +317,23 @@ def power_step_lanes_call(s_pre: torch.Tensor, src_idx: torch.Tensor,
     lanes = s_pre.shape[0]
     if tile_order is None:
         tile_order = heavy_first(tile_num_blocks)
+    plan = {} if row_start is None else dict(row_start=row_start)
+    if tile_row_slots is not None:
+        plan["tile_row_slots"] = tile_row_slots
     check_lanes("power_step_lanes", lanes, s_pre=s_pre, src_idx=src_idx,
                 dst_local=dst_local, tile_first_block=tile_first_block,
                 tile_num_blocks=tile_num_blocks, tile_order=tile_order,
-                mu=mu, c=c, s_old=s_old)
+                mu=mu, c=c, s_old=s_old, **plan)
     ring = _check_inputs(s_pre[0], src_idx[0], dst_local[0],
                          tile_first_block[0], tile_num_blocks[0],
-                         tile_order[0], mu[0], c[0], s_old[0], n, tile)
+                         tile_order[0], mu[0], c[0], s_old[0], n, tile,
+                         *(None if x is None else x[0]
+                           for x in (row_start, tile_row_slots)))
     s_new = torch.empty_like(mu)
     gap = torch.empty(lanes, dtype=s_pre.dtype, device=s_pre.device)
     _launch(s_pre, src_idx, dst_local, tile_first_block, tile_num_blocks,
-            tile_order, mu, c, s_old, s_new, gap, n=n, tile=tile, ring=ring,
-            lanes=lanes)
+            tile_order, row_start, tile_row_slots, mu, c, s_old, s_new, gap,
+            n=n, tile=tile, ring=ring, lanes=lanes)
     power_step_lanes_call.launches += 1
     return s_new, gap
 

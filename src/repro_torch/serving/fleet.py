@@ -664,7 +664,8 @@ class TenantFleet:
         nb = max(f.num_blocks for f in fmts)
         bucket.nb = max(bucket.nb, -(-nb // 4) * 4)   # monotone, quantized
         fmt = DeviceEdgeTiles.stack(
-            [pad_edge_tile_blocks(f, bucket.nb) for f in fmts], self.device)
+            [pad_edge_tile_blocks(f, bucket.nb) for f in fmts],
+            self.device).with_row_plan()
         n_fmt, n_g = fmt.n_pad, fmt.n_gather
         inv_w_g = self._tensor(np.stack(
             [self._row(n["inv_w"], n_g) for n in nodes]))

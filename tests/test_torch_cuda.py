@@ -29,7 +29,8 @@ from repro_torch.kernels.power_step import (power_step_call,
                                             power_step_lanes_call,
                                             power_step_lanes_plain,
                                             power_step_plain)
-from test_torch_edge_layouts import KINDS, edge_tile_layout, slot_weights
+from test_torch_edge_layouts import (KINDS, edge_tile_layout,
+                                     long_rows_graph, slot_weights)
 
 pytestmark = pytest.mark.cuda
 
@@ -166,6 +167,119 @@ def test_power_step_kernel_matches_plain_at_every_slot_layout(card, kind,
     sp, gapp = power_step_plain(*host, tile=tile)
     torch.testing.assert_close(s1.cpu(), sp, rtol=rtol, atol=atol)
     assert abs(float(gap1) - float(gapp)) <= 1e-3 * float(gapp)
+
+
+def _plans(fmt):
+    """The format with no plan (every tile through the ring), with its own
+    plan (the ring's stage) and with every sorted tile with a real slot on
+    the row path (stage 0)."""
+    bare = dataclasses.replace(fmt, row_start=None, tile_row_slots=None)
+    return {"ring": bare, "plan": fmt.with_row_plan(),
+            "rows": fmt.with_row_plan(0)}
+
+
+def _step_args(fmt, s_pre, mu, c, s_old):
+    return ((s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+             fmt.tile_first_block, fmt.tile_num_blocks, mu, c, s_old),
+            dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order,
+                 row_start=fmt.row_start, tile_row_slots=fmt.tile_row_slots))
+
+
+# The row path against the ring and the plain version on every slot layout
+# (KINDS, with "long rows": several rows past the ring's stage in one tile,
+# one past 64 stages), at the autotuner's tiles, f32 and f64: with mu = 1
+# and c = 0 the step's s' is the push itself (fma(1, t, 0) = t), bitwise
+# the plain version's left fold in slot order on every plan; with random
+# mu and c, every plan gives the same s' and gap to the last bit, and the
+# plain version within the tolerances above (its epilogue is not fused).
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-6, 1e-7),
+                                             (torch.float64, 1e-14, 1e-16)])
+def test_power_step_row_path_and_ring_equal_plain_at_every_slot_layout(
+        card, kind, tile, dtype, rtol, atol):
+    g, fmt = edge_tile_layout(kind, tile, card)
+    plans = _plans(fmt)
+    if kind in ("hub", "long rows", "idle tile", "empty tile"):
+        assert (plans["rows"].tile_row_slots > 0).any()
+    if kind == "long rows":
+        assert (plans["plan"].tile_row_slots > 0).any()
+    rng = np.random.default_rng(17)
+    s_pre = fmt.pad_gather_source(torch.as_tensor(
+        rng.uniform(size=g.n), dtype=dtype, device=card))
+    mu, c, s_old = (fmt.pad_node_vector(torch.as_tensor(
+        rng.uniform(size=g.n), dtype=dtype, device=card)) for _ in range(3))
+    ones, zeros = torch.ones_like(mu), torch.zeros_like(c)
+    push = edge_spmv_plain(s_pre.cpu(), fmt.src_idx.cpu(),
+                           fmt.dst_local.cpu(), fmt.block_tile.cpu(),
+                           tile=tile, num_tiles=fmt.num_tiles)
+    sp, gapp = power_step_plain(s_pre.cpu(), fmt.src_idx.cpu(),
+                                fmt.dst_local.cpu(), fmt.block_tile.cpu(),
+                                mu.cpu(), c.cpu(), s_old.cpu(), tile=tile)
+    got = {}
+    for name, f in plans.items():
+        args, kw = _step_args(f, s_pre, ones, zeros, s_old)
+        t1, _ = power_step_call(*args, **kw)
+        assert torch.equal(t1.cpu(), push), name
+        args, kw = _step_args(f, s_pre, mu, c, s_old)
+        got[name] = power_step_call(*args, **kw)
+        again = power_step_call(*args, **kw)
+        assert torch.equal(got[name][0], again[0])
+        assert torch.equal(got[name][1], again[1])
+    for name in ("plan", "rows"):
+        assert torch.equal(got[name][0], got["ring"][0]), name
+        assert torch.equal(got[name][1], got["ring"][1]), name
+    s1, gap1 = got["rows"]
+    torch.testing.assert_close(s1.cpu(), sp, rtol=rtol, atol=atol)
+    assert abs(float(gap1) - float(gapp)) <= 1e-3 * float(gapp)
+
+
+# The lane form with each lane's plan: three lanes over one size (long
+# rows, the same with other followers, a sparse graph with no long row), at
+# each plan, f32 and f64: each lane bitwise the single-lane launch on its
+# own tensors and plan, and the ring's; with mu = 1, c = 0 bitwise the
+# plain push.
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_power_step_lanes_row_path_equals_solo_launches_on_card(card, tile,
+                                                               dtype):
+    graphs = [long_rows_graph(), long_rows_graph(seed=20),
+              tg.erdos_renyi(140_000, 150_000, seed=3)]
+    fmts = [build_edge_tiles(g, tile=tile) for g in graphs]
+    nb = max(f.num_blocks for f in fmts)
+    fmts = [pad_edge_tile_blocks(f, nb) for f in fmts]
+    n = graphs[0].n
+    rng = np.random.default_rng(18)
+    for stage in (None, 0):
+        fmt = DeviceEdgeTiles.stack(fmts, card).with_row_plan(stage)
+        assert (fmt.tile_row_slots[:2] > 0).any(1).all()
+        vec = lambda: torch.stack([fmt.pad_node_vector(torch.as_tensor(
+            rng.uniform(size=n), dtype=dtype, device=card))
+            for _ in fmts])
+        s_pre = torch.stack([fmt.pad_gather_source(torch.as_tensor(
+            rng.uniform(size=n), dtype=dtype, device=card)) for _ in fmts])
+        mu, c, s_old = vec(), vec(), vec()
+        args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
+                fmt.tile_first_block, fmt.tile_num_blocks)
+        kw = dict(n=n, tile=tile, tile_order=fmt.tile_order,
+                  row_start=fmt.row_start, tile_row_slots=fmt.tile_row_slots)
+        s1, gap1 = power_step_lanes_call(*args, mu, c, s_old, **kw)
+        t1, _ = power_step_lanes_call(*args, torch.ones_like(mu),
+                                      torch.zeros_like(c), s_old, **kw)
+        for lane in range(len(fmts)):
+            one = [a[lane] for a in args]
+            solo = dict(n=n, tile=tile, tile_order=fmt.tile_order[lane],
+                        row_start=fmt.row_start[lane],
+                        tile_row_slots=fmt.tile_row_slots[lane])
+            ring = dict(n=n, tile=tile, tile_order=fmt.tile_order[lane])
+            for kwl in (solo, ring):
+                s2, gap2 = power_step_call(*one, mu[lane], c[lane],
+                                           s_old[lane], **kwl)
+                assert torch.equal(s1[lane], s2) and torch.equal(gap1[lane],
+                                                                 gap2)
+            push = edge_spmv_plain(*(a.cpu() for a in one[:4]), tile=tile,
+                                   num_tiles=fmt.num_tiles)
+            assert torch.equal(t1[lane].cpu(), push)
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -14,6 +14,11 @@ into that checkout's ``build/``. A worker measures at float32:
 
 * on the twitter stand-in, ``power_step`` at tile 256 (the ``cuda``
   backend's shape) and ``edge_spmv`` at tile 512 (the cost model's pick);
+* on the benchmark cell's graph (``gpubench/gen/kronecker.py``'s draw of
+  ``gpubench/configs/psi-g500-s22.json``, seed 1), ``power_step`` at float64
+  and tile 512, e1 8, e2 128 (the cell's shape), each call as its engine
+  makes it (with the step kernel.s plan where the checkout can make one),
+  50 back-to-back calls a reading;
 * the lane-batched ``power_step_lanes`` and ``edge_spmv_lanes`` at two fleet
   buckets, each of four seeds of one Table II stand-in admitted to a
   ``TenantFleet(backend="auto")`` and solved once: facebook (the bucket of
@@ -35,7 +40,16 @@ bounds: a dependent f32 and f64 add's latency in cycles, measured by a
 one-warp chain kernel that the script builds with ``nvcc`` (into the
 git-ignored ``build/ab_edge_tile/``), and for each shape its longest
 in-degree times that latency at the card's top SM clock: the least time a
-fold in slot order allows, whatever the bytes. ``--out`` also writes
+fold in slot order allows, whatever the bytes (the cell's shape at f64, the
+others at f32). For the cell's shape it also prints a model of the ring
+from the format alone: the slots on the ring's serial fold path (the sum,
+over every stage of every tile, of the longest run of one row in the
+stage) as a share of the real slots, that path in dependent f64 adds over
+the card's resident CTAs, and the share of real slots whose tile the
+second checkout's plan sends to the row path; and the device time of the
+step's gathers alone (a helper kernel that sums s_pre[src] over every real
+slot in slot order at full occupancy, built with the chain kernel): the
+least time its random reads take on this card. ``--out`` also writes
 everything as JSON. The card's name and power limit come first.
 """
 from __future__ import annotations
@@ -51,6 +65,7 @@ import time
 BUCKETS = ("facebook", "dblp")
 MEASURES = ("power_step_t256_events_ms", "power_step_t256_device_ms",
             "edge_spmv_t512_events_ms", "edge_spmv_t512_device_ms",
+            "power_step_g500_events_ms", "power_step_g500_device_ms",
             *(f"{k}_{b}_{y}_ms" for b in BUCKETS
               for k in ("power_step_lanes", "edge_spmv_lanes")
               for y in ("events", "device")),
@@ -120,14 +135,100 @@ def _lane_calls(name: str) -> dict:
     s_pre = F.pad(s, (0, fmt.n_gather - fmt.n_pad)) * inv_w_g
     args = (s_pre, fmt.src_idx, fmt.dst_local, fmt.block_tile,
             fmt.tile_first_block, fmt.tile_num_blocks, mu, c, s)
-    kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
+    kw = _step_kw(fmt, n=fmt.n, tile=fmt.tile)
+    push_kw = dict(n=fmt.n, tile=fmt.tile, tile_order=fmt.tile_order)
     deg = max(int(np.bincount(fleet._rec(t).host.dst_by_dst).max())
               for t in bucket.order)
     return {"shape": dict(lanes=fmt.src_idx.shape[0], tile=fmt.tile,
                           blocks=fmt.src_idx.shape[1], n=fmt.n,
                           max_in_degree=deg),
             "power_step_lanes": lambda: power_step_lanes_call(*args, **kw),
-            "edge_spmv_lanes": lambda: edge_spmv_lanes_call(*args[:6], **kw)}
+            "edge_spmv_lanes": lambda: edge_spmv_lanes_call(*args[:6],
+                                                            **push_kw)}
+
+
+def _planned(fmt):
+    """``fmt`` with the step kernel's plan where the checkout's format can
+    make one, as its ``cuda`` engine and fleet build it."""
+    return fmt.with_row_plan() if hasattr(fmt, "with_row_plan") else fmt
+
+
+def _step_kw(fmt, **kw) -> dict:
+    """``power_step_call``'s keywords as the checkout's engine passes them:
+    the launch order and the plan where its format holds them."""
+    for name in ("tile_order", "row_start", "tile_row_slots"):
+        if getattr(fmt, name, None) is not None:
+            kw[name] = getattr(fmt, name)
+    return kw
+
+
+def _ring_model(fmt_h, sblk: int, resident: int) -> dict:
+    """The ring's serial fold path on a host format (every tile sorted, as
+    a fresh build lays it): in each stage of ``sblk`` blocks the threads
+    wait for the stage's longest run of one row."""
+    import numpy as np
+    tile, eblk = fmt_h.tile, fmt_h.eblk
+    src = fmt_h.src_idx.reshape(-1)
+    real = src != fmt_h.n
+    first, count = fmt_h.tile_first_block, fmt_h.tile_num_blocks
+    stages = -(-count // sblk)
+    stage0 = np.concatenate([[0], np.cumsum(stages)[:-1]])
+    block = np.arange(fmt_h.num_blocks)
+    t = fmt_h.block_tile
+    stage_of_block = stage0[t] + (block - first[t]) // sblk
+    stage = np.repeat(stage_of_block, eblk)[real]
+    row = fmt_h.dst_local.reshape(-1)[real].astype(np.int64)
+    runs = np.bincount(stage * tile + row, minlength=int(stages.sum()) * tile)
+    serial = int(runs.reshape(-1, tile).max(1).sum())
+    return {"real_slots": int(real.sum()), "stages": int(stages.sum()),
+            "serial_slots": serial,
+            "serial_share": serial / max(int(real.sum()), 1),
+            "resident_ctas": resident}
+
+
+def _g500_calls() -> dict:
+    """``power_step`` on the benchmark cell's graph at its shape, and the
+    format's model numbers."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from gpubench.gen import kronecker
+    from repro_torch.graphs.structure import Graph
+    from repro_torch.kernels.edge_spmv import stage_blocks
+    from repro_torch.kernels.formats import build_edge_tiles
+    from repro_torch.kernels.ops import DeviceEdgeTiles
+    from repro_torch.kernels.power_step import power_step_call
+    with open(os.path.join("gpubench", "configs", "psi-g500-s22.json")) as f:
+        cfg = _json.load(f)
+    drawn = kronecker.generate(cfg["inputs"], 1, torch.device("cuda"))
+    g = Graph(drawn["n"], drawn["src"].cpu().numpy(),
+              drawn["dst"].cpu().numpy(), name="g500")
+    del drawn
+    fmt_h = build_edge_tiles(g, tile=512, e1=8, e2=128)
+    fmt = _planned(DeviceEdgeTiles.from_format(fmt_h, "cuda"))
+    rng = np.random.default_rng(0)
+
+    def vec(size):
+        return torch.as_tensor(rng.uniform(size=size), dtype=torch.float64,
+                               device="cuda")
+    s = vec(g.n)
+    args = (fmt.pad_gather_source(vec(g.n) * s), fmt.src_idx, fmt.dst_local,
+            fmt.block_tile, fmt.tile_first_block, fmt.tile_num_blocks,
+            fmt.pad_node_vector(vec(g.n)), fmt.pad_node_vector(vec(g.n)),
+            fmt.pad_node_vector(s))
+    kw = _step_kw(fmt, n=fmt.n, tile=512)
+    sblk, depth = stage_blocks(512, fmt_h.eblk, 8)
+    model = _ring_model(fmt_h, sblk, 2 * 132)
+    slots = getattr(fmt, "tile_row_slots", None)
+    model.update(max_in_degree=int(g.in_degree.max()), sblk=sblk,
+                 depth=depth, row_path_share=(
+                     None if slots is None
+                     else int(slots.sum()) / model["real_slots"]))
+    model["gather_ms"] = _gather_ms(args[0], fmt.src_idx, fmt.n)
+    return {"model": model,
+            "power_step_g500": lambda: power_step_call(*args, **kw)}
 
 
 def worker() -> dict:
@@ -149,14 +250,9 @@ def worker() -> dict:
            "twitter_max_in_degree": int(g.in_degree.max())}
 
     def fmt_at(tile):
-        fmt = DeviceEdgeTiles.from_format(build_edge_tiles(g, tile=tile),
-                                          "cuda")
-        # a checkout whose format holds the launch order passes it, as its
-        # engine does
-        kw = dict(n=fmt.n, tile=tile)
-        if hasattr(fmt, "tile_order"):
-            kw["tile_order"] = fmt.tile_order
-        return fmt, kw
+        fmt = _planned(DeviceEdgeTiles.from_format(
+            build_edge_tiles(g, tile=tile), "cuda"))
+        return fmt, _step_kw(fmt, n=fmt.n, tile=tile)
 
     fmt, kw = fmt_at(256)
     ops = build_operators(g, act, dtype=torch.float32, device="cuda")
@@ -166,7 +262,8 @@ def worker() -> dict:
                  fmt.dst_local, fmt.block_tile, fmt.tile_first_block,
                  fmt.tile_num_blocks, fmt.pad_node_vector(ops.mu),
                  fmt.pad_node_vector(ops.c), fmt.pad_node_vector(s))
-    fmt5, kw5 = fmt_at(512)
+    fmt5, _ = fmt_at(512)
+    kw5 = dict(n=fmt5.n, tile=512, tile_order=fmt5.tile_order)
     push_args = (fmt5.pad_gather_source(s), fmt5.src_idx, fmt5.dst_local,
                  fmt5.block_tile, fmt5.tile_first_block,
                  fmt5.tile_num_blocks)
@@ -182,6 +279,15 @@ def worker() -> dict:
         out["power_step_t256_device_ms"].append(_device_ms(step, 200))
         out["edge_spmv_t512_events_ms"].append(_events_ms(push, 200))
         out["edge_spmv_t512_device_ms"].append(_device_ms(push, 200))
+    g500 = _g500_calls()
+    out["g500_model"] = g500.pop("model")
+    for _ in range(3):
+        out["power_step_g500_events_ms"].append(
+            _events_ms(g500["power_step_g500"], 50))
+        out["power_step_g500_device_ms"].append(
+            _device_ms(g500["power_step_g500"], 50))
+    del g500
+    torch.cuda.empty_cache()
     for name in BUCKETS:
         lanes = _lane_calls(name)
         out[f"{name}_bucket"] = lanes.pop("shape")
@@ -210,8 +316,10 @@ def worker() -> dict:
     return out
 
 
-# a dependent add's latency: one warp, `iters` rounds of four adds
-_CHAIN_CU = r"""
+# a dependent add's latency: one warp, `iters` rounds of four adds; and the
+# card's rate of random gathers: every thread sums x[idx[i]] over a stride
+# of the indices, eight loads in flight a thread
+_HELPER_CU = r"""
 #include <cuda_runtime.h>
 template <typename T>
 __global__ void chain(T* x, int iters, long long* cycles) {
@@ -227,7 +335,77 @@ extern "C" int chain_cycles(int f64, void* x, int iters, void* cycles) {
   else chain<float><<<1, 32>>>((float*)x, iters, (long long*)cycles);
   return (int)cudaDeviceSynchronize();
 }
+__global__ void gathers(const double* x, const int* idx, long long m,
+                        double* out) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  double acc = 0.0;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i + 7 * step < m; i += 8 * step) {
+    double v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = x[__ldcs(idx + i + u * step)];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += v[u];
+  }
+  for (; i < m; i += step) acc += x[idx[i]];
+  if (acc == -1.0) out[0] = acc;
+}
+extern "C" int gather_launch(const void* x, const void* idx, long long m,
+                             void* out, void* stream) {
+  gathers<<<132 * 8, 256, 0, (cudaStream_t)stream>>>(
+      (const double*)x, (const int*)idx, m, (double*)out);
+  return (int)cudaGetLastError();
+}
 """
+
+
+def _helper_lib():
+    """The helper kernels above, built with ``nvcc`` into the git-ignored
+    ``build/ab_edge_tile/`` of the tree that holds this script (again
+    whenever the source above differs from the one the library was built
+    from)."""
+    import ctypes
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build", "ab_edge_tile")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = (os.path.join(out_dir, f) for f in ("helper.cu", "helper.so"))
+    built_from = None
+    if os.path.exists(src) and os.path.exists(lib):
+        with open(src) as f:
+            built_from = f.read()
+    if built_from != _HELPER_CU:
+        with open(src + ".tmp.cu", "w") as f:
+            f.write(_HELPER_CU)
+        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "nvcc")
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                        lib + ".tmp", src + ".tmp.cu"], check=True,
+                       timeout=300)
+        os.replace(lib + ".tmp", lib)
+        os.replace(src + ".tmp.cu", src)
+    return ctypes.CDLL(lib)
+
+
+def _gather_ms(s_pre, src_idx, n) -> float:
+    """Device ms of the step's gathers alone: s_pre[src] for every real slot
+    of the format, in slot order, at the card's full occupancy (the helper
+    kernel above; CUDA events over ten launches)."""
+    import ctypes
+
+    import torch
+    fn = _helper_lib().gather_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    idx = src_idx.reshape(-1)
+    idx = idx[idx < n].contiguous()
+    out = torch.zeros(1, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        assert fn(s_pre.data_ptr(), idx.data_ptr(), idx.numel(),
+                  out.data_ptr(), stream) == 0
+    return _events_ms(launch, 10)
 
 
 def _chain_cycles() -> dict:
@@ -235,18 +413,7 @@ def _chain_cycles() -> dict:
     import ctypes
 
     import torch
-    out_dir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "build", "ab_edge_tile")
-    os.makedirs(out_dir, exist_ok=True)
-    src, lib = (os.path.join(out_dir, f) for f in ("chain.cu", "chain.so"))
-    with open(src, "w") as f:
-        f.write(_CHAIN_CU)
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                        "nvcc")
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-o", lib, src],
-                   check=True, timeout=300)
-    fn = ctypes.CDLL(lib).chain_cycles
+    fn = _helper_lib().chain_cycles
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     got = {}
@@ -286,7 +453,8 @@ def main() -> int:
     for letter in args.order:
         name, path = trees["AB".index(letter)]
         root = os.path.abspath(path)
-        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(root, "src"), root]))
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--worker"], cwd=root, env=env,
@@ -314,16 +482,28 @@ def main() -> int:
             f"{table[n][k]['median']:.5g} max {table[n][k]['max']:.5g}"
             for n, _ in trees) + f"  {b}/{a} of the minima {ratio[k]:.4g}")
     cycles, mhz = _chain_cycles(), _sm_clock_mhz()
-    last = runs[-1]
+    last = [r for r in runs if r["tree"] == b][-1]      # the second tree's
     degrees = {"twitter": last["twitter_max_in_degree"],
                **{b: last[f"{b}_bucket"]["max_in_degree"] for b in BUCKETS}}
     chain = {shape: deg * cycles["f32"] / (mhz * 1e3)
              for shape, deg in degrees.items()}
+    model = last["g500_model"]
+    degrees["g500"] = model["max_in_degree"]
+    chain["g500"] = model["max_in_degree"] * cycles["f64"] / (mhz * 1e3)
+    model["serial_path_ms"] = (model["serial_slots"] * cycles["f64"]
+                               / (mhz * 1e3) / model["resident_ctas"])
     print(f"dependent add: f32 {cycles['f32']:.3f} cycles, f64 "
           f"{cycles['f64']:.3f} cycles; SM clock {mhz:g} MHz; chain bound "
-          f"(f32, longest in-degree): " + ", ".join(
+          f"(longest in-degree; g500 at f64, the others at f32): " + ", ".join(
               f"{k} {degrees[k]} in-edges {v:.5f} ms"
               for k, v in chain.items()))
+    print(f"g500 ring model: {model['serial_slots']} of "
+          f"{model['real_slots']} real slots on the serial fold path "
+          f"({model['serial_share']:.4f}) over {model['stages']} stages of "
+          f"{model['sblk']} blocks: {model['serial_path_ms']:.4f} ms of "
+          f"dependent f64 adds over {model['resident_ctas']} resident CTAs; "
+          f"row-path share ({b}): {model['row_path_share']}; the step's "
+          f"{model['real_slots']} gathers alone: {model['gather_ms']:.4f} ms")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -331,7 +511,8 @@ def main() -> int:
             json.dump({"card": _smi(), "order": args.order, "runs": runs,
                        "table": table, "ratio_of_minima": ratio,
                        "add_cycles": cycles, "sm_clock_mhz": mhz,
-                       "max_in_degree": degrees, "chain_bound_ms": chain},
+                       "max_in_degree": degrees, "chain_bound_ms": chain,
+                       "g500_model": model},
                       f, indent=1)
     return 0
 
