@@ -401,6 +401,13 @@ CHAOS_SOLVER_TOL = 1e-13
 # over MOE_FORWARD (a multiple of the 512 q block, as the banded schedule
 # needs); one AdamW step at 1 layer, batch 1 x MOE_TRAIN_SEQ. (d) one layer
 # each of LM_WIDE_ARCHS at full width: prefill 1 x LM_WIDE_PROMPT, one decode.
+# (e) mimo-v2-flash at the benchmark cell's cut (published layers 0 and 6-11,
+# 16 of 256 experts held), bf16: MIMO_SESSIONS sessions of MIMO_HISTORY
+# tokens prefilled into their rows of the cache a kind, one MIMO_TURN-step
+# turn of forced tokens against the plain reference at f64, judged by the
+# cell's own `numbers` (gpubench/entries/lm_decode.py) and limits
+# (gpubench/configs/mimo-v2-flash-ep16.json); and the turn replayed bit for
+# bit after a rewind.
 LM_CLI_STEPS = 5
 LM_FIXED = (8, 1024)
 LM_FIXED_STEPS = 5
@@ -420,6 +427,9 @@ MOE_FORWARD = 10752
 MOE_TRAIN_SEQ = 2048
 LM_WIDE_ARCHS = ("yi-9b", "nemotron-4-340b", "mixtral-8x22b")
 LM_WIDE_PROMPT = 512
+MIMO_SESSIONS = 2
+MIMO_HISTORY = 2048
+MIMO_TURN = 16
 
 # The recsys path (phase_recsys), MIND at the JAX config's full width. (a)
 # the trainer CLI at train_batch for RECSYS_CLI_STEPS steps; (b) one step on
@@ -3689,9 +3699,93 @@ def lm_widths(out: dict, dev: str = "cuda") -> None:
     _free()
 
 
+def lm_mimo(out: dict, dev: str = "cuda", spec=None,
+            layers=(0, 6, 7, 8, 9, 10, 11)) -> None:
+    """(e) ``mimo-v2-flash`` at the cell's cut through ``make_prefill`` and
+    ``make_decode_step`` with the cache a kind, against the plain
+    reference; ``spec`` replaces the published config (a CPU dry run passes
+    ``mimo_v2_flash.REDUCED`` and its seven layers)."""
+    import torch
+    from gpubench.harness import load_file
+    from repro_torch.configs import mimo_v2_flash
+    from repro_torch.models.transformer import (hybrid, init_cache,
+                                                init_params,
+                                                make_decode_step,
+                                                make_prefill)
+    from repro_torch.models.transformer import mimo_reference
+    _free()
+    t0 = time.perf_counter()
+    spec = dict(spec or mimo_v2_flash.PUBLISHED, layers=list(layers))
+    cfg = mimo_v2_flash.from_config(spec, layers=layers, n_held=16)
+    params = init_params(cfg, 7, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    hist = torch.randint(0, cfg.vocab, (MIMO_SESSIONS, MIMO_HISTORY),
+                         generator=g, device=dev)
+    forced = torch.randint(0, cfg.vocab, (MIMO_SESSIONS, MIMO_TURN),
+                           generator=g, device=dev)
+    cache = init_cache(cfg, MIMO_SESSIONS, MIMO_HISTORY + MIMO_TURN,
+                       device=dev)
+    prefill, decode = make_prefill(cfg), make_decode_step(cfg)
+    for r in range(MIMO_SESSIONS):
+        prefill(params, hist[r:r + 1], cache, [r])
+    snap = hybrid.snapshot(cache, cfg)
+
+    routes: list = []
+
+    def turn():
+        routes.clear()
+        return torch.stack([decode(params, cache, forced[:, j], routes)[1]
+                            for j in range(MIMO_TURN)], 1)
+
+    got, turn_ms = _timed(turn)
+    hybrid.rewind(cache, snap, MIMO_TURN)
+    check(torch.equal(turn(), got), "lm mimo: the rewound turn differs")
+    # [sessions, turn, routed layers, top_k]
+    picked = torch.stack(routes).reshape(MIMO_TURN, -1, *routes[0].shape)
+    picked = picked.permute(2, 0, 1, 3)
+    pub = hybrid.to_published(params, cfg)
+    held = (cfg.moe.first_held, cfg.moe.held)
+    refs = []
+    for r in range(MIMO_SESSIONS):
+        ref_routes: list = []
+        want = mimo_reference.forward(
+            pub, torch.cat([hist[r], forced[r]]), spec, held,
+            dtype=torch.float64, last=MIMO_TURN, routes=ref_routes)
+        refs.append(dict(
+            logits=want.cpu().numpy(),
+            pick=torch.stack([p for p, _ in ref_routes], 1).cpu().numpy(),
+            select=torch.stack([x for _, x in ref_routes], 1).cpu().numpy(),
+            held=held))
+    cell = ROOT / "gpubench"
+    entry = load_file(cell / "entries" / "lm_decode.py", "entry")
+    limits = json.loads((cell / "configs" / "mimo-v2-flash-ep16.json")
+                        .read_text())["limits"]
+    served = entry.Served(tokens=None, logits=got.double().cpu().numpy(),
+                          routes=picked.cpu().numpy())
+    rows, got_numbers = entry.rows(served, refs), entry.numbers(
+        served, refs, None, None)
+    for name, value in got_numbers.items():
+        check(value <= limits[name], f"lm mimo: {name} {value:.3e} > "
+              f"{limits[name]}")
+    med, apart = float(np.median(rows["rel"])), int(rows["held"].sum())
+    out["mimo"] = dict(got_numbers, logits_rel_median=med, rows_apart=apart,
+                       turn_ms=turn_ms, peak_gib=_peak_gib(),
+                       s=time.perf_counter() - t0)
+    say(f"lm mimo-v2-flash (layers {tuple(layers)}, 16 experts held): "
+        f"{MIMO_SESSIONS} x {MIMO_HISTORY} prefilled, a {MIMO_TURN}-step turn "
+        f"{turn_ms:.1f} ms; against the f64 reference: logits rel "
+        f"{got_numbers['logits_rel']:.3e} (the median of all rows {med:.3e}; "
+        f"{apart} rows sent to another held expert), route gap "
+        f"{got_numbers['route_gap']:.3e}; peak {_peak_gib():.2f} GiB, "
+        f"{out['mimo']['s']:.1f} s")
+    del params, cache, snap, pub
+    _free()
+
+
 def phase_lm(report: dict) -> None:
     """The LM family on the card (no kernel of the port runs on it):
-    :func:`lm_train`, :func:`lm_serve`, :func:`lm_moe`, :func:`lm_widths`."""
+    :func:`lm_train`, :func:`lm_serve`, :func:`lm_moe`, :func:`lm_widths`,
+    :func:`lm_mimo`."""
     t0 = time.perf_counter()
     out: dict = {}
     _free()
@@ -3699,6 +3793,7 @@ def phase_lm(report: dict) -> None:
     lm_serve(out)
     lm_moe(out)
     lm_widths(out)
+    lm_mimo(out)
     out["path_s"] = time.perf_counter() - t0
     say(f"lm: path {out['path_s']:.1f} s")
     report["lm"] = out

@@ -1,3 +1,3 @@
-from .registry import ShapeCfg, ArchEntry, get_arch, ARCHS
+from .registry import ShapeCfg, ArchEntry, get_arch, ARCHS, PORT_ARCHS
 
-__all__ = ["ShapeCfg", "ArchEntry", "get_arch", "ARCHS"]
+__all__ = ["ShapeCfg", "ArchEntry", "get_arch", "ARCHS", "PORT_ARCHS"]

@@ -4,7 +4,9 @@ The JAX package's registry, every arch of it: the paper's ``psi-score``,
 the GNN family (``pna``, ``equiformer-v2``, ``nequip``,
 ``graphsage-reddit``), the LM family (``tinyllama-1.1b``, ``yi-9b``,
 ``nemotron-4-340b``, ``mixtral-8x22b``, ``mixtral-8x7b``) and the recsys
-family (``mind``).
+family (``mind``). :data:`PORT_ARCHS` holds the archs the port serves
+and the JAX package has no counterpart of (``mimo-v2-flash``);
+:func:`get_arch` resolves both.
 ``reduced=True`` returns the CPU-smoke variant of the same family.
 """
 from __future__ import annotations
@@ -13,7 +15,7 @@ import dataclasses
 import importlib
 from typing import Any
 
-__all__ = ["ShapeCfg", "ArchEntry", "get_arch", "ARCHS"]
+__all__ = ["ShapeCfg", "ArchEntry", "get_arch", "ARCHS", "PORT_ARCHS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +114,17 @@ ARCHS: dict[str, ArchEntry] = {
 }
 
 
+#: the port's own archs: no shape cells (the benchmark's ``gpubench/`` cuts
+#: them to a card)
+PORT_ARCHS: dict[str, ArchEntry] = {
+    "mimo-v2-flash": ArchEntry("mimo-v2-flash", "lm",
+                               "repro_torch.configs.mimo_v2_flash", ()),
+}
+
+
 def get_arch(arch_id: str) -> ArchEntry:
-    if arch_id not in ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCHS)}")
-    return ARCHS[arch_id]
+    entry = ARCHS.get(arch_id) or PORT_ARCHS.get(arch_id)
+    if entry is None:
+        raise KeyError(f"unknown arch {arch_id!r}; have "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
+    return entry

@@ -9,7 +9,10 @@ generation, and MIND's interests and retrieval.
         --executor sync --device cpu
 
 ``--arch <lm arch>`` (``tinyllama-1.1b``, ``yi-9b``, ``nemotron-4-340b``,
-``mixtral-8x22b``, ``mixtral-8x7b``) serves the JAX launcher's LM loop
+``mixtral-8x22b``, ``mixtral-8x7b``, and the port's own ``mimo-v2-flash``,
+whose cache holds a kind of attention layer a tensor: no ``--shape``
+cell, the benchmark's ``mimo.decode`` cuts it to a card) serves the JAX
+launcher's LM loop
 (:func:`serve_lm`): ``--requests`` batches of ``--batch`` random 16-token
 prompts (numpy seed 1), each prefilled and then decoded greedily (argmax) to
 ``--gen-len`` tokens, on the reduced config, each request's prefill ms and
@@ -643,10 +646,16 @@ def serve_lm(arch: str, requests: int, device, *, shape: str | None = None,
         out["tokens"].append(toks_out)
         out["prefill_ms"].append(pre_ms)
         out["decode_ms"].append(dec_ms)
-    out.update(cache=cache, logits=logits,
-               cache_bytes=sum(cache[k].numel() * cache[k].element_size()
-                               for k in ("k", "v", "pos")))
+    out.update(cache=cache, logits=logits, cache_bytes=_tensor_bytes(cache))
     return out
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a (nested) dict."""
+    import torch
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(x) for x in tree.values())
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
 
 
 RECSYS_CANDIDATES = 1000       # the JAX launcher's candidates a request
@@ -743,10 +752,10 @@ def serve_recsys(arch: str, requests: int, device, *,
 
 
 def main(argv=None):
-    from ..configs import ARCHS
+    from ..configs import ARCHS, PORT_ARCHS, get_arch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    choices=[a for a, e in ARCHS.items()
+                    choices=[a for a, e in {**ARCHS, **PORT_ARCHS}.items()
                              if e.family in ("psi", "lm", "recsys")],
                     help="psi-score, an LM arch (prefill + greedy decode) "
                          "or mind (interests + retrieval)")
@@ -854,12 +863,12 @@ def main(argv=None):
                          "stream to this path (+ hotspot/critical-path "
                          "epilogue)")
     args = ap.parse_args(argv)
-    family = ARCHS[args.arch].family
+    family = get_arch(args.arch).family
     if args.shape and family not in ("lm", "recsys"):
         raise SystemExit(f"--shape: {args.arch} has no serving cell")
     if args.shape:
         try:
-            ARCHS[args.arch].shape(args.shape)
+            get_arch(args.arch).shape(args.shape)
         except KeyError as exc:
             raise SystemExit(f"--shape {args.shape}: {exc.args[0]}") from None
     if family == "recsys":

@@ -110,6 +110,31 @@ class LMConfig:
         return self.n_kv_heads * self.head_dim
 
 
+def _serves_hybrid(fn):
+    """``fn``; for a hybrid decoder's config (:class:`.hybrid.HybridConfig`)
+    :mod:`.hybrid`'s function of the same name, given the same arguments
+    but ``mesh`` (a hybrid decoder runs on one device). The one place where
+    the family's entry points fork."""
+    import inspect
+    sig = inspect.signature(fn)
+    at = list(sig.parameters).index("cfg")
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        from . import hybrid
+        cfg = args[at] if len(args) > at else kwargs["cfg"]
+        if not isinstance(cfg, hybrid.HybridConfig):
+            return fn(*args, **kwargs)
+        bound = sig.bind(*args, **kwargs).arguments
+        if bound.pop("mesh", None) is not None:
+            raise NotImplementedError(f"{cfg.name}: a hybrid decoder runs "
+                                      "on one device (no mesh)")
+        return getattr(hybrid, fn.__name__)(**bound)
+
+    return call
+
+
+@_serves_hybrid
 def count_params(cfg: LMConfig) -> int:
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
     attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
@@ -211,6 +236,7 @@ def shard_params(params: dict, cfg: LMConfig, mesh) -> dict:
                     .requires_grad_(), params, param_specs(cfg))
 
 
+@_serves_hybrid
 def init_params(cfg: LMConfig, seed: int = 0, *,
                 device: str | torch.device = "cuda", mesh=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
@@ -218,7 +244,9 @@ def init_params(cfg: LMConfig, seed: int = 0, *,
     over with :func:`repro_torch.convert.lm_params_from_numpy`). Every leaf
     is a tensor that requires grad. With a mesh each leaf is drawn at this
     rank's shard shape (the same scales; not the numbers of a slice of the
-    one-device draw: use :func:`shard_params` for those)."""
+    one-device draw: use :func:`shard_params` for those). A hybrid
+    decoder's config draws :func:`.hybrid.init_params`' tree (one device,
+    no mesh)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pd = cfg.param_dtype
@@ -336,28 +364,49 @@ def _moe_ffn(x, lp, cfg: LMConfig, drops: list | None = None, mesh=None):
     gates = gates / gates.sum(-1, keepdim=True)
     cap = max(8, int(K * tl / E * moe.capacity_factor))
 
+    def experts(h):
+        w1 = _w(lp, "w1", cfg, mesh)
+        if cfg.act == "swiglu":
+            hh = F.silu(torch.bmm(h, w1)) * torch.bmm(h, _w(lp, "w3", cfg,
+                                                            mesh))
+        else:
+            hh = torch.square(F.relu(torch.bmm(h, w1)))
+        return torch.bmm(hh, _w(lp, "w2", cfg, mesh))
+
+    out, counts = sorted_dispatch(xf, eidx, gates, E, cap, experts, mesh)
+    if drops is not None:
+        drops.append(torch.clamp(counts - cap, min=0))
+    return out.reshape(b, s, d)
+
+
+def sorted_dispatch(xf, eidx, gates, n_experts: int, cap: int, experts,
+                    mesh=None):
+    """Each (token, k) route of ``eidx`` i64[T, K] through its expert, the
+    routes sorted by expert id (stable): an expert's first ``cap`` routes
+    fill its buffer rows in token order, ``experts(h [E, cap, d]) → [E,
+    cap, d]`` runs every buffer, and each token's K rows, weighted by their
+    ``gates``, are summed in k order (no atomics). A route past its
+    expert's capacity, or to the id ``n_experts`` (an expert held
+    elsewhere), reads a zero row. → (out [T, d], routes an expert
+    i64[n_experts])."""
+    E = n_experts
+    tl, K = eidx.shape
+    d = xf.shape[1]
     flat_e = eidx.reshape(-1)                             # [K·T]
     order = torch.argsort(flat_e, stable=True)
     tok = order // K
     sorted_e = flat_e[order]
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=x.device).scatter_add_(
+    counts = torch.zeros(E + 1, dtype=flat_e.dtype,
+                         device=xf.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(K * tl, device=x.device) - starts[sorted_e]
-    keep = pos < cap
+    pos = torch.arange(K * tl, device=xf.device) - starts[sorted_e]
+    keep = (pos < cap) & (sorted_e < E)
     slot = torch.where(keep, sorted_e * cap + pos, E * cap)
-    if drops is not None:
-        drops.append(torch.clamp(counts - cap, min=0))
 
-    buf = x.new_zeros(E * cap + 1, d).index_put((slot,),
-                                                to_tp(xf, mesh)[tok])
-    h = buf[:E * cap].reshape(E, cap, d)
-    w1 = _w(lp, "w1", cfg, mesh)
-    if cfg.act == "swiglu":
-        hh = F.silu(torch.bmm(h, w1)) * torch.bmm(h, _w(lp, "w3", cfg, mesh))
-    else:
-        hh = torch.square(F.relu(torch.bmm(h, w1)))
-    y = torch.bmm(hh, _w(lp, "w2", cfg, mesh)).reshape(E * cap, d)
+    buf = xf.new_zeros(E * cap + 1, d).index_put((slot,),
+                                                 to_tp(xf, mesh)[tok])
+    y = experts(buf[:E * cap].reshape(E, cap, d)).reshape(E * cap, d)
     y = torch.cat([y, y.new_zeros(1, d)], 0)
     # the gates enter the TP region at the wider of their float32 and the
     # activations' dtype: each rank's share of their cotangent is summed
@@ -367,9 +416,9 @@ def _moe_ffn(x, lp, cfg: LMConfig, drops: list | None = None, mesh=None):
     gath = y[slot] * w.to(y.dtype)
     # each token's K rows back in (token, k) order, summed over k in order
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(K * tl, device=x.device)
+    inv[order] = torch.arange(K * tl, device=xf.device)
     out = gath[inv].reshape(tl, K, d).sum(1)
-    return from_tp(out, mesh).reshape(b, s, d)
+    return from_tp(out, mesh), counts[:E]
 
 
 def _dense_ffn(x, lp, cfg: LMConfig, mesh=None):
@@ -461,13 +510,15 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # Forward (train / prefill)
 # --------------------------------------------------------------------- #
+@_serves_hybrid
 def forward(params, tokens, cfg: LMConfig, mesh=None, *, positions=None,
             moe_drops: list | None = None):
     """tokens: i64[B, S] → logits [B, S, V] in ``LOGITS_DTYPE`` (with a
     mesh: this rank's rows and its ``V / mo`` vocabulary columns).
     ``moe_drops``: a list that each MoE layer appends its dropped
     assignments per expert to (a rematerialised layer appends again when
-    the backward recomputes it)."""
+    the backward recomputes it). A hybrid decoder's config runs
+    :func:`.hybrid.forward` (no mesh, no autograd)."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg, mesh)
     if positions is None:
@@ -574,11 +625,13 @@ def make_train_step(cfg: LMConfig, optimizer, mesh=None):
 # --------------------------------------------------------------------- #
 # Serving: prefill + decode with (rolling) KV cache
 # --------------------------------------------------------------------- #
+@_serves_hybrid
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                device: str | torch.device = "cuda", mesh=None):
     """Cache length = sliding window when set (rolling buffer), else
     max_len. With a mesh, this rank's shard (:func:`cache_specs`) of the
-    cache of a global ``batch``."""
+    cache of a global ``batch``. A hybrid decoder's config gets a cache a
+    kind (:func:`.hybrid.init_cache`)."""
     dev = resolve_device(device)
     batch = local_batch(batch, mesh)
     c = min(max_len, cfg.sliding_window or max_len)
@@ -589,6 +642,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                 t=0)
 
 
+@_serves_hybrid
 def make_prefill(cfg: LMConfig, mesh=None, *, max_len: int | None = None,
                  moe_drops: list | None = None):
     """prefill(params, tokens[B, S]) → (cache, logits[B, V] of last token).
@@ -599,7 +653,9 @@ def make_prefill(cfg: LMConfig, mesh=None, *, max_len: int | None = None,
     ``max_len`` sizes the cache for subsequent decoding (defaults to the
     prompt length — the pure-prefill benchmark shape). ``moe_drops`` as in
     :func:`forward`. With a mesh, ``tokens`` are this rank's rows, the cache
-    its shard and the logits its vocabulary columns.
+    its shard and the logits its vocabulary columns. A hybrid decoder's
+    config gets :func:`.hybrid.make_prefill`'s, which also writes sessions
+    into given rows of a cache.
     """
 
     @torch.no_grad()
@@ -631,6 +687,7 @@ def make_prefill(cfg: LMConfig, mesh=None, *, max_len: int | None = None,
     return prefill
 
 
+@_serves_hybrid
 def make_decode_step(cfg: LMConfig, mesh=None):
     """decode(params, cache, token[B]) → (cache, logits[B, V]).
 
@@ -640,7 +697,8 @@ def make_decode_step(cfg: LMConfig, mesh=None):
     position are written into ``cache`` in place, and ``cache`` itself is
     returned with ``t`` advanced (the JAX step is functional). To continue
     one cache two ways, decode the second way from a copy of its tensors.
-    With a mesh, as :func:`make_prefill`.
+    With a mesh, as :func:`make_prefill`. A hybrid decoder's config gets
+    :func:`.hybrid.make_decode_step`'s (a position a row).
     """
 
     @torch.no_grad()

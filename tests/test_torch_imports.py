@@ -69,7 +69,9 @@ SLICE_MODULES = [
     "repro_torch.kernels.agg", "repro_torch.models.recsys",
     "repro_torch.models.recsys.embedding", "repro_torch.models.recsys.mind",
     "repro_torch.configs.mind", "repro_torch.models.transformer.parallel",
-    "repro_torch.launch.dryrun",
+    "repro_torch.launch.dryrun", "repro_torch.models.transformer.hybrid",
+    "repro_torch.models.transformer.mimo_reference",
+    "repro_torch.configs.mimo_v2_flash",
 ]
 
 
