@@ -21,7 +21,9 @@ on the first check that does not hold:
    inputs (outputs must be bitwise equal); ``bsr_spmv`` on one-byte tiles
    also bitwise against the same tiles in the working dtype, and the fused
    ``bsr_step`` bitwise against the composition it replaces (``s_new``;
-   the gap within GAP_RTOL);
+   the gap within GAP_RTOL); ``decode_attn`` at the ``mimo.decode`` cell's
+   full-layer shape against its plain version, every slot past a row's
+   position NaN, bitwise on a second launch, timed beside its bound;
 3. the serving path in the ``edge_tile`` regime: ``PsiService`` on the
    twitter stand-in with ``backend="cuda"`` through a cold solve, ranked
    requests, an activity update, an edge insert into free sentinel slots
@@ -152,7 +154,8 @@ Seven more main paths run after the fleet, before the times:
   folded-stacks file).
 
 * ``lm``: the LM family (``train`` and ``serve --arch <lm>``) at full
-  width; no kernel of the port runs on it. (a) ``tinyllama-1.1b`` whole:
+  width; of the port's kernels only ``decode_attn`` runs on it (MiMo's
+  full layers, ``lm_mimo``). (a) ``tinyllama-1.1b`` whole:
   ``repro_torch.launch.train --arch tinyllama-1.1b --shape train_4k --steps
   5`` (seq 4,096, batch cut from 256 to 8, 4 microbatches, AdamW; every loss
   finite), 5 steps on one fixed batch (8 × 1,024; the loss must fall), one
@@ -430,6 +433,16 @@ LM_WIDE_PROMPT = 512
 MIMO_SESSIONS = 2
 MIMO_HISTORY = 2048
 MIMO_TURN = 16
+
+# decode_attn at the mimo.decode cell's shape (a full layer of
+# gpubench/configs/mimo-v2-flash-ep16.json): 128 sessions, 4 KV heads of
+# 16 query heads, 32,784 slots, Dk 192 / Dv 128, histories log-uniform over
+# 1,024-32,768; held to its plain version an entry at a time within
+# DECODE_ATTN_RTOL x (|plain| + the head's rms) (tests/
+# test_torch_decode_attn.py says why)
+DECODE_ATTN_SHAPE = dict(b=128, hq=64, hkv=4, c=32784, dk=192, dv=128)
+DECODE_ATTN_HISTORY = (1024, 32768)
+DECODE_ATTN_RTOL = 2.0 ** -6
 
 # The recsys path (phase_recsys), MIND at the JAX config's full width. (a)
 # the trainer CLI at train_batch for RECSYS_CLI_STEPS steps; (b) one step on
@@ -785,6 +798,86 @@ def phase_kernels(report: dict) -> None:
     bsr_cases(report, clustered)
     edge_spmv_cases(report, twitter)
     seg_mm_cases(report)
+    decode_attn_case(report)
+
+
+def decode_attn_inputs(seed: int = 0, shape=None, history=None):
+    """q, kc, vc, q_pos and the live slots at the cell's shape: N(0, 1)
+    bf16 entries drawn on the card, each row at a position log-uniform over
+    ``DECODE_ATTN_HISTORY`` (its history's length)."""
+    import torch
+    sh = dict(DECODE_ATTN_SHAPE, **(shape or {}))
+    lo, hi = history or DECODE_ATTN_HISTORY
+    rng = np.random.default_rng(seed)
+    pos = np.exp(rng.uniform(np.log(lo), np.log(hi), sh["b"])).astype(np.int64)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, hq, hkv, c = sh["b"], sh["hq"], sh["hkv"], sh["c"]
+
+    def draw(*size):
+        return torch.randn(*size, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q = draw(b, 1, hq, sh["dk"])
+    kc, vc = draw(b, hkv, c, sh["dk"]), draw(b, hkv, c, sh["dv"])
+    q_pos = torch.as_tensor(np.minimum(pos, c - 1), device="cuda")[:, None]
+    live = int((q_pos + 1).sum())
+    return q, kc, vc, q_pos, live
+
+
+def _decode_attn_share(got, want, dv) -> float:
+    """The worst entry's error as a share of ``DECODE_ATTN_RTOL (|plain| +
+    the head's rms)``."""
+    got, want = got.float(), want.float()
+    heads = want.reshape(*want.shape[:-1], -1, dv)
+    rms = heads.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (got.reshape(heads.shape) - heads).abs()
+    return float((err / (DECODE_ATTN_RTOL * (heads.abs() + rms))).max())
+
+
+def decode_attn_case(report: dict) -> None:
+    """decode_attn at the cell's shape against its plain version (every
+    slot past a row's position NaN for the kernel, so a read of one would
+    show), bitwise on a second launch, then ms a launch (CUDA events and
+    device time) beside its bound (the live keys and values, queries and
+    output at 3.35 TB/s) and the plain version's."""
+    import torch
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_plain)
+    q, kc, vc, q_pos, live = decode_attn_inputs()
+    sh = DECODE_ATTN_SHAPE
+    want = decode_attention_plain(q, kc, vc, q_pos, v_scale=0.707)
+    plain_ms = time_ms(lambda: decode_attention_plain(q, kc, vc, q_pos,
+                                                      v_scale=0.707), 3)
+    for r, p in enumerate(q_pos[:, 0].tolist()):
+        kc[r, :, p + 1:] = float("nan")
+        vc[r, :, p + 1:] = float("nan")
+    got = decode_attention(q, kc, vc, q_pos, v_scale=0.707)
+    again = decode_attention(q, kc, vc, q_pos, v_scale=0.707)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "decode_attn: non-finite output")
+    check(torch.equal(got, again), "decode_attn: two launches differ")
+    share = _decode_attn_share(got, want, sh["dv"])
+    check(share <= 1.0, f"decode_attn: an entry is {share:.3g}x its limit")
+    ms, dev_ms = both_ms(
+        lambda: decode_attention(q, kc, vc, q_pos, v_scale=0.707), 20)
+    nbytes = 2 * (live * sh["hkv"] * (sh["dk"] + sh["dv"])
+                  + sh["b"] * sh["hq"] * (sh["dk"] + sh["dv"]))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    report["decode_attn_row"] = dict(
+        name="decode_attn", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attn.cu",
+        replaces="none (the JAX package leaves attention to XLA)",
+        max_share=share, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by="bytes")
+    say(f"decode_attn (the mimo.decode cell's full layer: {sh['b']} rows, "
+        f"{sh['hkv']} x {sh['hq'] // sh['hkv']} heads, C {sh['c']}, "
+        f"{live} live slots of {sh['b'] * sh['c']}): {ms:.4f} ms/launch by "
+        f"CUDA events ({dev_ms:.4f} ms of device time), bound {bound:.4f} "
+        f"ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s; {bound / dev_ms:.1%} of "
+        f"it), plain {plain_ms:.3f} ms; worst entry {share:.3f} of its "
+        f"limit, bitwise on a second launch")
+    del q, kc, vc, want, got, again
+    _free()
 
 
 def bsr_cases(report: dict, clustered) -> None:
@@ -3783,7 +3876,8 @@ def lm_mimo(out: dict, dev: str = "cuda", spec=None,
 
 
 def phase_lm(report: dict) -> None:
-    """The LM family on the card (no kernel of the port runs on it):
+    """The LM family on the card (of the port's kernels only
+    ``decode_attn``, in :func:`lm_mimo`):
     :func:`lm_train`, :func:`lm_serve`, :func:`lm_moe`, :func:`lm_widths`,
     :func:`lm_mimo`."""
     t0 = time.perf_counter()
@@ -4435,6 +4529,8 @@ def phase_times(report: dict) -> list[dict]:
             kernel)
     rows += seg_mm_times(report)
     rows += fleet_times(report)
+    rows.append(dict(report["decode_attn_row"],
+                     launches=report["launches"]["lm"]["decode_attn"]))
     return rows
 
 
@@ -5056,6 +5152,7 @@ def main() -> int:
     from repro_torch.kernels.power_step import (power_step_call,
                                                 power_step_lanes_call)
     from repro_torch.kernels.seg_mm import seg_mm_call
+    from repro_torch.kernels.decode_attn import decode_attention
     # float32 products and convolutions in full float32 on the card (the
     # references the checks compare with are float32 or float64)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5066,7 +5163,8 @@ def main() -> int:
                 "bsr_step": bsr_step_call, "edge_spmv": edge_spmv_call,
                 "seg_mm": seg_mm_call,
                 "power_step_lanes": power_step_lanes_call,
-                "edge_spmv_lanes": edge_spmv_lanes_call}
+                "edge_spmv_lanes": edge_spmv_lanes_call,
+                "decode_attn": decode_attention}
     # each main path and the kernels it must launch; the microbench path
     # times every candidate's bare push (edge_spmv, bsr_spmv on the
     # clustered graph) and then solves with the step of each plan it picks
@@ -5091,7 +5189,7 @@ def main() -> int:
              ("driver", phase_driver, ()),
              ("chaos", phase_chaos, ("power_step", "edge_spmv",
                                      "power_step_lanes", "edge_spmv_lanes")),
-             ("lm", phase_lm, ()),
+             ("lm", phase_lm, ("decode_attn",)),
              ("recsys", phase_recsys, ("seg_mm",)),
              ("dryrun", phase_dryrun, ("seg_mm",))]
     pool = None

@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("power_step", "bsr_spmv", "edge_spmv", "seg_mm")
+SOURCES = ("power_step", "bsr_spmv", "edge_spmv", "seg_mm", "decode_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -43,8 +43,15 @@ attention sub-layer) and ``lm.moe`` (a routed FFN), each waiting for its
 output while a tracer is live (``Span.sync``). Counters, read only then (the
 read waits for the device): ``lm_moe_routes_held`` (routes that land on a
 held expert) and ``lm_moe_experts_idle`` (held experts a routed layer's
-step sends no token). Gauge ``lm_kv_cache_bytes{kind}``, set when a cache
-is built.
+step sends no token); gauge ``lm_decode_attn_least_bytes`` (the least bytes
+of one full layer's decode attention, :func:`~repro_torch.kernels.
+decode_attn.least_bytes`). Gauge ``lm_kv_cache_bytes{kind}``, set when a
+cache is built.
+
+A full kind's decode attention on a bf16 cache on a card is the kernel
+:func:`~repro_torch.kernels.decode_attn.decode_attention` (each row's
+slots up to its own position); a windowed kind, another dtype or a CPU
+tensor takes :func:`~.attention.cached_attention`.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
+from ...kernels import decode_attn
 from ...obs import metrics as obs_metrics
 from ...obs import trace as obs_trace
 from .attention import attention, cached_attention
@@ -65,9 +73,9 @@ __all__ = ["AttnKind", "RoutedMoE", "HybridConfig", "param_shapes",
            "forward", "init_cache", "make_prefill", "make_decode_step",
            "snapshot", "rewind", "cache_bytes"]
 
-#: the float32 widened keys of one chunk of decode rows (bytes):
-#: :func:`cached_attention` goes through a full kind's rows in chunks of
-#: this size, so its temporaries do not scale with the batch
+#: the float32 widened keys of one chunk of decode rows (bytes): where a
+#: decode step takes :func:`cached_attention`, it goes through the rows in
+#: chunks of this size, so its temporaries do not scale with the batch
 DECODE_CHUNK_BYTES = 1 << 31
 
 #: init scales of the two float32 vectors (the other leaves: 1/√d_in)
@@ -347,6 +355,13 @@ def _count_routes(counts) -> None:
                         "token").inc(sum(1 for n in c if n == 0))
 
 
+def _gauge_least_bytes(q, kc, vc, q_pos) -> None:
+    obs_metrics.gauge("lm_decode_attn_least_bytes",
+                      "least bytes of one decode-attention launch: each "
+                      "row's live keys and values, the queries and the "
+                      "output").set(decode_attn.least_bytes(q, kc, vc, q_pos))
+
+
 def _sequence(params, tokens, cfg: HybridConfig, on_kv=None):
     """The layers over whole sequences: → x [B, S, d]. Past ``q_block``
     tokens the sequence is padded on the right to a multiple of it (token
@@ -501,15 +516,23 @@ def make_decode_step(cfg: HybridConfig):
                     kc, vc = c["k"][a], c["v"][a]
                     kc[rows, :, slot] = k[:, 0]
                     vc[rows, :, slot] = v[:, 0]
-                    per_row = kind.n_kv_heads * kc.shape[2] * \
-                        cfg.qk_head_dim * 4
-                    o = cached_attention(
-                        q, kc, vc, qp, c["pos"], window=kind.window,
-                        rows=max(1, DECODE_CHUNK_BYTES // per_row),
-                        **_attn_extra(ap, a, kind, cfg))
+                    if kind.window is None and kc.is_cuda and \
+                            kc.dtype == torch.bfloat16:
+                        o = decode_attn.decode_attention(
+                            q, kc, vc, qp, **_attn_extra(ap, a, kind, cfg))
+                    else:
+                        per_row = kind.n_kv_heads * kc.shape[2] * \
+                            cfg.qk_head_dim * 4
+                        o = cached_attention(
+                            q, kc, vc, qp, c["pos"], window=kind.window,
+                            rows=max(1, DECODE_CHUNK_BYTES // per_row),
+                            **_attn_extra(ap, a, kind, cfg))
                     x = x + o @ ap["wo"][a]
                     if sa is not None and live:
                         sa.sync(x)
+                if kind.window is None and live:     # its read waits:
+                    # kept out of the span that full_attn_ms reads
+                    _gauge_least_bytes(q, kc, vc, qp)
                 fp = params["ffn"][f]
                 h = _rms_norm(x, fp["norm"][j], cfg.norm_eps)
                 if f == "dense":

@@ -71,7 +71,7 @@ SLICE_MODULES = [
     "repro_torch.configs.mind", "repro_torch.models.transformer.parallel",
     "repro_torch.launch.dryrun", "repro_torch.models.transformer.hybrid",
     "repro_torch.models.transformer.mimo_reference",
-    "repro_torch.configs.mimo_v2_flash",
+    "repro_torch.configs.mimo_v2_flash", "repro_torch.kernels.decode_attn",
 ]
 
 
